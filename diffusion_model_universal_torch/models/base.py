@@ -1,0 +1,100 @@
+"""Base diffusion-model contract of the port (counterpart of the
+reference's ``models/base.py``).
+
+A model object holds its configuration, its device, its noise-prediction
+network ``net`` (an ``nn.Module`` in ``eval()``) and the compute dtype of
+the network's conv and Linear weights. Checkpoints use the reference's
+model-only pickle, ``{model_state_dict, config}``, whose state dict is the
+flax parameter tree as nested dicts of numpy arrays; both packages read
+and write the same file.
+"""
+
+from __future__ import annotations
+
+import pickle
+from pathlib import Path
+from typing import Dict, Optional, Tuple, Union
+
+import torch
+
+from ..utils.config import canonicalize_model_config
+from .convert import unet_params_to_jax, unet_state_dict_from_jax
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
+    """The device to run on: ``cuda`` unless the caller names another.
+
+    Raises if CUDA is asked for and missing: nothing falls back to the
+    CPU on its own.
+    """
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA was asked for but torch.cuda.is_available() "
+                           "is false; pass device='cpu' (--device cpu) to "
+                           "run on the CPU")
+    return dev
+
+
+class BaseDiffusionModel:
+    """Static model description, device and network."""
+
+    net: torch.nn.Module
+
+    def __init__(self, config: Optional[Dict] = None,
+                 device: Union[str, torch.device, None] = None):
+        self.config: Dict = canonicalize_model_config(config)
+        self.device = resolve_device(device)
+        self.image_size: int = self.config.get("image_size", 32)
+        self.image_channels: int = self.config.get(
+            "in_channels", self.config.get("image_channels", 3))
+        # bf16 by default on the card, f32 on the CPU; the config key wins.
+        dtype_name = self.config.get("compute_dtype")
+        if dtype_name is None:
+            dtype_name = "bfloat16" if self.device.type == "cuda" \
+                else "float32"
+        if dtype_name not in _DTYPES:
+            raise ValueError(f"compute_dtype must be one of "
+                             f"{tuple(_DTYPES)}, got {dtype_name!r}")
+        self.compute_dtype = _DTYPES[dtype_name]
+
+    def sample_shape(self, batch_size: int) -> Tuple[int, int, int, int]:
+        """NHWC sample shape."""
+        return (batch_size, self.image_size, self.image_size,
+                self.image_channels)
+
+    # -- checkpointing ----------------------------------------------------
+    def load_params(self, params: Dict) -> None:
+        """Load a flax parameter tree (nested dicts of arrays) into
+        ``net``, strictly."""
+        self.net.load_state_dict(unet_state_dict_from_jax(params),
+                                 strict=True)
+
+    def save(self, path: str) -> None:
+        """Model-only checkpoint: ``{model_state_dict, config}`` with the
+        flax parameter tree, readable by the reference's ``load``."""
+        payload = {"model_state_dict": unet_params_to_jax(self.net),
+                   "config": self.config}
+        p = Path(path)
+        p.parent.mkdir(parents=True, exist_ok=True)
+        with open(p, "wb") as f:
+            pickle.dump(payload, f)
+
+    def load(self, path: str) -> None:
+        """Load the weights of a model-only checkpoint into ``net``."""
+        with open(path, "rb") as f:
+            payload = pickle.load(f)
+        self.load_params(payload["model_state_dict"])
+
+    @classmethod
+    def load_with_config(cls, path: str,
+                         device: Union[str, torch.device, None] = None
+                         ) -> "BaseDiffusionModel":
+        """Rebuild the model from the checkpoint's own config, then load
+        its weights."""
+        with open(path, "rb") as f:
+            payload = pickle.load(f)
+        model = cls(payload["config"], device=device)
+        model.load_params(payload["model_state_dict"])
+        return model
