@@ -20,7 +20,27 @@ T=1000, 4 heads, serve batch 16) with random weights made from a seed:
    launch counters by exactly T × launches per forward;
 5. times each kernel at its main-path shapes beside its plain version,
    one PyTorch library call computing the same function, and its bound;
-   and traces a few sampler steps with ``torch.profiler``.
+   traces a few sampler steps with ``torch.profiler``; and times sampler
+   steps with the ops called through their autograd Functions and with
+   the kernels called directly.
+
+Then the training path (batch 128, bf16 autocast over f32 weights, remat
+on, dropout 0.1, the config's SNR-weighted MSE, Adam and EMA):
+
+6. records every GroupNorm and attention call of one training step and
+   holds the GroupNorm backward (K2) against its plain version at each of
+   its shapes in f32 and bf16, and at edge shapes; two calls must give
+   bit-identical results; and holds K1 and K3 at their training shapes;
+7. holds one f32 training step (B=2, loss and every gradient) on the card
+   against the CPU, and reports the same step's loss in bf16 autocast;
+8. runs the training CLI at full width as a subprocess on the synthetic
+   dataset (2 epochs, checkpoints, validation, a sample grid), resumes it
+   from its latest checkpoint for a third epoch, and generates from the
+   final checkpoint's EMA weights;
+9. times training steps in-process (ms/step, images/s), checks that each
+   step launched K1, K2 and K3 exactly as often as counted, traces a few
+   steps with ``torch.profiler``, and times every kernel at the training
+   shapes.
 
 The last three lines of standard output are the ``kernels`` JSON line,
 the card's name and power limit from ``nvidia-smi``, and the result
@@ -59,7 +79,15 @@ TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # |a−b| ≤ tol + tol·|b|
 UNET_TOL = 1e-3
 
 GN_REPLACES = "diffusion_model_universal_tpu/ops/group_norm.py:167"
+GN_BWD_REPLACES = "diffusion_model_universal_tpu/ops/group_norm.py:184"
 MHA_REPLACES = "diffusion_model_universal_tpu/ops/attention.py:38"
+
+TRAIN_BATCH = 128           # ddpm_config.yaml's training.batch_size
+#: Kernel launches of one training step of the UNet with remat on: K1 53
+#: times in the forward and 47 more when the backward recomputes the
+#: down/up stages, K2 once per GroupNorm, K3 5 + 4 recomputed.
+#: tests/test_torch_train.py counts the same on the CPU.
+LAUNCHES_PER_STEP = {"gn": 100, "gn_bwd": 53, "mha": 9}
 
 
 class SmokeFailure(RuntimeError):
@@ -473,17 +501,24 @@ def time_kernels(gn_calls, mha_calls, dtype_name="bfloat16"):
     return gn_rows, mha_rows
 
 
-def kernel_entry(name, source, replaces, rows, launches, per_forward, errs):
-    """Sums over the main-path shapes, each weighted by its calls per
-    forward: the numbers of one UNet forward's worth of this kernel."""
+def totals(rows):
+    """Sums over the shapes, each weighted by its calls (per forward, or
+    per training step): the numbers of that much of the kernel's work."""
     tot = {k: sum(r[k] * r["per_forward"] for r in rows)
            for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
     t_bytes = sum(r["bound_ms"] * r["per_forward"] for r in rows
                   if r["bound_by"] == "bytes")
+    tot["bound_by"] = ("bytes" if t_bytes * 2 >= tot["bound_ms"]
+                       else "operations")
+    return tot
+
+
+def kernel_entry(name, source, replaces, rows, launches, errs, work,
+                 **extra):
+    tot = totals(rows)
     return {
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches,
-        "launches_per_forward": per_forward,
         "max_abs_err": max(errs.values()),
         "max_abs_err_f32": max(v for (_, d), v in errs.items()
                                if d == "float32"),
@@ -491,62 +526,524 @@ def kernel_entry(name, source, replaces, rows, launches, per_forward, errs):
                                 if d == "bfloat16"),
         "tol": TOL,
         "ms": tot["ms"], "plain_ms": tot["plain_ms"],
-        "bound_ms": tot["bound_ms"],
-        "bound_by": "bytes" if t_bytes * 2 >= tot["bound_ms"]
-        else "operations",
-        "library_ms": tot["library_ms"],
-        "work": f"one UNet forward at B={SERVE_BATCH}, bf16: every "
-                "main-path shape times its calls per forward",
-        "shapes": rows,
+        "bound_ms": tot["bound_ms"], "bound_by": tot["bound_by"],
+        "library_ms": tot["library_ms"], "work": work, "shapes": rows,
+        **extra,
     }
 
 
 def profile_steps(model, steps: int = 5):
-    """Device busy share and the kernels' share over a few sampler steps
-    (torch.profiler); 'not measured' when it records no device time."""
+    """Device busy share and the kernels' share over a few sampler steps."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     step = model.posterior_step_fn()
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
     x = torch.randn(model.sample_shape(SERVE_BATCH), generator=gen,
                     device=DEVICE)
     t_b = torch.full((SERVE_BATCH,), 500, device=DEVICE, dtype=torch.long)
     with torch.inference_mode():
-        for _ in range(3):
-            step(x, t_b, x)
+        return profile_run(lambda: step(x, t_b, torch.randn_like(x)), steps,
+                           "sampler")
+
+
+def time_dispatch(model, steps: int = 50, reps: int = 10):
+    """Wall ms per sampler step at the serve batch with every GroupNorm
+    and attention call made through its autograd Function (the ops' only
+    path), and with the kernels called directly: ``reps`` pairs, each
+    side first in every other pair. What ``Function.apply`` costs the
+    host-bound sampler loop."""
+    import torch
+    from diffusion_model_universal_torch.ops import attention as attn_ops
+    from diffusion_model_universal_torch.ops import group_norm as gn_ops
+    gn, mha = gn_ops.group_norm_silu, attn_ops.multi_head_attention
+
+    def gn_function(x, scale, bias, num_groups, time_bias=None, eps=1e-5,
+                    apply_silu=True):
+        return gn_ops.GroupNormSiLUFunction.apply(
+            x, scale, bias, time_bias, num_groups, eps, apply_silu)
+
+    def gn_direct(x, scale, bias, num_groups, time_bias=None, eps=1e-5,
+                  apply_silu=True):
+        return gn_ops._gn_fwd(x, scale, bias, num_groups, time_bias, eps,
+                              apply_silu)
+
+    variants = {"function": (gn_function, attn_ops.MHAFunction.apply),
+                "direct": (gn_direct, attn_ops._mha_fwd)}
+    step = model.posterior_step_fn()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
+    x = torch.randn(model.sample_shape(SERVE_BATCH), generator=gen,
+                    device=DEVICE)
+    t_b = torch.full((SERVE_BATCH,), 500, device=DEVICE, dtype=torch.long)
+    ms = {name: [] for name in variants}
+    try:
+        with torch.inference_mode():
+            for rep in range(reps):
+                order = list(variants.items())
+                for name, (gn_fn, mha_fn) in order[::1 - 2 * (rep % 2)]:
+                    gn_ops.group_norm_silu = gn_fn
+                    attn_ops.multi_head_attention = mha_fn
+                    for _ in range(3):
+                        step(x, t_b, torch.randn_like(x))
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(steps):
+                        step(x, t_b, torch.randn_like(x))
+                    torch.cuda.synchronize()
+                    ms[name].append((time.perf_counter() - t0) * 1e3 / steps)
+    finally:
+        gn_ops.group_norm_silu, attn_ops.multi_head_attention = gn, mha
+    out = {name: {"median": statistics.median(v), "min": min(v),
+                  "max": max(v), "runs": v} for name, v in ms.items()}
+    out["steps_per_run"] = steps
+    out["direct_faster_pairs"] = sum(
+        d < f for f, d in zip(ms["function"], ms["direct"]))
+    out["function_quartiles"] = statistics.quantiles(ms["function"], n=4)
+    log(f"[dispatch] sampler step at B={SERVE_BATCH}, {reps} pairs of runs "
+        f"of {steps} steps, direct faster in {out['direct_faster_pairs']}, "
+        f"Function quartiles {out['function_quartiles']}: through "
+        f"Function.apply "
+        f"{out['function']['median']:.3f} ms (min {out['function']['min']:.3f}"
+        f", max {out['function']['max']:.3f}), kernels called directly "
+        f"{out['direct']['median']:.3f} ms (min {out['direct']['min']:.3f}, "
+        f"max {out['direct']['max']:.3f})")
+    return out
+
+
+def profile_run(run_step, steps: int, what: str):
+    """Device busy share, kernel launches, our kernels' device ms and the
+    top kernels per call of ``run_step`` over ``steps`` calls
+    (torch.profiler, after 3 warm-up calls); 'not measured' when it
+    records no device time. Only device-side events (the kernels and
+    copies themselves) are summed: a CPU op's entry repeats the device
+    time of the kernels it launched. The top CPU ops by the device time
+    they launched, and the count of a few host ops, are listed apart."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        run_step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            run_step()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(steps):
-                x = step(x, t_b, torch.randn_like(x))
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-    dev = {}
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev, ops, host = {}, {}, {}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0))
-        if us > 0:
+        if e.device_type == DeviceType.CUDA:
             dev[e.key] = (us / 1e3, e.count)
+        elif us > 0:
+            ops[e.key] = (us / 1e3, e.count)
+        if e.key in ("aten::copy_", "aten::contiguous", "aten::_to_copy"):
+            host[e.key] = e.count / steps
     if not dev:
-        log("[profile] device time not measured (profiler saw no kernels)")
+        log(f"[profile] {what}: device time not measured (profiler saw no "
+            "kernels)")
         return None
     busy = sum(v[0] for v in dev.values())
     kernels = sum(v[1] for v in dev.values())
     ours = {tag: sum(v[0] for k, v in dev.items() if tag in k)
-            for tag in ("gn_fwd_kernel", "mha_fwd_kernel")}
-    top = sorted(dev.items(), key=lambda kv: -kv[1][0])[:6]
-    summary = {"steps": steps, "wall_ms_per_step": wall_ms / steps,
+            for tag in ("gn_fwd_kernel", "gn_bwd_kernel",
+                        "gn_bwd_reduce_kernel", "mha_fwd_kernel")}
+    top = sorted(dev.items(), key=lambda kv: -kv[1][0])[:8]
+    top_ops = sorted(ops.items(), key=lambda kv: -kv[1][0])[:6]
+    summary = {"what": what, "steps": steps,
+               "wall_ms_per_step": wall_ms / steps,
                "device_busy_ms_per_step": busy / steps,
                "device_busy_share": busy / wall_ms,
-               "kernel_launches_per_step": kernels / steps,
-               "gn_kernel_ms_per_step": ours["gn_fwd_kernel"] / steps,
-               "mha_kernel_ms_per_step": ours["mha_fwd_kernel"] / steps}
-    log(f"[profile] {json.dumps(summary)}")
+               "device_kernels_per_step": kernels / steps,
+               "host_calls_per_step": host,
+               **{f"{tag}_ms_per_step": v / steps for tag, v in ours.items()},
+               "top_kernels": [[k[:90], ms / steps, cnt / steps]
+                               for k, (ms, cnt) in top],
+               "top_ops_by_device_ms": [[k[:60], ms / steps, cnt / steps]
+                                        for k, (ms, cnt) in top_ops]}
+    log(f"[profile] {what}: {json.dumps(summary)}")
     for k, (ms, cnt) in top:
         log(f"[profile]   {ms / steps:.3f} ms/step  x{cnt / steps:.0f}  "
             f"{k[:90]}")
     return summary
+
+
+# -- training path --------------------------------------------------------
+
+def train_config(out_dir: str, **training):
+    """ddpm_config.yaml with only the overrides the training phases need:
+    the synthetic dataset (CIFAR-10's files are not in the repository),
+    ``training`` keys, and an output directory under ``out_dir``."""
+    from diffusion_model_universal_torch.utils.config import load_config
+    cfg = load_config(str(CONFIG))
+    cfg["data"] = dict(cfg["data"], dataset="synthetic")
+    cfg["training"] = dict(cfg["training"], **training)
+    cfg["output"] = dict(cfg["output"], output_dir=str(Path(out_dir) / "out"))
+    return cfg
+
+
+def make_trainer(cfg, out_dir: str):
+    """The config's model built for training on the card (f32 weights,
+    bf16 autocast, remat, dropout 0.1) and a DDPMTrainer over the
+    synthetic set at the config's batch."""
+    from diffusion_model_universal_torch.datasets import get_dataset
+    from diffusion_model_universal_torch.models import DDPM
+    from diffusion_model_universal_torch.trainers import DDPMTrainer
+    run_cfg = train_config(out_dir)
+    model = DDPM(cfg, device=DEVICE, seed=SEED, trainable=True)
+    loaders = get_dataset(run_cfg, device=model.device)
+    return DDPMTrainer(model, *loaders, run_cfg, seed=SEED), loaders[0]
+
+
+def record_train_step(run_step):
+    """Every K1, K2 and K3 dispatch of one call of ``run_step``, by shape
+    key, with its count; and how many K2 calls got a non-contiguous dy
+    (which the wrapper copies)."""
+    import torch
+    from diffusion_model_universal_torch.ops import attention as attn_ops
+    from diffusion_model_universal_torch.ops import group_norm as gn_ops
+    calls = {"gn": {}, "gn_bwd": {}, "mha": {}, "dy_copies": 0}
+    fwd, bwd, mha = gn_ops._gn_fwd, gn_ops._gn_bwd, attn_ops._mha_fwd
+
+    def add(kind, key):
+        calls[kind][key] = calls[kind].get(key, 0) + 1
+
+    def rec_fwd(x, scale, bias, groups, time_bias, eps, silu):
+        b, h, w, c = x.shape
+        add("gn", (b, h * w, c, groups, time_bias is not None, silu))
+        return fwd(x, scale, bias, groups, time_bias, eps, silu)
+
+    def rec_bwd(x, scale, bias, time_bias, dy, groups, eps, silu):
+        b, h, w, c = x.shape
+        add("gn_bwd", (b, h * w, c, groups, time_bias is not None, silu))
+        calls["dy_copies"] += int(not dy.is_contiguous())
+        return bwd(x, scale, bias, time_bias, dy, groups, eps, silu)
+
+    def rec_mha(q, k, v):
+        add("mha", tuple(q.shape))
+        return mha(q, k, v)
+
+    gn_ops._gn_fwd, gn_ops._gn_bwd, attn_ops._mha_fwd = (rec_fwd, rec_bwd,
+                                                         rec_mha)
+    try:
+        run_step()
+        torch.cuda.synchronize()
+    finally:
+        gn_ops._gn_fwd, gn_ops._gn_bwd, attn_ops._mha_fwd = fwd, bwd, mha
+    return calls
+
+
+def red_tol(n_terms: int) -> float:
+    """Absolute tolerance of an f32 sum of ``n_terms`` terms that K2 and
+    its plain version add in different orders. The f32 tolerance TOL
+    covers values built from sums of up to 1024 terms (a GroupNorm group
+    at S=32², the largest per-element reduction); the rounding error of a
+    sum taken in another order grows like the square root of its length,
+    so the tolerance is scaled by sqrt(n / 1024)."""
+    return TOL["float32"] * max(1.0, math.sqrt(n_terms / 1024))
+
+
+def hold_gn_bwd_one(key, dname, gen) -> float:
+    """K2 against its plain version on one shape: dx within TOL of the
+    dtype, dγ/dβ (B·S terms each) and dtb (S terms) within
+    :func:`red_tol` abs + the f32 TOL rel; and two calls bit-identical."""
+    import torch
+    from diffusion_model_universal_torch.ops import group_norm as gn_ops
+    dtype = getattr(torch, dname)
+    x, scale, bias, tb = gn_inputs(key, dtype, gen)
+    dy = torch.randn(x.shape, generator=gen, device=DEVICE).to(dtype)
+    b, s, _, groups, _, silu = key
+    args = (x, scale, bias, tb, dy, groups)
+    got = gn_ops.group_norm_silu_bwd_cuda(*args, apply_silu=silu)
+    again = gn_ops.group_norm_silu_bwd_cuda(*args, apply_silu=silu)
+    want = gn_ops.group_norm_silu_bwd_plain(*args, apply_silu=silu)
+    torch.cuda.synchronize()
+    rel = TOL["float32"]
+    tols = {"dx": (TOL[dname], TOL[dname]), "dscale": (red_tol(b * s), rel),
+            "dbias": (red_tol(b * s), rel), "dtb": (red_tol(s), rel)}
+    errs = {}
+    label = f"K2 {dname} {gn_label(key)}"
+    for name, g, a, w in zip(tols, got, again, want):
+        if w is None:
+            check(g is None, f"{label}: {name} should be None")
+            continue
+        atol, rtol = tols[name]
+        d = (g.float() - w.float()).abs()
+        errs[name] = float(d.max())
+        check(g.dtype == w.dtype and g.shape == w.shape,
+              f"{label}: {name} is {g.dtype} {tuple(g.shape)}, plain "
+              f"{w.dtype} {tuple(w.shape)}")
+        check(bool((d <= atol + rtol * w.float().abs()).all())
+              and bool(g.float().isfinite().all()),
+              f"{label}: {name} disagrees with its plain version "
+              f"(max err {errs[name]:.3e}, tol {atol:g} abs + {rtol:g} rel)")
+        check(torch.equal(g, a), f"{label}: {name} differs between calls")
+    log(f"  {label}: " + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
+        + " ok; bit-identical over two calls")
+    return max(errs.values())
+
+
+def hold_gn_bwd(bwd_calls):
+    """Phase 6: K2 at every training shape in bf16 and f32, at edge shapes
+    (group sizes 12, 24 and 256, S=1, odd B, no time bias, no SiLU), and
+    inputs its wrapper must refuse."""
+    import torch
+    from diffusion_model_universal_torch.ops import group_norm as gn_ops
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
+    errs = {}
+    for dname in ("bfloat16", "float32"):
+        for key in sorted(bwd_calls):
+            errs[(key, dname)] = hold_gn_bwd_one(key, dname, gen)
+    log("[hold] K2 off-path shapes:")
+    for key in [(3, 7, 24, 8, False, True), (1, 9, 48, 16, True, False),
+                (5, 1, 768, 32, True, True), (3, 5, 384, 32, True, True),
+                (2, 16, 64, 8, False, False), (2, 4, 512, 2, True, True)]:
+        for dname in ("bfloat16", "float32"):
+            hold_gn_bwd_one(key, dname, gen)
+    x = torch.zeros((2, 4, 4, 1024), device=DEVICE)
+    w = torch.ones(1024, device=DEVICE)
+    for what, call in [
+            ("512 channels per group", lambda: gn_ops.group_norm_silu_bwd_cuda(
+                x, w, w, None, x, 2)),
+            ("dy of another dtype", lambda: gn_ops.group_norm_silu_bwd_cuda(
+                x, w, w, None, x.bfloat16(), 32))]:
+        try:
+            call()
+        except ValueError:
+            log(f"  K2 refuses {what}: ok")
+        else:
+            raise SmokeFailure(f"K2's wrapper accepted {what}")
+    return errs
+
+
+def grads_of_step(model, x, t, noise):
+    """Loss and parameter gradients of one training step's loss."""
+    import torch
+    loss = model.loss_function(x, t, noise)
+    grads = torch.autograd.grad(loss, list(model.net.parameters()))
+    return loss.detach().cpu(), [g.cpu() for g in grads]
+
+
+def hold_train_step(cfg):
+    """Phase 7: one f32 training step at B=2 (dropout off, remat on) on
+    the card against the same step on the CPU: loss and every gradient
+    within UNET_TOL; then the same step in bf16 autocast, whose loss is
+    reported beside the f32 CPU loss."""
+    import torch
+    from diffusion_model_universal_torch.models import DDPM
+    f32_cfg = dict(cfg, compute_dtype="float32", dropout=0.0)
+    card = DDPM(f32_cfg, device=DEVICE, seed=SEED, trainable=True)
+    gen = torch.Generator().manual_seed(SEED + 1)
+    with torch.no_grad():   # the zero-initialized leaves get small values
+        for p in card.net.parameters():
+            if not p.any():
+                p.copy_(0.02 * torch.randn(p.shape, generator=gen))
+    cpu = DDPM(f32_cfg, device="cpu", seed=SEED, trainable=True)
+    cpu.net.load_state_dict(card.net.state_dict())
+    gen = torch.Generator().manual_seed(SEED + 7)
+    x = torch.randn(card.sample_shape(2), generator=gen).clamp(-1, 1)
+    t = torch.tensor([17, 803]) % card.num_timesteps
+    noise = torch.randn(x.shape, generator=gen)
+    want_loss, want = grads_of_step(cpu, x, t, noise)
+    got_loss, got = grads_of_step(card, x.to(DEVICE), t.to(DEVICE),
+                                  noise.to(DEVICE))
+    loss_err = hold("f32 step loss, card vs CPU", got_loss, want_loss,
+                    UNET_TOL)
+    names = [n for n, _ in card.net.named_parameters()]
+    worst, bad = 0.0, []
+    for n, g, w in zip(names, got, want):
+        d = (g - w).abs()
+        worst = max(worst, float(d.max()))
+        if not bool((d <= UNET_TOL + UNET_TOL * w.abs()).all()):
+            bad.append(n)
+    log(f"  f32 step gradients, card vs CPU: {len(names)} tensors, max "
+        f"abs err {worst:.3e} (tol {UNET_TOL:g} abs + {UNET_TOL:g} rel) "
+        f"{'ok' if not bad else 'FAIL ' + ', '.join(bad[:5])}")
+    check(not bad, f"gradients disagree with the CPU: {bad[:5]}")
+    bf = DDPM(dict(cfg, dropout=0.0), device=DEVICE, seed=SEED,
+              trainable=True)
+    bf.net.load_state_dict(card.net.state_dict())
+    bf_loss, bf_grads = grads_of_step(bf, x.to(DEVICE), t.to(DEVICE),
+                                      noise.to(DEVICE))
+    check(bool(bf_loss.isfinite()) and all(bool(g.isfinite().all())
+                                           for g in bf_grads),
+          "bf16 autocast step is not finite")
+    bf_diff = abs(float(bf_loss) - float(want_loss))
+    log(f"  bf16 autocast step loss {float(bf_loss):.6f} vs f32 CPU "
+        f"{float(want_loss):.6f}: |diff| {bf_diff:.3e}")
+    return {"loss_f32_cpu": float(want_loss), "loss_err_f32": loss_err,
+            "grad_max_abs_err_f32": worst, "loss_bf16": float(bf_loss),
+            "loss_diff_bf16_vs_f32_cpu": bf_diff}
+
+
+def run_cli(module: str, args, what: str, timeout: int = 900) -> str:
+    """Run one of the port's CLIs as a subprocess; fails on a non-zero
+    exit. Returns its standard output."""
+    cmd = [sys.executable, "-m", f"diffusion_model_universal_torch.scripts."
+           f"{module}", *args]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                         timeout=timeout)
+    secs = time.perf_counter() - t0
+    log(f"[cli] {what}: exit {out.returncode} in {secs:.1f} s")
+    if out.returncode != 0:
+        log(out.stdout[-4000:])
+        log(out.stderr[-4000:])
+    check(out.returncode == 0, f"{what} exited {out.returncode}")
+    return out.stdout
+
+
+def train_cli(steps_per_epoch: int):
+    """Phase 8: the training CLI at full width (2 epochs), a resume from
+    its latest checkpoint for a third epoch, and ``generate --ema``."""
+    import numpy as np
+    import yaml
+    from diffusion_model_universal_torch.scripts.train import params_digest
+    from diffusion_model_universal_torch.utils.checkpoint import read_state
+    from diffusion_model_universal_torch.utils.images import decode_png
+    tmp = Path(tempfile.mkdtemp(prefix="dmu_train_"))
+    overrides = {"num_epochs": 2, "checkpoint_interval": 1,
+                 "sample_interval": 2, "val_interval": steps_per_epoch}
+    log(f"[cli] ddpm_config.yaml with data.dataset=synthetic, training "
+        f"overrides {overrides}, output_dir under {tmp}")
+    try:
+        cfg_path = tmp / "train.yaml"
+        cfg_path.write_text(yaml.safe_dump(train_config(str(tmp),
+                                                        **overrides)))
+        base = ["--config", str(cfg_path), "--model_type", "ddpm",
+                "--seed", str(SEED)]
+        out = run_cli("train", base, "train 2 epochs")
+        launches = json.loads(out.split("Kernel launches: ")[1]
+                              .splitlines()[0])
+        ck = tmp / "out" / "checkpoints"
+        for name in ("checkpoint_epoch_0", "checkpoint_epoch_1",
+                     "best_model", "final_model"):
+            check((ck / name / "state.pt").is_file(), f"no {name}")
+        saved = read_state(str(ck / "checkpoint_epoch_1"))
+        check(saved["step"] == 2 * steps_per_epoch and saved["epoch"] == 1,
+              f"checkpoint_epoch_1 at step {saved['step']}")
+        grid = decode_png((tmp / "out" / "samples" / "epoch_1.png")
+                          .read_bytes())
+        log(f"[cli] sample grid epoch_1.png {grid.shape}; checkpoints "
+            f"{sorted(p.name for p in ck.iterdir())}; launches {launches}")
+        cfg_path.write_text(yaml.safe_dump(train_config(
+            str(tmp), **dict(overrides, num_epochs=3))))
+        out = run_cli("train", base + ["--resume", "latest"],
+                      "resume from latest for epoch 3")
+        want = (f"Resumed from epoch 2 at step {2 * steps_per_epoch} "
+                f"(params sha256 {params_digest(saved['params'].values())})")
+        check(want in out, f"resume line missing: {want}")
+        final = read_state(str(ck / "final_model"))
+        check(final["step"] == 3 * steps_per_epoch,
+              f"final_model at step {final['step']}")
+        losses = [json.loads(line)["train/loss"] for line in
+                  (tmp / "out" / "metrics.jsonl").read_text().splitlines()
+                  if "train/loss" in line]
+        check(len(losses) > 0 and all(math.isfinite(v) for v in losses),
+              f"logged losses {losses}")
+        log(f"[cli] resumed at epoch 2, step {2 * steps_per_epoch}, params "
+            f"bit-equal to checkpoint_epoch_1; final_model at step "
+            f"{final['step']}; {len(losses)} logged losses, all finite, "
+            f"first {losses[0]:.4f} last {losses[-1]:.4f}")
+        gen_dir = tmp / "gen"
+        run_cli("generate", ["--config", str(cfg_path), "--model_type",
+                             "ddpm", "--checkpoint", str(ck / "final_model"),
+                             "--ema", "--num_samples", "4", "--output_dir",
+                             str(gen_dir)], "generate --ema, 4 samples")
+        grid = decode_png((gen_dir / "samples_grid.png").read_bytes())
+        check(grid.shape == (2 * 34 + 2, 2 * 34 + 2, 3), f"grid {grid.shape}")
+        check(all(np.isfinite(decode_png((gen_dir / f"sample_000{i}.png")
+                                         .read_bytes())).all()
+                  for i in range(4)), "sample PNGs")
+        log(f"[cli] generate --ema: samples_grid.png {grid.shape} decodes")
+        check(all(launches.get(s, 0) > 0 for s in (
+            "dmu_group_norm_silu_fwd", "dmu_group_norm_silu_bwd",
+            "dmu_mha_fwd")), f"a kernel never launched in training: "
+                             f"{launches}")
+        return {"launches": launches, "losses": [losses[0], losses[-1]]}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def time_gn_bwd(bwd_calls, dtype_name="bfloat16"):
+    """K2 per training shape: kernel, plain, library (autograd backward of
+    F.group_norm + F.silu on the same inputs) and bound ms."""
+    import torch
+    import torch.nn.functional as F
+    from diffusion_model_universal_torch.ops import group_norm as gn_ops
+    dtype = getattr(torch, dtype_name)
+    isz = torch.tensor([], dtype=dtype).element_size()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 8)
+    rows = []
+    for key in sorted(bwd_calls):
+        b, s, c, groups, has_tb, silu = key
+        x, scale, bias, tb = gn_inputs(key, dtype, gen)
+        dy = torch.randn(x.shape, generator=gen, device=DEVICE).to(dtype)
+        xl = x.permute(0, 3, 1, 2).detach().requires_grad_()
+        wl = scale.to(dtype).requires_grad_()
+        bl = bias.to(dtype).requires_grad_()
+        ins = [xl, wl, bl]
+        v = xl
+        if has_tb:
+            tbl = tb.to(dtype).requires_grad_()
+            ins.append(tbl)
+            v = xl + tbl[:, :, None, None]
+        y = F.group_norm(v, groups, wl, bl, 1e-5)
+        y = F.silu(y) if silu else y
+        dyl = dy.permute(0, 3, 1, 2)
+        args = (x, scale, bias, tb, dy, groups)
+        ms = cuda_ms(lambda: gn_ops.group_norm_silu_bwd_cuda(
+            *args, apply_silu=silu))
+        plain = cuda_ms(lambda: gn_ops.group_norm_silu_bwd_plain(
+            *args, apply_silu=silu))
+        lib = cuda_ms(lambda: torch.autograd.grad(y, ins, dyl,
+                                                  retain_graph=True))
+        n = b * s * c
+        # x and dy read, dx written; γ, β, tb read; dγ, dβ, dtb written.
+        nbytes = 3 * n * isz + 4 * c * 4 + (2 * b * c * 4 if has_tb else 0)
+        ops = n * (30 if silu else 20)
+        bms, by = bound(nbytes, ops, dtype_name)
+        rows.append({"shape": gn_label(key), "per_forward": bwd_calls[key],
+                     "ms": ms, "plain_ms": plain, "library_ms": lib,
+                     "bound_ms": bms, "bound_by": by})
+        log(f"[time] K2 {dtype_name} {gn_label(key)} ×{bwd_calls[key]}: "
+            f"kernel {ms * 1e3:.2f} us, plain {plain * 1e3:.2f} us, library "
+            f"{lib * 1e3:.2f} us, bound {bms * 1e3:.2f} us ({by})")
+    return rows
+
+
+def time_training(trainer, batch, steps: int = 20, warmup: int = 5):
+    """Phase 9: ms per training step at B=128 bf16 (host clock around
+    ``steps`` steps that end in a synchronize), and the launches of those
+    steps against LAUNCHES_PER_STEP."""
+    import torch
+    from diffusion_model_universal_torch.ops import attention as attn_ops
+    from diffusion_model_universal_torch.ops import group_norm as gn_ops
+    kernels = {"gn": gn_ops.GN_KERNEL, "gn_bwd": gn_ops.GN_BWD_KERNEL,
+               "mha": attn_ops.MHA_KERNEL}
+    for _ in range(warmup):
+        trainer.step(batch)
+    torch.cuda.synchronize()
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        metrics = trainer.step(batch)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {n: k.launches for n, k in kernels.items()}
+    want = {n: steps * c for n, c in LAUNCHES_PER_STEP.items()}
+    check(launches == want, f"training launches {launches} != {steps} × "
+                            f"per step {LAUNCHES_PER_STEP}")
+    check(bool(metrics["loss"].isfinite()), "training loss not finite")
+    b = batch.shape[0]
+    out = {"steps": steps, "batch": b, "ms_per_step": secs / steps * 1e3,
+           "images_per_s": b * steps / secs, "launches": launches,
+           "last_loss": float(metrics["loss"])}
+    log(f"[train] {steps} steps at B={b} bf16: {out['ms_per_step']:.2f} "
+        f"ms/step, {out['images_per_s']:.1f} img/s; launches {launches} "
+        f"= {steps} × {LAUNCHES_PER_STEP}")
+    return out
 
 
 def main() -> int:
@@ -588,18 +1085,89 @@ def main() -> int:
     del model
     gn_rows, mha_rows = time_kernels(gn_calls, mha_calls)
     profile = profile_steps(serve_model)
+    dispatch = time_dispatch(serve_model)
+    del serve_model
 
+    train_dir = tempfile.mkdtemp(prefix="dmu_trainer_")
+    try:
+        trainer, train_loader = make_trainer(cfg, train_dir)
+        batch = next(iter(train_loader))
+        check(tuple(batch.shape) == (TRAIN_BATCH, 32, 32, 3),
+              f"training batch {tuple(batch.shape)}")
+        calls = record_train_step(lambda: trainer.step(batch))
+        per_step = {k: sum(calls[k].values()) for k in LAUNCHES_PER_STEP}
+        log(f"[shapes] one training step at B={TRAIN_BATCH}: {per_step} "
+            f"dispatches over {len(calls['gn'])} K1, {len(calls['gn_bwd'])}"
+            f" K2 and {len(calls['mha'])} K3 shapes; K2 got a "
+            f"non-contiguous dy {calls['dy_copies']} times")
+        check(per_step == LAUNCHES_PER_STEP,
+              f"dispatches per step {per_step} != {LAUNCHES_PER_STEP}")
+        log("[hold] K2 against its plain version at every training shape:")
+        bwd_errs = hold_gn_bwd(calls["gn_bwd"])
+        log("[hold] K1 and K3 against their plain versions at every "
+            "training shape:")
+        train_errs = hold_kernels(calls["gn"], calls["mha"])
+        step_check = hold_train_step(cfg)
+        cli = train_cli(len(train_loader))
+        train_time = time_training(trainer, batch)
+        train_profile = profile_run(lambda: trainer.step(batch), 5,
+                                    f"training step B={TRAIN_BATCH}")
+        k2_rows = time_gn_bwd(calls["gn_bwd"])
+        k1_train, k3_train = time_kernels(calls["gn"], calls["mha"])
+        trainer.cleanup()
+        del trainer
+    finally:
+        shutil.rmtree(train_dir, ignore_errors=True)
+
+    symbols = {"gn": "dmu_group_norm_silu_fwd",
+               "gn_bwd": "dmu_group_norm_silu_bwd", "mha": "dmu_mha_fwd"}
+
+    def by_path(kind):
+        return {"serve": launches.get(kind),
+                "train_cli": cli["launches"][symbols[kind]],
+                "train_steps_in_process": train_time["launches"][kind]}
+
+    train_work = (f"one training step at B={TRAIN_BATCH}, bf16 autocast, "
+                  "remat on: every shape times its calls per step")
+    serve_work = (f"one UNet forward at B={SERVE_BATCH}, bf16: every "
+                  "main-path shape times its calls per forward")
     entries = [
         kernel_entry("group_norm_silu_fwd",
                      "diffusion_model_universal_torch/csrc/group_norm.cu",
-                     GN_REPLACES, gn_rows, launches["gn"],
-                     per_forward["gn"], errs["gn"]),
+                     GN_REPLACES, gn_rows, cli["launches"][symbols["gn"]],
+                     {**errs["gn"], **train_errs["gn"]}, serve_work,
+                     launches_per_forward=per_forward["gn"],
+                     launches_per_train_step=per_step["gn"],
+                     launches_by_path=by_path("gn"),
+                     train={**totals(k1_train), "work": train_work,
+                            "max_abs_err": max(train_errs["gn"].values()),
+                            "shapes": k1_train}),
+        kernel_entry("group_norm_silu_bwd",
+                     "diffusion_model_universal_torch/csrc/group_norm.cu",
+                     GN_BWD_REPLACES, k2_rows,
+                     cli["launches"][symbols["gn_bwd"]], bwd_errs,
+                     train_work, launches_per_train_step=per_step["gn_bwd"],
+                     launches_by_path=by_path("gn_bwd"),
+                     tol_reductions="dγ, dβ, dtb: red_tol(n) = 1e-4·max(1, "
+                                    "sqrt(n/1024)) abs + 1e-4 rel"),
         kernel_entry("mha_fwd",
                      "diffusion_model_universal_torch/csrc/attention.cu",
-                     MHA_REPLACES, mha_rows, launches["mha"],
-                     per_forward["mha"], errs["mha"]),
+                     MHA_REPLACES, mha_rows, cli["launches"][symbols["mha"]],
+                     {**errs["mha"], **train_errs["mha"]}, serve_work,
+                     launches_per_forward=per_forward["mha"],
+                     launches_per_train_step=per_step["mha"],
+                     launches_by_path=by_path("mha"),
+                     train={**totals(k3_train), "work": train_work,
+                            "max_abs_err": max(train_errs["mha"].values()),
+                            "shapes": k3_train}),
     ]
-    log(f"[summary] {json.dumps({'requests': requests, 'unet_max_abs_err': unet_err, 'profile': profile, 'seconds': time.perf_counter() - t_start})}")
+    summary = {"requests": requests, "unet_max_abs_err": unet_err,
+               "profile": profile, "dispatch": dispatch,
+               "train_step_check": step_check,
+               "train_cli": cli, "train_time": train_time,
+               "train_profile": train_profile,
+               "seconds": time.perf_counter() - t_start}
+    log(f"[summary] {json.dumps(summary)}")
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

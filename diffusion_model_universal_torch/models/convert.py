@@ -63,8 +63,16 @@ def unet_state_dict_from_jax(params: Tree) -> Dict[str, torch.Tensor]:
 def unet_params_to_jax(module: nn.Module) -> Tree:
     """The port's UNet → flax params as nested dicts of f32 numpy arrays:
     the exact inverse of :func:`unet_state_dict_from_jax`."""
+    return state_dict_to_jax(module, module.state_dict())
+
+
+def state_dict_to_jax(module: nn.Module,
+                      tensors: Dict[str, torch.Tensor]) -> Tree:
+    """Any tensors keyed and shaped like ``module``'s state_dict (weights,
+    gradients, Adam moments, an EMA) → the flax tree, leaf by leaf with the
+    rules above; ``module`` names the owner of each key."""
     tree: Tree = {}
-    for key, value in module.state_dict().items():
+    for key, value in tensors.items():
         prefix, name = key.rsplit(".", 1)
         owner = module.get_submodule(prefix)
         a = value.detach().to("cpu", torch.float32).numpy()

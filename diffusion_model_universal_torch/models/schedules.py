@@ -1,5 +1,6 @@
 """Noise schedules and the core diffusion math (counterpart of the
-reference's ``models/schedules.py``, the DDPM slice).
+reference's ``models/schedules.py``, the DDPM sampling and training
+slice).
 
 Schedules are f32 tensors on the model's device; per-step math gathers
 them with [B] integer timesteps and broadcasts to NHWC image rank.
@@ -120,6 +121,28 @@ def prediction_to_eps(schedule: NoiseSchedule, pred: torch.Tensor,
         return a * pred + s * x_t
     if prediction_type == "x0":
         return (x_t - a * pred) / s
+    raise ValueError(f"prediction_type must be one of {PREDICTION_TYPES}, "
+                     f"got {prediction_type!r}")
+
+
+def prediction_target(schedule: NoiseSchedule, x0: torch.Tensor,
+                      noise: torch.Tensor, t: torch.Tensor,
+                      prediction_type: str) -> torch.Tensor:
+    """Training target of a parameterization at q-sampled (x₀, ε, t): the
+    inverse of :func:`prediction_to_eps` at x_t = q_sample(x₀, t, ε).
+
+    * epsilon: ε
+    * x0:      x₀
+    * v:       √ᾱ_t·ε − √(1−ᾱ_t)·x₀
+    """
+    if prediction_type == "epsilon":
+        return noise
+    if prediction_type == "x0":
+        return x0
+    if prediction_type == "v":
+        a = _bcast(schedule.sqrt_alphas_cumprod, t)
+        s = _bcast(schedule.sqrt_one_minus_alphas_cumprod, t)
+        return a * noise - s * x0
     raise ValueError(f"prediction_type must be one of {PREDICTION_TYPES}, "
                      f"got {prediction_type!r}")
 

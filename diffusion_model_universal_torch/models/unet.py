@@ -1,5 +1,5 @@
 """The shared UNet noise-prediction backbone (counterpart of the
-reference's ``models/unet.py``), eval path.
+reference's ``models/unet.py``), eval and training paths.
 
 Channel plan for base width C:
     down:   C → C → 2C → 2C(attn) → 4C        (each stage halves H, W)
@@ -19,6 +19,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .layers import (AttentionDownBlock, AttentionUpBlock, ConvDownBlock,
                      ConvUpBlock, GroupNormSiLU, ResidualBlock,
@@ -42,15 +43,20 @@ class UNet(nn.Module):
             the NULL token.
         conv_bias: give the bias-free convs a bias (imported reference
             checkpoints).
+        remat: when gradients are recorded, checkpoint each down and up
+            stage (recompute its forward in the backward), as the
+            reference's ``nn.remat`` on ``down0…down4``/``up0…up4``; the
+            mid blocks and the head are not checkpointed.
     """
 
     def __init__(self, in_channels: int = 3, model_channels: int = 64,
                  out_channels: int = 3, num_heads: int = 4,
                  dropout: float = 0.0, num_classes: int = 0,
-                 conv_bias: bool = False):
+                 conv_bias: bool = False, remat: bool = False):
         super().__init__()
         c, temb = model_channels, model_channels * 4
         self.num_classes = num_classes
+        self.remat = remat
         self.time_embedding = TimeEmbedding(c, temb)
         if num_classes > 0:
             self.label_embedding = nn.Embedding(num_classes + 1, temb)
@@ -101,19 +107,27 @@ class UNet(nn.Module):
         h = x.permute(0, 3, 1, 2).to(dtype).contiguous(
             memory_format=torch.channels_last)
         h = self.initial_conv(h)
+        stage = self._stage
         skips = []
         for block in (self.down0, self.down1, self.down2, self.down3,
                       self.down4):
-            h = block(h, t_emb)
+            h = stage(block, h, t_emb)
             skips.append(h)
         h = self.mid_res1(h, t_emb)
         h = self.mid_attn(h)
         h = self.mid_res2(h, t_emb)
         for block, skip in zip((self.up0, self.up1, self.up2, self.up3,
                                 self.up4), reversed(skips)):
-            h = block(h, t_emb, skip)
+            h = stage(block, h, t_emb, skip)
         h = self.output_conv(self.out_norm(h))
         return h.permute(0, 2, 3, 1).float()
+
+    def _stage(self, block: nn.Module, *args) -> torch.Tensor:
+        if self.remat and torch.is_grad_enabled():
+            # Non-reentrant checkpointing; dropout masks are replayed from
+            # the saved RNG state (preserve_rng_state, the default).
+            return checkpoint(block, *args, use_reentrant=False)
+        return block(*args)
 
 
 def _trunc_normal_(w: torch.Tensor, fan_in: int, scale: float,

@@ -33,6 +33,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 build_logs: Dict[str, str] = {}
+#: Every :class:`Kernel`, by its C symbol.
+KERNELS: Dict[str, "Kernel"] = {}
 
 
 def _nvcc() -> str:
@@ -124,6 +126,7 @@ class Kernel:
         self.argtypes = list(argtypes)
         self.launches = 0
         self._fn = None
+        KERNELS[symbol] = self
 
     def __call__(self, *args) -> None:
         fn = self._fn
@@ -141,3 +144,8 @@ class Kernel:
                                f"failed: CUDA error {err} "
                                f"({describe(err).decode()})")
         self.launches += 1
+
+
+def launch_counts() -> Dict[str, int]:
+    """Launches of every kernel so far in this process, by C symbol."""
+    return {name: k.launches for name, k in sorted(KERNELS.items())}

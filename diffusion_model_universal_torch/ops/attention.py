@@ -1,4 +1,4 @@
-"""Fused multi-head attention forward over [B, N, S, D].
+"""Fused multi-head attention over [B, N, S, D].
 
 Counterpart of the reference's ``ops/attention.py``:
 
@@ -11,7 +11,11 @@ Counterpart of the reference's ``ops/attention.py``:
   q's dtype.
 
 :func:`multi_head_attention` routes a CPU tensor to the plain version and
-a CUDA tensor to the kernel. There is no fallback between them.
+a CUDA tensor to the kernel. There is no fallback between them. It goes
+through :class:`MHAFunction`: forward K3,
+backward by autograd through a recompute with :func:`mha_plain`, exactly
+the reference's ``_mha_bwd`` (the vjp of ``mha_xla``); the JAX package has
+no attention backward kernel, so neither has the port.
 """
 
 from __future__ import annotations
@@ -46,10 +50,11 @@ def mha_plain(q: torch.Tensor, k: torch.Tensor,
               v: torch.Tensor) -> torch.Tensor:
     """softmax(QKᵀ·d⁻⁰·⁵)V over [B, N, S, D] (batch, heads, seq, head_dim)."""
     scale = q.shape[-1] ** -0.5
-    logits = torch.einsum("bnsd,bntd->bnst", q.float(), k.float()) * scale
+    acc = torch.promote_types(q.dtype, torch.float32)  # f64 stays f64
+    logits = torch.einsum("bnsd,bntd->bnst", q.to(acc), k.to(acc)) * scale
     probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bnst,bntd->bnsd", probs.to(v.dtype).float(),
-                       v.float())
+    out = torch.einsum("bnst,bntd->bnsd", probs.to(v.dtype).to(acc),
+                       v.to(acc))
     return out.to(v.dtype)
 
 
@@ -93,10 +98,33 @@ def mha_cuda(q: torch.Tensor, k: torch.Tensor,
     return out
 
 
-def multi_head_attention(q: torch.Tensor, k: torch.Tensor,
-                         v: torch.Tensor) -> torch.Tensor:
-    """Attention over [B, N, S, D]: the plain version for CPU tensors,
-    kernel K3 for CUDA tensors."""
+def _mha_fwd(q: torch.Tensor, k: torch.Tensor,
+             v: torch.Tensor) -> torch.Tensor:
+    """The forward for q's device: plain on the CPU, K3 on CUDA."""
     if q.device.type == "cpu":
         return mha_plain(q, k, v)
     return mha_cuda(q, k, v)
+
+
+class MHAFunction(torch.autograd.Function):
+    """Forward through K3 (plain on the CPU); backward by autograd through
+    :func:`mha_plain` recomputed from the saved q, k, v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return _mha_fwd(q, k, v)
+
+    @staticmethod
+    def backward(ctx, grad):
+        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            out = mha_plain(q, k, v)
+        return torch.autograd.grad(out, (q, k, v), grad)
+
+
+def multi_head_attention(q: torch.Tensor, k: torch.Tensor,
+                         v: torch.Tensor) -> torch.Tensor:
+    """Attention over [B, N, S, D]: the plain version for CPU tensors,
+    kernel K3 for CUDA tensors. Differentiable."""
+    return MHAFunction.apply(q, k, v)

@@ -7,12 +7,14 @@
         [--num_samples N] [--output_dir D] [--device cuda|cpu]
 
 Runs on ``cuda`` unless ``--device cpu`` is given. Reads the model-only
-checkpoint that either package writes.
+checkpoint that either package writes, or a trainer checkpoint directory
+of the port (``--ema`` picks its EMA weights).
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import math
 import pickle
 import sys
@@ -29,7 +31,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--model_type", type=str, required=True,
                    choices=MODEL_TYPES)
     p.add_argument("--checkpoint", type=str, required=True,
-                   help="Model-only .ckpt file")
+                   help="Model-only .ckpt file, or a trainer checkpoint "
+                        "directory of the torch package")
     p.add_argument("--num_samples", type=int, default=16)
     p.add_argument("--output_dir", type=str, default="generated_samples")
     p.add_argument("--ema", action="store_true",
@@ -53,9 +56,14 @@ def build_argparser() -> argparse.ArgumentParser:
 def resolve_model_config(config: dict, checkpoint: str) -> dict:
     """YAML model_config with the checkpoint's embedded config overlaid,
     so architecture keys the YAML does not mention cannot mismatch the
-    saved weights. Shared by the generate CLI and the HTTP server."""
+    saved weights (a trainer checkpoint's ``config.json`` sits beside its
+    directory). Shared by the generate CLI and the HTTP server."""
     model_cfg = dict(config.get("model_config", config.get("model", {})))
     p = Path(checkpoint)
+    sidecar = p.parent / "config.json"
+    if p.is_dir() and sidecar.is_file():
+        with open(sidecar) as f:
+            model_cfg.update(json.load(f).get("model_config") or {})
     if p.is_file():
         try:
             with open(p, "rb") as f:
@@ -67,13 +75,16 @@ def resolve_model_config(config: dict, checkpoint: str) -> dict:
 
 
 def load_params(model, path: str, use_ema: bool) -> None:
-    """Load a model-only checkpoint's weights into ``model``. ``use_ema``
-    applies to trainer checkpoints, whose reading is not ported yet."""
-    if Path(path).is_dir():
-        raise NotImplementedError(
-            f"Orbax trainer checkpoint directories are {NOT_PORTED}; "
-            "pass a model-only .ckpt file")
-    model.load(path)
+    """Load weights into ``model``: a model-only checkpoint file, or a
+    trainer checkpoint directory of the port (its EMA weights with
+    ``use_ema``). A JAX Orbax directory raises."""
+    if not Path(path).is_dir():
+        model.load(path)
+        return
+    from ..utils.checkpoint import read_state
+    state = read_state(path)
+    weights = state["ema_params" if use_ema else "params"]
+    model.net.load_state_dict(weights, strict=True)
 
 
 def check_ported(args) -> None:

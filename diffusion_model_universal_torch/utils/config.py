@@ -1,15 +1,18 @@
 """Config loading for the port.
 
-A copy of the parts of the reference's ``utils/config.py`` the serving
-path needs: the ``2e-4``-tolerant YAML loader, model-config key
-canonicalization, and ``${a.b}`` interpolation. Kept as a copy so the
-port never imports the JAX package.
+A copy of the parts of the reference's ``utils/config.py`` the serving and
+training paths need: the ``2e-4``-tolerant YAML loader, model-config key
+canonicalization, ``${a.b}`` interpolation, the per-dataset block of the
+shared data config and ``print_config``. Kept as a copy so the port never
+imports the JAX package; the port ships its own copy of
+``configs/data_config.yaml`` (a test holds it equal to the reference's).
 """
 
 from __future__ import annotations
 
 import copy
 import re
+from pathlib import Path
 from typing import Any, Dict, Optional
 
 import yaml
@@ -98,3 +101,36 @@ def resolve_interpolations(config: Dict[str, Any]) -> Dict[str, Any]:
         return value
 
     return {k: resolve(v) for k, v in config.items()}
+
+
+def load_data_config(config_path: str, dataset_name: str) -> Dict[str, Any]:
+    """The ``datasets[dataset_name]`` block of the shared data config."""
+    with open(config_path, "r") as f:
+        data_config = yaml.safe_load(f)
+    datasets = data_config.get("datasets", {})
+    if dataset_name not in datasets:
+        raise KeyError(f"Dataset '{dataset_name}' not found in "
+                       f"{config_path}; available: {sorted(datasets)}")
+    return datasets[dataset_name]
+
+
+def default_data_config_path() -> str:
+    """Path of the port's packaged ``data_config.yaml``."""
+    return str(Path(__file__).resolve().parent.parent / "configs"
+               / "data_config.yaml")
+
+
+def print_config(title: str, config: Dict[str, Any], indent: int = 0) -> None:
+    """Pretty-print a nested config dict."""
+    if indent == 0:
+        bar = "=" * 60
+        print(f"\n{bar}\n{title}\n{bar}")
+    for key, value in config.items():
+        pad = "  " * indent
+        if isinstance(value, dict):
+            print(f"{pad}{key}:")
+            print_config(title, value, indent + 1)
+        else:
+            print(f"{pad}{key}: {value}")
+    if indent == 0:
+        print("=" * 60 + "\n")

@@ -1,7 +1,7 @@
 """Image grid / PNG utilities of the port.
 
-``to_uint8`` and ``make_grid`` are copies of the reference's
-``utils/images.py``. PNG encoding here uses only the standard library
+``to_uint8``, ``make_grid`` and ``frames_to_grid`` are copies of the
+reference's ``utils/images.py``. PNG encoding here uses only the standard library
 (zlib), so the port serves PNG grids on hosts without Pillow;
 :func:`decode_png` reads back what :func:`encode_png` writes.
 """
@@ -12,7 +12,7 @@ import math
 import struct
 import zlib
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -41,6 +41,16 @@ def make_grid(images: np.ndarray, nrow: int = 8, padding: int = 2,
         left = col * (w + padding) + padding
         grid[top:top + h, left:left + w] = images[i]
     return grid
+
+
+def frames_to_grid(frames: Sequence[np.ndarray], value_range=(-1.0, 1.0)
+                   ) -> np.ndarray:
+    """Sampler intermediates as rows: one row per sample, one column per
+    saved frame."""
+    stacked = np.stack([np.asarray(f) for f in frames], axis=1)
+    n, s, h, w, c = stacked.shape
+    flat = to_uint8(stacked.reshape(n * s, h, w, c), value_range)
+    return make_grid(flat, nrow=s)
 
 
 def _chunk(kind: bytes, data: bytes) -> bytes:

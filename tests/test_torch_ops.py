@@ -6,11 +6,18 @@ PyTorch version. f32 agrees to 2e-5 (sums in another order); bf16 to
 2e-2, because the plain versions apply in bf16 where the Pallas kernels
 apply in f32 and round once.
 
+The GroupNorm backward's plain version is held against the JAX package's
+fused backward (Pallas, interpret mode) and the vjp of its XLA version at
+the tolerances of ``tests/test_pallas_kernels.py``; the autograd Functions
+that pair each kernel with its backward are checked with
+``torch.autograd.gradcheck`` in float64 on their CPU halves.
+
 The CUDA kernels themselves run only on the card (``chip_smoke.py``
 holds them against these plain versions there); here the tests check
 that their wrappers refuse what they cannot take.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,7 +25,7 @@ import torch
 
 from diffusion_model_universal_tpu.ops.attention import mha_pallas, mha_xla
 from diffusion_model_universal_tpu.ops.group_norm import (
-    group_norm_silu_pallas, group_norm_silu_xla)
+    group_norm_silu_pallas, group_norm_silu_pallas_bwd, group_norm_silu_xla)
 from diffusion_model_universal_tpu.ops.group_norm import \
     resolve_num_groups as jax_resolve_num_groups
 from diffusion_model_universal_torch.ops import _build
@@ -205,6 +212,8 @@ def test_kernel_wrappers_refuse_what_the_kernels_cannot_take():
     with pytest.raises(ValueError, match="CUDA"):
         gn_ops.group_norm_silu_cuda(x, w, w, 8)
     with pytest.raises(ValueError, match="CUDA"):
+        gn_ops.group_norm_silu_bwd_cuda(x, w, w, None, x, 8)
+    with pytest.raises(ValueError, match="CUDA"):
         attn_ops.mha_cuda(x, x, x)
     assert attn_ops.mha_smem_bytes(64, 128) <= attn_ops.MAX_SMEM_BYTES
     assert attn_ops.mha_smem_bytes(128, 128) > attn_ops.MAX_SMEM_BYTES
@@ -223,3 +232,132 @@ def test_kernel_build_names_sources_and_raises_without_nvcc(monkeypatch,
     monkeypatch.setattr(_build, "DEFAULT_CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build_all()
+
+
+# -- backward ------------------------------------------------------------
+
+@pytest.mark.parametrize("silu", [True, False])
+@pytest.mark.parametrize("with_tb", [True, False])
+def test_gn_bwd_plain_matches_pallas_bwd_and_xla_vjp(silu, with_tb):
+    """K2's plain version against the JAX fused backward (interpret) and
+    the vjp of the XLA version, at test_pallas_kernels.py's tolerances
+    (dx, dtb 2e-4; dscale, dbias 2e-3 abs + 2e-4 rel). Measured: ≤ 2e-6
+    on dx and ≤ 4e-6 on dscale against either."""
+    x, scale, bias, tb = _gn_inputs((3, 4, 4, 32), seed=7, tb=True)
+    if not with_tb:
+        tb = np.zeros_like(tb)
+    dy = np.random.default_rng(8).normal(size=x.shape)
+    jx, jtb, jdy = (jnp.asarray(a, jnp.float32) for a in (x, tb, dy))
+    js, jb = jnp.asarray(scale), jnp.asarray(bias)
+
+    def xla_fn(x, s, b, t):
+        return group_norm_silu_xla(x, s, b, 8, time_bias=t, apply_silu=silu)
+
+    _, vjp = jax.vjp(xla_fn, jx, js, jb, jtb)
+    refs = {"xla": vjp(jdy), "pallas": group_norm_silu_pallas_bwd(
+        jx, js, jb, jtb, jdy, 8, apply_silu=silu, interpret=True)}
+    got = gn_ops.group_norm_silu_bwd_plain(
+        torch.from_numpy(x).float(), torch.from_numpy(scale),
+        torch.from_numpy(bias),
+        torch.from_numpy(tb).float() if with_tb else None,
+        torch.from_numpy(dy).float(), 8, apply_silu=silu)
+    assert (got[3] is None) == (not with_tb)
+    tols = [(2e-4, 2e-4), (2e-3, 2e-4), (2e-3, 2e-4), (2e-4, 2e-4)]
+    for ref in refs.values():
+        for g, r, (atol, rtol) in zip(got, ref, tols):
+            if g is not None:
+                np.testing.assert_allclose(g.numpy(), np.asarray(r),
+                                           atol=atol, rtol=rtol)
+
+
+def _gn_f64_args(with_tb, seed=11):
+    x, scale, bias, tb = _gn_inputs((2, 3, 3, 12), seed=seed, tb=True)
+    return (torch.from_numpy(x).double().requires_grad_(),
+            torch.from_numpy(scale).double().requires_grad_(),
+            torch.from_numpy(bias).double().requires_grad_(),
+            torch.from_numpy(tb).double().requires_grad_() if with_tb
+            else None)
+
+
+@pytest.mark.parametrize("silu", [True, False])
+@pytest.mark.parametrize("with_tb", [True, False])
+def test_gn_function_gradcheck_f64(silu, with_tb):
+    """gradcheck of GroupNormSiLUFunction's CPU pair (plain forward, plain
+    backward) in float64: the backward formula, and which input gets
+    which gradient, against finite differences (3 groups of 4 channels,
+    so groups do not divide a warp here either)."""
+    x, scale, bias, tb = _gn_f64_args(with_tb)
+
+    def f(x, scale, bias, tb):
+        return gn_ops.GroupNormSiLUFunction.apply(x, scale, bias, tb, 3,
+                                                  1e-5, silu)
+
+    assert torch.autograd.gradcheck(f, (x, scale, bias, tb), eps=1e-6,
+                                    atol=1e-5, rtol=1e-4)
+
+
+def test_gn_dispatcher_is_differentiable_and_casts_dtb():
+    """The dispatcher goes through the Function: when an input needs a
+    gradient the output has a grad_fn, a bf16 time bias gets a bf16
+    gradient, and without grad mode the same forward has none."""
+    x, scale, bias, tb = _gn_f64_args(True)
+    x32 = x.detach().float().requires_grad_()
+    tb16 = tb.detach().to(torch.bfloat16).requires_grad_()
+    out = gn_ops.group_norm_silu(x32, scale.detach().float(),
+                                 bias.detach().float(), 3, time_bias=tb16)
+    assert "GroupNormSiLUFunction" in type(out.grad_fn).__name__
+    out.square().sum().backward()
+    assert tb16.grad.dtype == torch.bfloat16 and x32.grad.dtype == x32.dtype
+    with torch.no_grad():
+        assert gn_ops.group_norm_silu(x32, scale.float(), bias.float(), 3,
+                                      time_bias=tb16).grad_fn is None
+
+
+def test_mha_function_gradcheck_f64():
+    """gradcheck of MHAFunction (forward, then autograd through a
+    recompute with mha_plain) in float64 on head-split views."""
+    rng = np.random.default_rng(12)
+    q, k, v = (torch.from_numpy(rng.normal(size=(2, 5, 8))).view(
+        2, 5, 2, 4).transpose(1, 2).requires_grad_() for _ in range(3))
+    assert torch.autograd.gradcheck(attn_ops.MHAFunction.apply, (q, k, v),
+                                    eps=1e-6, atol=1e-5, rtol=1e-4)
+    out = attn_ops.multi_head_attention(q, k, v)
+    assert "MHAFunction" in type(out.grad_fn).__name__
+
+
+@pytest.mark.parametrize("ch,skip_ch", [(64, 64), (32, 96)])
+def test_gn_split_skip_gradients_match_concat(ch, skip_ch):
+    """The split-skip form's gradients (x, skip, γ, β, time bias) equal
+    the JAX vjp of the GroupNorm of the materialized concat. Tolerance
+    2e-5 (f32 sums in another order); measured ≤ 1e-6."""
+    from diffusion_model_universal_torch.models.layers.resnet import \
+        GroupNormSiLU
+    ctot = ch + skip_ch
+    g = gn_ops.resolve_num_groups(ctot, 32)
+    x, scale, bias, tb = _gn_inputs((2, 4, 4, ctot), seed=3, tb=True)
+    dy = np.random.default_rng(4).normal(size=x.shape).astype(np.float32)
+
+    def jfn(x, s, b, t):
+        return group_norm_silu_xla(x, s, b, g, time_bias=t)
+
+    _, vjp = jax.vjp(jfn, *(jnp.asarray(a, jnp.float32)
+                            for a in (x, scale, bias, tb)))
+    ref = [np.asarray(r) for r in vjp(jnp.asarray(dy))]
+    norm = GroupNormSiLU(ctot, 32)
+    with torch.no_grad():
+        norm.weight.copy_(torch.from_numpy(scale))
+        norm.bias.copy_(torch.from_numpy(bias))
+    nchw = torch.from_numpy(x).permute(0, 3, 1, 2).float()
+    xh = nchw[:, :ch].contiguous(
+        memory_format=torch.channels_last).requires_grad_()
+    xs = nchw[:, ch:].contiguous(
+        memory_format=torch.channels_last).requires_grad_()
+    ttb = torch.from_numpy(tb).float().requires_grad_()
+    yh, ys = norm(xh, time_bias=ttb, skip=xs)
+    dyt = torch.from_numpy(dy).permute(0, 3, 1, 2)
+    torch.autograd.backward((yh, ys), (dyt[:, :ch], dyt[:, ch:]))
+    dx = torch.cat([xh.grad, xs.grad], 1).permute(0, 2, 3, 1).numpy()
+    for got, want in ((dx, ref[0]), (norm.weight.grad.numpy(), ref[1]),
+                      (norm.bias.grad.numpy(), ref[2]),
+                      (ttb.grad.numpy(), ref[3])):
+        np.testing.assert_allclose(got, want, atol=2e-5, rtol=2e-5)

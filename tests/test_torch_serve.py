@@ -167,7 +167,9 @@ def test_generate_cli_on_cpu(files, tmp_path):
                   ["--inpaint_image", "x.npy"]):
         with pytest.raises(SystemExit, match="not yet ported"):
             gen_cli.main(base + extra)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    # A directory that is not one of the port's trainer checkpoints (a
+    # JAX Orbax directory, say) is refused with a clear error.
+    with pytest.raises(ValueError, match="Orbax"):
         gen_cli.load_params(None, str(tmp_path), use_ema=True)
 
 
@@ -191,7 +193,7 @@ def test_images_match_jax_helpers_and_png_roundtrips():
 
 def test_port_never_imports_jax():
     """Importing every module of the port, and chip_smoke.py, leaves jax,
-    flax and the JAX package out of sys.modules."""
+    flax, optax, orbax and the JAX package out of sys.modules."""
     code = (
         "import importlib, pkgutil, runpy, sys\n"
         "import diffusion_model_universal_torch as p\n"
@@ -199,7 +201,8 @@ def test_port_never_imports_jax():
         "    importlib.import_module(m.name)\n"
         "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
-        "       ('jax', 'jaxlib', 'flax', 'diffusion_model_universal_tpu')]\n"
+        "       ('jax', 'jaxlib', 'flax', 'optax', 'orbax',\n"
+        "        'diffusion_model_universal_tpu')]\n"
         "assert not bad, bad\n"
         "print(len([m for m in sys.modules if m.startswith(p.__name__)]))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
