@@ -42,7 +42,20 @@ on, dropout 0.1, the config's SNR-weighted MSE, Adam and EMA):
    steps with ``torch.profiler``, and times every kernel at the training
    shapes.
 
-The last three lines of standard output are the ``kernels`` JSON line,
+Then the experiment CLIs' kernels (``scripts/exp_conv_kernel.py`` and
+``scripts/exp_boundary_kernel.py`` of the port):
+
+10. holds the 3×3 conv K5 in both K orders at the six stride-1 shapes of
+    ``bench.py`` (bf16 at B=2048, f32 at B=16) and at batch-packed edge
+    shapes, and K4 (fused affine+SiLU→conv), K6 (out-head) and K7
+    (in-conv) at 32², C=128, each against its plain version; checks
+    refusals and ``Conv3x3Function``'s gradients; runs both CLIs'
+    ``--check`` and ``--bench`` as subprocesses, each of which must launch
+    every kernel it covers; and times the four kernels at their bench
+    shapes beside their plain versions, ``F.conv2d`` and their bounds.
+
+The last three lines of standard output are the ``kernels`` JSON line
+(all seven kernels),
 the card's name and power limit from ``nvidia-smi``, and the result
 line ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
 before the result line. Needs a CUDA card; exits non-zero without one.
@@ -63,6 +76,8 @@ import threading
 import time
 import urllib.request
 from pathlib import Path
+
+from diffusion_model_universal_torch.utils.timing import card_line, cuda_ms
 
 REPO = Path(__file__).resolve().parent
 CONFIG = REPO / "diffusion_model_universal_tpu" / "configs" / "ddpm_config.yaml"
@@ -103,49 +118,22 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def hold(name: str, got, want, tol: float) -> float:
-    """Check |got − want| ≤ tol + tol·|want| elementwise (in f32) and that
-    got is finite; returns max |got − want|."""
+def hold(name: str, got, want, tol: float, rtol: float | None = None
+         ) -> float:
+    """Check |got − want| ≤ tol + rtol·|want| elementwise (in f32; rtol
+    defaults to tol) and that got is finite; returns max |got − want|."""
+    rtol = tol if rtol is None else rtol
     d = (got.float() - want.float()).abs()
     err = float(d.max())
-    ok = bool((d <= tol + tol * want.float().abs()).all()) and bool(
+    ok = bool((d <= tol + rtol * want.float().abs()).all()) and bool(
         got.float().isfinite().all())
-    log(f"  {name}: max_abs_err={err:.3e} (tol {tol:g} abs + {tol:g} rel) "
-        f"{'ok' if ok else 'FAIL'}")
+    log(f"  {name}: max_abs_err={err:.3e} (tol {tol:.3g} abs + {rtol:g} "
+        f"rel) {'ok' if ok else 'FAIL'}")
     check(ok, f"{name} disagrees with its plain version")
     return err
 
 
 # -- timing ---------------------------------------------------------------
-
-def cuda_ms(fn, iters: int = 40, reps: int = 5) -> float:
-    """Median device ms per call of ``fn`` over ``reps`` runs of ``iters``
-    back-to-back calls. Each run starts behind a spin kernel long enough
-    for the host to enqueue all ``iters`` calls, so the events time the
-    card's work and not the host's launch rate."""
-    import torch
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    torch.cuda.synchronize()
-    host_s = time.perf_counter() - t0
-    spin_cycles = int(min(2.0 * host_s, 0.5) * 2.0e9)
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(spin_cycles)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / iters)
-    return statistics.median(times)
-
 
 def bound(nbytes: float, ops: float, dtype: str):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -154,14 +142,6 @@ def bound(nbytes: float, ops: float, dtype: str):
 
 
 # -- phases ---------------------------------------------------------------
-
-def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0].strip()
-
 
 def build_kernels():
     from diffusion_model_universal_torch.ops import _build
@@ -1046,6 +1026,406 @@ def time_training(trainer, batch, steps: int = 20, warmup: int = 5):
     return out
 
 
+# -- experiment kernels (phase 10) ------------------------------------------
+
+#: The stride-1 3×3 conv shapes of bench.py:402-411, (H, Cin, Cout); the
+#: first is the experiment CLIs' default bench shape.
+EXP_CONV_SHAPES = [(32, 128, 128), (16, 128, 128), (8, 256, 256),
+                   (16, 256, 128), (4, 256, 256), (2, 512, 512)]
+#: The batch-packed edge shapes of tests/test_pallas_kernels.py:177, B=32.
+EXP_EDGE_SHAPES = [(2, 32, 32), (4, 24, 16), (8, 16, 16)]
+EXP_BATCH = 2048            # the experiment CLIs' bench batch
+EXP_F32_BATCH = 16          # f32 holds: the arithmetic, at a short phase
+EXP_HEAD = (32, 128)        # out-head / in-conv: 32², C=128
+EXP_REPLACES = {
+    "conv3x3": "scripts/exp_conv_kernel.py:72 (_kernel, tap9) and :156 "
+               "(_kernel_k3, k3)",
+    "gn_silu_conv3x3": "scripts/exp_conv_kernel.py:90",
+    "out_head": "scripts/exp_boundary_kernel.py:54",
+    "in_conv": "scripts/exp_boundary_kernel.py:114",
+}
+EXP_SYMBOLS = {"exp_conv_kernel": ("dmu_conv3x3_tap9", "dmu_conv3x3_k3",
+                                   "dmu_gn_silu_conv3x3"),
+               "exp_boundary_kernel": ("dmu_out_head", "dmu_in_conv")}
+
+
+def conv_label(shape, batch) -> str:
+    h, cin, cout = shape
+    return f"B{batch} {h}² {cin}→{cout}"
+
+
+def exp_conv_inputs(shape, batch, dtype, gen):
+    """x [B, H, H, Cin] ~ N(0, 1) and w [3, 3, Cin, Cout] scaled so that
+    the conv's outputs are ~ N(0, 1)."""
+    import torch
+    h, cin, cout = shape
+    x = torch.randn((batch, h, h, cin), generator=gen, device=DEVICE)
+    w = torch.randn((3, 3, cin, cout), generator=gen, device=DEVICE) * (
+        1.0 / (9 * cin)) ** 0.5
+    return x.to(dtype), w.to(dtype)
+
+
+def exp_affine(batch, cin, dtype, gen):
+    """K4's per-sample a, b [B, Cin]."""
+    import torch
+    a = torch.randn((batch, cin), generator=gen, device=DEVICE) * 0.3 + 1.0
+    b = torch.randn((batch, cin), generator=gen, device=DEVICE) * 0.5
+    return a.to(dtype), b.to(dtype)
+
+
+def exp_head_inputs(batch, dtype, gen):
+    """K6's x [B, 32, 32, 128], scale, bias [128] (f32), w [3, 3, 128, 3];
+    K7's x3 [B, 32, 32, 3] and w3 [3, 3, 3, 128]."""
+    import torch
+    h, c = EXP_HEAD
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=DEVICE)
+
+    x = (randn(batch, h, h, c) * 0.5 + 0.3).to(dtype)
+    scale = randn(c) * 0.2 + 1.0
+    bias = randn(c) * 0.1
+    w = (randn(3, 3, c, 3) * (1.0 / (9 * c)) ** 0.5).to(dtype)
+    x3 = randn(batch, h, h, 3).to(dtype)
+    w3 = (randn(3, 3, 3, c) * (1.0 / 27) ** 0.5).to(dtype)
+    return x, scale, bias, w, x3, w3
+
+
+def hold_exp_kernels():
+    """Phase 10a: K5 in both K orders at the six bench.py shapes (bf16 at
+    B=2048, f32 at B=16) and the three edge shapes (B=32, both dtypes);
+    K4, K6 and K7 at 32², C=128 in both dtypes; and each kernel on the
+    inputs the experiment CLIs' ``--check`` builds (K4, K5 at B=4, 16²,
+    128→128 bf16; K6, K7 at B=4, 16², C=128 f32). Each against its plain
+    version within TOL. Returns max abs errors by kernel, keyed by
+    (case, dtype)."""
+    import torch
+    from diffusion_model_universal_torch.ops import boundary_conv as bc
+    from diffusion_model_universal_torch.ops import conv3x3 as cv
+    from diffusion_model_universal_torch.scripts import exp_boundary_kernel
+    from diffusion_model_universal_torch.scripts import exp_conv_kernel
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 9)
+    errs = {name: {} for name in EXP_REPLACES}
+    cases = ([(s, EXP_BATCH, "bfloat16") for s in EXP_CONV_SHAPES]
+             + [(s, EXP_F32_BATCH, "float32") for s in EXP_CONV_SHAPES]
+             + [(s, 32, d) for s in EXP_EDGE_SHAPES
+                for d in ("float32", "bfloat16")])
+    for shape, batch, dname in cases:
+        x, w = exp_conv_inputs(shape, batch, getattr(torch, dname), gen)
+        for variant in cv.VARIANTS:
+            got = cv.conv3x3_cuda(x, w, variant)
+            want = cv.conv3x3_plain(x, w, variant)
+            torch.cuda.synchronize()
+            label = f"{variant} {conv_label(shape, batch)}"
+            errs["conv3x3"][(label, dname)] = hold(
+                f"K5 {dname} {label}", got, want, TOL[dname])
+        del x, w, got, want
+    for dname, batch in (("bfloat16", EXP_BATCH), ("float32",
+                                                    EXP_F32_BATCH)):
+        dtype = getattr(torch, dname)
+        shape = EXP_CONV_SHAPES[0]
+        x, w = exp_conv_inputs(shape, batch, dtype, gen)
+        a, b = exp_affine(batch, shape[1], dtype, gen)
+        got = cv.gn_silu_conv3x3_cuda(x, a, b, w)
+        want = cv.gn_silu_conv3x3_plain(x, a, b, w)
+        torch.cuda.synchronize()
+        label = conv_label(shape, batch)
+        errs["gn_silu_conv3x3"][(label, dname)] = hold(
+            f"K4 {dname} {label}", got, want, TOL[dname])
+        x, scale, bias, w, x3, w3 = exp_head_inputs(batch, dtype, gen)
+        got = bc.out_head_cuda(x, scale, bias, w)
+        want = bc.out_head_plain(x, scale, bias, w)
+        torch.cuda.synchronize()
+        label = f"B{batch} 32² 128→3 G32"
+        errs["out_head"][(label, dname)] = hold(
+            f"K6 {dname} {label}", got, want, TOL[dname])
+        got, want = bc.in_conv_cuda(x3, w3), bc.in_conv_plain(x3, w3)
+        torch.cuda.synchronize()
+        label = f"B{batch} 32² 3→128"
+        errs["in_conv"][(label, dname)] = hold(
+            f"K7 {dname} {label}", got, want, TOL[dname])
+        del x, w, a, b, got, want, x3, w3
+    x, w, a, b = exp_conv_kernel.check_inputs(DEVICE)
+    dname = str(x.dtype).removeprefix("torch.")
+    label = (f"{conv_label(exp_conv_kernel.CHECK_SHAPE, x.shape[0])} "
+             "(CLI check)")
+    for variant in cv.VARIANTS:
+        got = cv.conv3x3_cuda(x, w, variant)
+        want = cv.conv3x3_plain(x, w, variant)
+        torch.cuda.synchronize()
+        errs["conv3x3"][(f"{variant} {label}", dname)] = hold(
+            f"K5 {dname} {variant} {label}", got, want, TOL[dname])
+    got = cv.gn_silu_conv3x3_cuda(x, a, b, w)
+    want = cv.gn_silu_conv3x3_plain(x, a, b, w)
+    torch.cuda.synchronize()
+    errs["gn_silu_conv3x3"][(label, dname)] = hold(
+        f"K4 {dname} {label}", got, want, TOL[dname])
+    x, w, scale, bias, x3, w3 = exp_boundary_kernel.check_inputs(DEVICE)
+    dname = str(x.dtype).removeprefix("torch.")
+    b, h, _, c = x.shape
+    for name, kernel, got, want in [
+            ("out_head", "K6", bc.out_head_cuda(x, scale, bias, w),
+             bc.out_head_plain(x, scale, bias, w)),
+            ("in_conv", "K7", bc.in_conv_cuda(x3, w3),
+             bc.in_conv_plain(x3, w3))]:
+        torch.cuda.synchronize()
+        label = (f"B{b} {h}² {c}→3 G32" if name == "out_head"
+                 else f"B{b} {h}² 3→{c}") + " (CLI check)"
+        errs[name][(label, dname)] = hold(f"{kernel} {dname} {label}", got,
+                                          want, TOL[dname])
+    return errs
+
+
+def exp_refusals():
+    """Phase 10b: shapes the experiment kernels' wrappers must refuse."""
+    import torch
+    from diffusion_model_universal_torch.ops import boundary_conv as bc
+    from diffusion_model_universal_torch.ops import conv3x3 as cv
+    z = dict(device=DEVICE, dtype=torch.bfloat16)
+    x12, w12 = torch.zeros((2, 4, 4, 12), **z), torch.zeros((3, 3, 12, 16),
+                                                            **z)
+    a12 = torch.zeros((2, 12), **z)
+    xh, s = torch.zeros((2, 4, 4, 64), **z), torch.ones(64, device=DEVICE)
+    x3 = torch.zeros((2, 4, 4, 3), **z)
+    for what, call in [
+            ("Cin=12 (K5)", lambda: cv.conv3x3_cuda(x12, w12)),
+            ("Cin=12 (K4)", lambda: cv.gn_silu_conv3x3_cuda(x12, a12, a12,
+                                                            w12)),
+            ("Cout=4 out head (K6)", lambda: bc.out_head_cuda(
+                xh, s, s, torch.zeros((3, 3, 64, 4), **z))),
+            ("Cout=12 (K7)", lambda: bc.in_conv_cuda(
+                x3, torch.zeros((3, 3, 3, 12), **z)))]:
+        try:
+            call()
+        except ValueError:
+            log(f"  refuses {what}: ok")
+        else:
+            raise SmokeFailure(f"a wrapper accepted {what}")
+
+
+def pullback_tol(n_terms: int, rms_factor: float) -> float:
+    """Absolute tolerance of a value that sums ``n_terms`` products of a
+    factor (root mean square ``rms_factor``) with a function of a conv's
+    output y, when y is held within TOL of its reference: each term then
+    moves by about TOL·factor (tanh and its derivatives change by at most
+    1.0× and 0.77× the change in y), and n such moves of either sign add
+    like sqrt(n)."""
+    return TOL["float32"] * math.sqrt(n_terms) * rms_factor
+
+
+def hold_conv_function():
+    """Phase 10c: Conv3x3Function (forward K5, backward the F.conv2d
+    twin's) against autograd through conv3x3_conv2d, f32 (TF32 off), on
+    the reference test's loss, sum(tanh(conv(x, w))), so that K5's forward
+    error reaches the gradients through tanh' as it does there. y within
+    TOL; the loss, dx (9·Cout terms of w) and dw (B·H·W terms of x) within
+    :func:`pullback_tol` abs + the f32 TOL rel."""
+    import torch
+    from diffusion_model_universal_torch.ops import conv3x3 as cv
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 10)
+    x, w = exp_conv_inputs((16, 128, 128), EXP_F32_BATCH, torch.float32,
+                           gen)
+    before = cv.CONV3X3_KERNELS["tap9"].launches
+    outs = []
+    for fn in (cv.Conv3x3Function.apply, cv.conv3x3_conv2d):
+        xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+        y = fn(xg, wg)
+        loss = torch.tanh(y).sum()
+        outs.append((y.detach(), loss.detach(),
+                     *torch.autograd.grad(loss, (xg, wg))))
+    torch.cuda.synchronize()
+    check(cv.CONV3X3_KERNELS["tap9"].launches == before + 1,
+          "Conv3x3Function's forward did not launch K5 once")
+    b, h, _, _ = x.shape
+    n_out, cout = outs[0][0].numel(), w.shape[3]
+    rms = {"x": float(x.pow(2).mean().sqrt()),
+           "w": float(w.pow(2).mean().sqrt())}
+    tol = TOL["float32"]
+    atol = {"y": tol, "loss": pullback_tol(n_out, 1.0),
+            "dx": pullback_tol(9 * cout, rms["w"]),
+            "dw": pullback_tol(b * h * h, rms["x"])}
+    return {name: hold(f"Conv3x3Function {name}, B{b} {h}² 128→128 f32", a,
+                       r, atol[name], tol)
+            for name, a, r in zip(atol, *outs)}
+
+
+def exp_clis():
+    """Phase 10d: each experiment CLI's --check, then --bench at its default
+    shape, as subprocesses; each run's own launch counters (they start at 0
+    in the subprocess) must show every kernel of that CLI. Returns the
+    launches summed over the four runs, by C symbol, and the bench lines."""
+    launches, lines = {}, []
+    for module, symbols in EXP_SYMBOLS.items():
+        for mode in ("--check", "--bench"):
+            out = run_cli(module, [mode], f"{module} {mode}", timeout=600)
+            got = json.loads(out.split("Kernel launches: ")[1]
+                             .splitlines()[0])
+            check(all(got.get(s, 0) > 0 for s in symbols),
+                  f"{module} {mode} launched {got}")
+            if mode == "--check":
+                check("parity OK" in out, f"{module} --check: no parity OK")
+            for line in out.splitlines():
+                if not line.startswith("Kernel launches"):
+                    lines.append(f"{module} {mode}: {line}")
+                    log(f"  {line}")
+            log(f"  launches {json.dumps({s: got[s] for s in symbols})}")
+            for s in symbols:
+                launches[s] = launches.get(s, 0) + got[s]
+    return launches, lines
+
+
+def time_exp_kernels():
+    """Phase 10e: each experiment kernel at its bench shape in bf16 (B=2048;
+    K5 at all six bench.py shapes, both K orders): kernel, plain, library
+    and bound ms. The library call is F.conv2d on channels-last views with
+    the weight laid out once beforehand; for K4 the affine and SiLU first,
+    for K6 F.group_norm and F.silu first."""
+    import torch
+    import torch.nn.functional as F
+    from diffusion_model_universal_torch.ops import boundary_conv as bc
+    from diffusion_model_universal_torch.ops import conv3x3 as cv
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
+    b = EXP_BATCH
+
+    def lay(w):   # HWIO -> OIHW with channels-last memory
+        return w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+
+    def row(label, ms, plain, lib, nbytes, ops, **extra):
+        bms, by = bound(nbytes, ops, "bfloat16")
+        log(f"[time] {label}: kernel {ms * 1e3:.2f} us, plain "
+            f"{plain * 1e3:.2f} us, library {lib * 1e3:.2f} us, bound "
+            f"{bms * 1e3:.2f} us ({by})")
+        return {"shape": label, "ms": ms, "plain_ms": plain,
+                "library_ms": lib, "bound_ms": bms, "bound_by": by, **extra}
+
+    rows = {name: [] for name in EXP_REPLACES}
+    for shape in EXP_CONV_SHAPES:
+        h, cin, cout = shape
+        x, w = exp_conv_inputs(shape, b, bf16, gen)
+        xl, wl = x.permute(0, 3, 1, 2), lay(w)
+        lib = cuda_ms(lambda: F.conv2d(xl, wl, padding=1), iters=10, reps=3)
+        nbytes = 2 * (b * h * h * (cin + cout) + 9 * cin * cout)
+        ops = 2 * b * h * h * 9 * cin * cout
+        for variant in cv.VARIANTS:
+            ms = cuda_ms(lambda: cv.conv3x3_cuda(x, w, variant), iters=10,
+                         reps=3)
+            plain = cuda_ms(lambda: cv.conv3x3_plain(x, w, variant), iters=3,
+                            reps=3)
+            rows["conv3x3"].append(row(
+                f"K5 {variant} {conv_label(shape, b)}", ms, plain, lib,
+                nbytes, ops, variant=variant))
+        if shape == EXP_CONV_SHAPES[0]:
+            a, bb = exp_affine(b, cin, bf16, gen)
+
+            def unit():
+                return F.conv2d(cv._affine_silu(x, a, bb).permute(0, 3, 1, 2),
+                                wl, padding=1)
+
+            rows["gn_silu_conv3x3"].append(row(
+                f"K4 {conv_label(shape, b)}",
+                cuda_ms(lambda: cv.gn_silu_conv3x3_cuda(x, a, bb, w),
+                        iters=10, reps=3),
+                cuda_ms(lambda: cv.gn_silu_conv3x3_plain(x, a, bb, w),
+                        iters=3, reps=3),
+                cuda_ms(unit, iters=10, reps=3),
+                nbytes + 2 * 2 * b * cin, ops + 5 * b * h * h * cin))
+        del x, w, xl, wl
+    x, scale, bias, w, x3, w3 = exp_head_inputs(b, bf16, gen)
+    h, c = EXP_HEAD
+    xl, wl, sl, bl = x.permute(0, 3, 1, 2), lay(w), scale.to(bf16), \
+        bias.to(bf16)
+
+    def head_unit():
+        return F.conv2d(F.silu(F.group_norm(xl, 32, sl, bl, 1e-5)), wl,
+                        padding=1)
+
+    rows["out_head"].append(row(
+        f"K6 B{b} 32² 128→3 G32",
+        cuda_ms(lambda: bc.out_head_cuda(x, scale, bias, w), iters=20,
+                reps=3),
+        cuda_ms(lambda: bc.out_head_plain(x, scale, bias, w), iters=3,
+                reps=3),
+        cuda_ms(head_unit, iters=20, reps=3),
+        2 * b * h * h * (c + 3) + 2 * 27 * c + 8 * c,
+        2 * b * h * h * 27 * c + 10 * b * h * h * c))
+    x3l, w3l = x3.permute(0, 3, 1, 2), lay(w3)
+    rows["in_conv"].append(row(
+        f"K7 B{b} 32² 3→128",
+        cuda_ms(lambda: bc.in_conv_cuda(x3, w3), iters=20, reps=3),
+        cuda_ms(lambda: bc.in_conv_plain(x3, w3), iters=3, reps=3),
+        cuda_ms(lambda: F.conv2d(x3l, w3l, padding=1), iters=20, reps=3),
+        2 * (b * h * h * (3 + c) + 27 * c), 2 * b * h * h * 27 * c))
+    return rows
+
+
+def exp_entry(name, kernel, rows, launches, errs, work, **extra):
+    """One kernels-line entry of phase 10: the numbers of ``rows[0]``, the
+    kernel at the experiment CLI's default bench shape."""
+    main = rows[0]
+    return {
+        "name": name, "route": "cuda",
+        "source": f"diffusion_model_universal_torch/csrc/{kernel.source}.cu",
+        "replaces": EXP_REPLACES[name], "launches": launches,
+        "max_abs_err": max(errs.values()),
+        "max_abs_err_f32": max(v for (_, d), v in errs.items()
+                               if d == "float32"),
+        "max_abs_err_bf16": max(v for (_, d), v in errs.items()
+                                if d == "bfloat16"),
+        "tol": TOL, "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"], "work": work, "shapes": rows,
+        **extra,
+    }
+
+
+def experiment_kernels():
+    """Phase 10: K4–K7 against their plain versions, refusals, the
+    differentiable conv, both experiment CLIs, and timings. Returns the
+    four kernels-line entries and a summary."""
+    from diffusion_model_universal_torch.ops import boundary_conv as bc
+    from diffusion_model_universal_torch.ops import conv3x3 as cv
+    t0 = time.perf_counter()
+    log("[hold] K4–K7 against their plain versions:")
+    errs = hold_exp_kernels()
+    exp_refusals()
+    grad_errs = hold_conv_function()
+    log("[cli] experiment CLIs:")
+    launches, lines = exp_clis()
+    rows = time_exp_kernels()
+    conv_work = (f"one conv at B={EXP_BATCH}, 32², 128→128, bf16 (the "
+                 "experiment CLI's bench shape)")
+    by_variant = {v: launches[f"dmu_conv3x3_{v}"] for v in ("tap9", "k3")}
+    k3_main = next(r for r in rows["conv3x3"] if r["variant"] == "k3")
+    entries = [
+        exp_entry("conv3x3", cv.CONV3X3_KERNELS["tap9"], rows["conv3x3"],
+                  sum(by_variant.values()), errs["conv3x3"],
+                  conv_work + "; ms etc. of the tap9 order",
+                  launches_by_variant=by_variant,
+                  k3={k: k3_main[k] for k in ("ms", "plain_ms", "library_ms",
+                                              "bound_ms", "bound_by")},
+                  library="F.conv2d", grad_max_abs_err_f32=grad_errs),
+        exp_entry("gn_silu_conv3x3", cv.GN_SILU_CONV3X3_KERNEL,
+                  rows["gn_silu_conv3x3"], launches["dmu_gn_silu_conv3x3"],
+                  errs["gn_silu_conv3x3"], conv_work,
+                  library="affine + SiLU, then F.conv2d"),
+        exp_entry("out_head", bc.OUT_HEAD_KERNEL, rows["out_head"],
+                  launches["dmu_out_head"], errs["out_head"],
+                  f"the out-head unit at B={EXP_BATCH}, 32², C=128 → 3, "
+                  "bf16",
+                  library="F.group_norm + F.silu + F.conv2d"),
+        exp_entry("in_conv", bc.IN_CONV_KERNEL, rows["in_conv"],
+                  launches["dmu_in_conv"], errs["in_conv"],
+                  f"the in-conv at B={EXP_BATCH}, 32², 3 → 128, bf16",
+                  library="F.conv2d"),
+    ]
+    secs = time.perf_counter() - t0
+    log(f"[phase 10] experiment kernels: {secs:.1f} s")
+    return entries, {"seconds": secs, "cli_launches": launches,
+                     "cli_lines": lines}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1058,7 +1438,7 @@ def main() -> int:
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    smi = nvidia_smi_line()
+    smi = card_line()
     kind = torch.cuda.get_device_name(0)
     log(f"[device] {kind}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}; nvidia-smi: {smi}")
@@ -1119,6 +1499,8 @@ def main() -> int:
     finally:
         shutil.rmtree(train_dir, ignore_errors=True)
 
+    exp_entries, exp_summary = experiment_kernels()
+
     symbols = {"gn": "dmu_group_norm_silu_fwd",
                "gn_bwd": "dmu_group_norm_silu_bwd", "mha": "dmu_mha_fwd"}
 
@@ -1160,12 +1542,14 @@ def main() -> int:
                      train={**totals(k3_train), "work": train_work,
                             "max_abs_err": max(train_errs["mha"].values()),
                             "shapes": k3_train}),
+        *exp_entries,
     ]
     summary = {"requests": requests, "unet_max_abs_err": unet_err,
                "profile": profile, "dispatch": dispatch,
                "train_step_check": step_check,
                "train_cli": cli, "train_time": train_time,
                "train_profile": train_profile,
+               "experiment_kernels": exp_summary,
                "seconds": time.perf_counter() - t_start}
     log(f"[summary] {json.dumps(summary)}")
     print(json.dumps({"kernels": entries}))

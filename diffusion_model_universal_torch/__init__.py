@@ -5,9 +5,9 @@ reference, which it never imports). Subpackages mirror the reference's
 names (``ops``, ``models``, ``models.layers``, ``utils``, ``scripts``) so
 each module's counterpart is found under the same relative path.
 
-The hot GroupNorm and attention ops run as hand-written CUDA kernels for
-Hopper (``csrc/``), built with ``nvcc`` at first use; on CPU tensors the
-same ops run their plain PyTorch versions. Entry points run on ``cuda``
+The hot GroupNorm and attention ops, and the conv-experiment ops, run as
+hand-written CUDA kernels for Hopper (``csrc/``), built with ``nvcc`` at
+first use; on CPU tensors the same ops run their plain PyTorch versions. Entry points run on ``cuda``
 unless the caller passes ``device="cpu"``.
 """
 

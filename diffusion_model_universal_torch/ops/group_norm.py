@@ -71,20 +71,14 @@ def _acc_dtype(x: torch.Tensor) -> torch.dtype:
     return torch.promote_types(x.dtype, torch.float32)
 
 
-def group_norm_silu_plain(x: torch.Tensor, scale: torch.Tensor,
-                          bias: torch.Tensor, num_groups: int,
-                          time_bias: Optional[torch.Tensor] = None,
-                          eps: float = 1e-5,
-                          apply_silu: bool = True) -> torch.Tensor:
-    """GroupNorm → (optional +time_bias) → (optional SiLU) on NHWC ``x``.
-
-    Args:
-        x: [B, H, W, C] activations (stats in f32, apply in x's dtype).
-        scale, bias: [C] affine parameters.
-        num_groups: must divide C (see :func:`resolve_num_groups`).
-        time_bias: optional [B, C] per-sample channel bias added to ``x``
-            before normalizing.
-    """
+def group_affine(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                 num_groups: int, time_bias: Optional[torch.Tensor] = None,
+                 eps: float = 1e-5):
+    """The per-sample channel affine ``(a, b)``, [B, C] in f32 (f64 for
+    f64 input), with which GroupNorm(+time bias) of NHWC ``x`` is
+    ``x·a + b``: per-channel sums Σx and Σx² with the time bias folded in,
+    group statistics from them (variance clamped at 0), as
+    ``group_norm_silu_xla`` and ``_block_stats`` take them."""
     b, h, w, c = x.shape
     g = num_groups
     cg = c // g
@@ -109,6 +103,24 @@ def group_norm_silu_plain(x: torch.Tensor, scale: torch.Tensor,
     b_ = bias.to(acc) - mean_c * a
     if time_bias is not None:
         b_ = b_ + time_bias.to(acc) * a
+    return a, b_
+
+
+def group_norm_silu_plain(x: torch.Tensor, scale: torch.Tensor,
+                          bias: torch.Tensor, num_groups: int,
+                          time_bias: Optional[torch.Tensor] = None,
+                          eps: float = 1e-5,
+                          apply_silu: bool = True) -> torch.Tensor:
+    """GroupNorm → (optional +time_bias) → (optional SiLU) on NHWC ``x``.
+
+    Args:
+        x: [B, H, W, C] activations (stats in f32, apply in x's dtype).
+        scale, bias: [C] affine parameters.
+        num_groups: must divide C (see :func:`resolve_num_groups`).
+        time_bias: optional [B, C] per-sample channel bias added to ``x``
+            before normalizing.
+    """
+    a, b_ = group_affine(x, scale, bias, num_groups, time_bias, eps)
     out = (x * a[:, None, None, :].to(x.dtype)
            + b_[:, None, None, :].to(x.dtype))
     if apply_silu:
