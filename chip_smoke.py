@@ -46,13 +46,17 @@ Then the experiment CLIs' kernels (``scripts/exp_conv_kernel.py`` and
 ``scripts/exp_boundary_kernel.py`` of the port):
 
 10. holds the 3×3 conv K5 in both K orders at the six stride-1 shapes of
-    ``bench.py`` (bf16 at B=2048, f32 at B=16) and at batch-packed edge
-    shapes, and K4 (fused affine+SiLU→conv), K6 (out-head) and K7
-    (in-conv) at 32², C=128, each against its plain version; checks
-    refusals and ``Conv3x3Function``'s gradients; runs both CLIs'
-    ``--check`` and ``--bench`` as subprocesses, each of which must launch
-    every kernel it covers; and times the four kernels at their bench
-    shapes beside their plain versions, ``F.conv2d`` and their bounds.
+    ``bench.py`` (bf16 at B=2048, on its TMA + wgmma route; f32 at B=16,
+    on the CUDA cores) and at batch-packed edge shapes (bf16 on the WMMA
+    route), checking each call's route by its launch counts, and K4
+    (fused affine+SiLU→conv, WMMA), K6 (out-head) and K7 (in-conv; bf16 on
+    the tensor cores, f32 on the CUDA cores) at 32², C=128, each against
+    its plain version; checks refusals and ``Conv3x3Function``'s
+    gradients; runs both CLIs' ``--check`` and ``--bench`` as
+    subprocesses, each of which must launch every kernel it covers; and
+    times the four kernels at their bench shapes beside their plain
+    versions, ``F.conv2d`` and their bounds, K5 in turns with the earlier
+    WMMA kernel.
 
 The last three lines of standard output are the ``kernels`` JSON line
 (all seven kernels),
@@ -1044,9 +1048,22 @@ EXP_REPLACES = {
     "out_head": "scripts/exp_boundary_kernel.py:54",
     "in_conv": "scripts/exp_boundary_kernel.py:114",
 }
-EXP_SYMBOLS = {"exp_conv_kernel": ("dmu_conv3x3_tap9", "dmu_conv3x3_k3",
-                                   "dmu_gn_silu_conv3x3"),
-               "exp_boundary_kernel": ("dmu_out_head", "dmu_in_conv")}
+#: The kernels (launch-count names) each experiment CLI run must launch:
+#: the conv CLI's bf16 shapes take K5's sm90 route in both orders and K4's
+#: WMMA kernel; the boundary CLI's f32 --check takes K7's CUDA-core path,
+#: its bf16 --bench the tensor-core one.
+EXP_SYMBOLS = {
+    ("exp_conv_kernel", "--check"): ("dmu_conv3x3_sm90_tap9",
+                                     "dmu_conv3x3_sm90_k3",
+                                     "dmu_gn_silu_conv3x3"),
+    ("exp_conv_kernel", "--bench"): ("dmu_conv3x3_sm90_tap9",
+                                     "dmu_conv3x3_sm90_k3",
+                                     "dmu_gn_silu_conv3x3"),
+    ("exp_boundary_kernel", "--check"): ("dmu_out_head", "dmu_in_conv"),
+    ("exp_boundary_kernel", "--bench"): ("dmu_out_head", "dmu_in_conv_mma"),
+}
+#: K7's launch-count name by path.
+IN_CONV_PATHS = {"bfloat16": "dmu_in_conv_mma", "float32": "dmu_in_conv"}
 
 
 def conv_label(shape, batch) -> str:
@@ -1091,35 +1108,62 @@ def exp_head_inputs(batch, dtype, gen):
     return x, scale, bias, w, x3, w3
 
 
+def k5_route_launches():
+    """K5's launches so far in this process, by route (both K orders)."""
+    from diffusion_model_universal_torch.ops import conv3x3 as cv
+    return {r: sum(cv.CONV3X3_KERNELS[r, v].launches for v in cv.VARIANTS)
+            for r in cv.ROUTES}
+
+
+def hold_k5(x, w, variant, route, what):
+    """K5 on x, w in one K order against its plain version within TOL;
+    checks that the call launched the kernel of ``route`` once and no
+    other. Returns max abs error."""
+    import torch
+    from diffusion_model_universal_torch.ops import conv3x3 as cv
+    before = k5_route_launches()
+    got = cv.conv3x3_cuda(x, w, variant)
+    want = cv.conv3x3_plain(x, w, variant)
+    torch.cuda.synchronize()
+    after = k5_route_launches()
+    check(all(after[r] - before[r] == (r == route) for r in cv.ROUTES),
+          f"K5 {what}: launches by route moved {before} -> {after}, "
+          f"expected one {route} launch")
+    dname = str(x.dtype).removeprefix("torch.")
+    return hold(f"K5 {dname} {what} ({route})", got, want, TOL[dname])
+
+
 def hold_exp_kernels():
     """Phase 10a: K5 in both K orders at the six bench.py shapes (bf16 at
-    B=2048, f32 at B=16) and the three edge shapes (B=32, both dtypes);
-    K4, K6 and K7 at 32², C=128 in both dtypes; and each kernel on the
-    inputs the experiment CLIs' ``--check`` builds (K4, K5 at B=4, 16²,
-    128→128 bf16; K6, K7 at B=4, 16², C=128 f32). Each against its plain
-    version within TOL. Returns max abs errors by kernel, keyed by
-    (case, dtype)."""
+    B=2048 on the sm90 route, f32 at B=16 on the CUDA cores) and the three
+    edge shapes (B=32, both dtypes; bf16 on the WMMA route); K4, K6 and K7
+    at 32², C=128 in both dtypes; and each kernel on the inputs the
+    experiment CLIs' ``--check`` builds (K4, K5 at B=4, 16², 128→128 bf16;
+    K6, K7 at B=4, 16², C=128 f32). Each against its plain version within
+    TOL, and each K5 and K7 call checked to have launched the route or path
+    its shapes and dtype call for. Returns max abs errors by kernel, keyed
+    by (case, dtype), and the K5 and K7 launches of this phase by route
+    and path."""
     import torch
+    from diffusion_model_universal_torch.ops import _build
     from diffusion_model_universal_torch.ops import boundary_conv as bc
     from diffusion_model_universal_torch.ops import conv3x3 as cv
     from diffusion_model_universal_torch.scripts import exp_boundary_kernel
     from diffusion_model_universal_torch.scripts import exp_conv_kernel
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 9)
     errs = {name: {} for name in EXP_REPLACES}
-    cases = ([(s, EXP_BATCH, "bfloat16") for s in EXP_CONV_SHAPES]
-             + [(s, EXP_F32_BATCH, "float32") for s in EXP_CONV_SHAPES]
-             + [(s, 32, d) for s in EXP_EDGE_SHAPES
-                for d in ("float32", "bfloat16")])
-    for shape, batch, dname in cases:
+    start = _build.launch_counts()
+    cases = ([(s, EXP_BATCH, "bfloat16", "sm90") for s in EXP_CONV_SHAPES]
+             + [(s, EXP_F32_BATCH, "float32", "f32") for s in EXP_CONV_SHAPES]
+             + [(s, 32, d, r) for s in EXP_EDGE_SHAPES
+                for d, r in (("float32", "f32"), ("bfloat16", "wmma"))])
+    for shape, batch, dname, route in cases:
         x, w = exp_conv_inputs(shape, batch, getattr(torch, dname), gen)
         for variant in cv.VARIANTS:
-            got = cv.conv3x3_cuda(x, w, variant)
-            want = cv.conv3x3_plain(x, w, variant)
-            torch.cuda.synchronize()
             label = f"{variant} {conv_label(shape, batch)}"
-            errs["conv3x3"][(label, dname)] = hold(
-                f"K5 {dname} {label}", got, want, TOL[dname])
-        del x, w, got, want
+            errs["conv3x3"][(label, dname)] = hold_k5(x, w, variant, route,
+                                                      label)
+        del x, w
     for dname, batch in (("bfloat16", EXP_BATCH), ("float32",
                                                     EXP_F32_BATCH)):
         dtype = getattr(torch, dname)
@@ -1139,8 +1183,12 @@ def hold_exp_kernels():
         label = f"B{batch} 32² 128→3 G32"
         errs["out_head"][(label, dname)] = hold(
             f"K6 {dname} {label}", got, want, TOL[dname])
+        path = _build.KERNELS[IN_CONV_PATHS[dname]]
+        before = path.launches
         got, want = bc.in_conv_cuda(x3, w3), bc.in_conv_plain(x3, w3)
         torch.cuda.synchronize()
+        check(path.launches == before + 1,
+              f"K7 {dname} did not launch {path.name}")
         label = f"B{batch} 32² 3→128"
         errs["in_conv"][(label, dname)] = hold(
             f"K7 {dname} {label}", got, want, TOL[dname])
@@ -1150,11 +1198,8 @@ def hold_exp_kernels():
     label = (f"{conv_label(exp_conv_kernel.CHECK_SHAPE, x.shape[0])} "
              "(CLI check)")
     for variant in cv.VARIANTS:
-        got = cv.conv3x3_cuda(x, w, variant)
-        want = cv.conv3x3_plain(x, w, variant)
-        torch.cuda.synchronize()
-        errs["conv3x3"][(f"{variant} {label}", dname)] = hold(
-            f"K5 {dname} {variant} {label}", got, want, TOL[dname])
+        errs["conv3x3"][(f"{variant} {label}", dname)] = hold_k5(
+            x, w, variant, "sm90", f"{variant} {label}")
     got = cv.gn_silu_conv3x3_cuda(x, a, b, w)
     want = cv.gn_silu_conv3x3_plain(x, a, b, w)
     torch.cuda.synchronize()
@@ -1173,7 +1218,11 @@ def hold_exp_kernels():
                  else f"B{b} {h}² 3→{c}") + " (CLI check)"
         errs[name][(label, dname)] = hold(f"{kernel} {dname} {label}", got,
                                           want, TOL[dname])
-    return errs
+    end = _build.launch_counts()
+    moved = {k: end[k] - start.get(k, 0) for k in end
+             if end[k] != start.get(k, 0)}
+    log(f"  launches of phase 10a: {json.dumps(moved)}")
+    return errs, moved
 
 
 def exp_refusals():
@@ -1187,8 +1236,12 @@ def exp_refusals():
     a12 = torch.zeros((2, 12), **z)
     xh, s = torch.zeros((2, 4, 4, 64), **z), torch.ones(64, device=DEVICE)
     x3 = torch.zeros((2, 4, 4, 3), **z)
+    x32, w32 = torch.zeros((2, 2, 2, 32), **z), torch.zeros((3, 3, 32, 32),
+                                                            **z)
     for what, call in [
             ("Cin=12 (K5)", lambda: cv.conv3x3_cuda(x12, w12)),
+            ("the sm90 route for 2², 32→32 (K5)", lambda: cv.conv3x3_cuda(
+                x32, w32, route="sm90")),
             ("Cin=12 (K4)", lambda: cv.gn_silu_conv3x3_cuda(x12, a12, a12,
                                                             w12)),
             ("Cout=4 out head (K6)", lambda: bc.out_head_cuda(
@@ -1225,7 +1278,7 @@ def hold_conv_function():
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 10)
     x, w = exp_conv_inputs((16, 128, 128), EXP_F32_BATCH, torch.float32,
                            gen)
-    before = cv.CONV3X3_KERNELS["tap9"].launches
+    before = cv.CONV3X3_KERNELS["f32", "tap9"].launches
     outs = []
     for fn in (cv.Conv3x3Function.apply, cv.conv3x3_conv2d):
         xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
@@ -1234,8 +1287,8 @@ def hold_conv_function():
         outs.append((y.detach(), loss.detach(),
                      *torch.autograd.grad(loss, (xg, wg))))
     torch.cuda.synchronize()
-    check(cv.CONV3X3_KERNELS["tap9"].launches == before + 1,
-          "Conv3x3Function's forward did not launch K5 once")
+    check(cv.CONV3X3_KERNELS["f32", "tap9"].launches == before + 1,
+          "Conv3x3Function's forward did not launch K5's f32 kernel once")
     b, h, _, _ = x.shape
     n_out, cout = outs[0][0].numel(), w.shape[3]
     rms = {"x": float(x.pow(2).mean().sqrt()),
@@ -1255,22 +1308,20 @@ def exp_clis():
     in the subprocess) must show every kernel of that CLI. Returns the
     launches summed over the four runs, by C symbol, and the bench lines."""
     launches, lines = {}, []
-    for module, symbols in EXP_SYMBOLS.items():
-        for mode in ("--check", "--bench"):
-            out = run_cli(module, [mode], f"{module} {mode}", timeout=600)
-            got = json.loads(out.split("Kernel launches: ")[1]
-                             .splitlines()[0])
-            check(all(got.get(s, 0) > 0 for s in symbols),
-                  f"{module} {mode} launched {got}")
-            if mode == "--check":
-                check("parity OK" in out, f"{module} --check: no parity OK")
-            for line in out.splitlines():
-                if not line.startswith("Kernel launches"):
-                    lines.append(f"{module} {mode}: {line}")
-                    log(f"  {line}")
-            log(f"  launches {json.dumps({s: got[s] for s in symbols})}")
-            for s in symbols:
-                launches[s] = launches.get(s, 0) + got[s]
+    for (module, mode), symbols in EXP_SYMBOLS.items():
+        out = run_cli(module, [mode], f"{module} {mode}", timeout=600)
+        got = json.loads(out.split("Kernel launches: ")[1].splitlines()[0])
+        check(all(got.get(s, 0) > 0 for s in symbols),
+              f"{module} {mode} launched {got}")
+        if mode == "--check":
+            check("parity OK" in out, f"{module} --check: no parity OK")
+        for line in out.splitlines():
+            if not line.startswith("Kernel launches"):
+                lines.append(f"{module} {mode}: {line}")
+                log(f"  {line}")
+        log(f"  launches {json.dumps({k: n for k, n in got.items() if n})}")
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
     return launches, lines
 
 
@@ -1279,7 +1330,10 @@ def time_exp_kernels():
     K5 at all six bench.py shapes, both K orders): kernel, plain, library
     and bound ms. The library call is F.conv2d on channels-last views with
     the weight laid out once beforehand; for K4 the affine and SiLU first,
-    for K6 F.group_norm and F.silu first."""
+    for K6 F.group_norm and F.silu first. K5 is timed in turns with the
+    earlier WMMA kernel on the same inputs (earlier, sm90, sm90, earlier;
+    each time the mean of its two runs), its ``ms`` including the K-major
+    weight copy its wrapper makes."""
     import torch
     import torch.nn.functional as F
     from diffusion_model_universal_torch.ops import boundary_conv as bc
@@ -1309,13 +1363,25 @@ def time_exp_kernels():
         nbytes = 2 * (b * h * h * (cin + cout) + 9 * cin * cout)
         ops = 2 * b * h * h * 9 * cin * cout
         for variant in cv.VARIANTS:
-            ms = cuda_ms(lambda: cv.conv3x3_cuda(x, w, variant), iters=10,
-                         reps=3)
+            turns = {"wmma": [], "sm90": []}
+            for route in ("wmma", "sm90", "sm90", "wmma"):
+                turns[route].append(cuda_ms(
+                    lambda: cv.conv3x3_cuda(x, w, variant, route=route),
+                    iters=10, reps=3))
+            ms, earlier = (statistics.mean(turns[r]) for r in ("sm90",
+                                                                "wmma"))
             plain = cuda_ms(lambda: cv.conv3x3_plain(x, w, variant), iters=3,
                             reps=3)
             rows["conv3x3"].append(row(
                 f"K5 {variant} {conv_label(shape, b)}", ms, plain, lib,
-                nbytes, ops, variant=variant))
+                nbytes, ops, variant=variant, earlier_ms=earlier,
+                earlier_runs_ms=turns["wmma"], runs_ms=turns["sm90"],
+                tflops=ops / ms / 1e9, earlier_tflops=ops / earlier / 1e9,
+                library_tflops=ops / lib / 1e9))
+            log(f"  earlier (WMMA) {earlier * 1e3:.2f} us; "
+                f"{ops / ms / 1e9:.1f} TFLOP/s against "
+                f"{ops / earlier / 1e9:.1f} and F.conv2d "
+                f"{ops / lib / 1e9:.1f}")
         if shape == EXP_CONV_SHAPES[0]:
             a, bb = exp_affine(b, cin, bf16, gen)
 
@@ -1351,12 +1417,14 @@ def time_exp_kernels():
         2 * b * h * h * (c + 3) + 2 * 27 * c + 8 * c,
         2 * b * h * h * 27 * c + 10 * b * h * h * c))
     x3l, w3l = x3.permute(0, 3, 1, 2), lay(w3)
+    in_bytes = 2 * (b * h * h * (3 + c) + 27 * c)
+    ms = cuda_ms(lambda: bc.in_conv_cuda(x3, w3), iters=20, reps=3)
     rows["in_conv"].append(row(
-        f"K7 B{b} 32² 3→128",
-        cuda_ms(lambda: bc.in_conv_cuda(x3, w3), iters=20, reps=3),
+        f"K7 B{b} 32² 3→128", ms,
         cuda_ms(lambda: bc.in_conv_plain(x3, w3), iters=3, reps=3),
         cuda_ms(lambda: F.conv2d(x3l, w3l, padding=1), iters=20, reps=3),
-        2 * (b * h * h * (3 + c) + 27 * c), 2 * b * h * h * 27 * c))
+        in_bytes, 2 * b * h * h * 27 * c, gbps=in_bytes / ms / 1e6))
+    log(f"  K7 moves {in_bytes / ms / 1e6:.1f} GB/s")
     return rows
 
 
@@ -1388,7 +1456,7 @@ def experiment_kernels():
     from diffusion_model_universal_torch.ops import conv3x3 as cv
     t0 = time.perf_counter()
     log("[hold] K4–K7 against their plain versions:")
-    errs = hold_exp_kernels()
+    errs, hold_launches = hold_exp_kernels()
     exp_refusals()
     grad_errs = hold_conv_function()
     log("[cli] experiment CLIs:")
@@ -1396,28 +1464,55 @@ def experiment_kernels():
     rows = time_exp_kernels()
     conv_work = (f"one conv at B={EXP_BATCH}, 32², 128→128, bf16 (the "
                  "experiment CLI's bench shape)")
-    by_variant = {v: launches[f"dmu_conv3x3_{v}"] for v in ("tap9", "k3")}
+    by_route = {r: sum(launches.get(cv.CONV3X3_KERNELS[r, v].name, 0)
+                       for v in cv.VARIANTS) for r in cv.ROUTES}
+    by_variant = {v: launches[cv.CONV3X3_KERNELS["sm90", v].name]
+                  for v in cv.VARIANTS}
+    hold_by_route = {r: sum(hold_launches.get(cv.CONV3X3_KERNELS[r, v].name,
+                                              0) for v in cv.VARIANTS)
+                     for r in cv.ROUTES}
     k3_main = next(r for r in rows["conv3x3"] if r["variant"] == "k3")
+    in_paths = {d: launches.get(k, 0) for d, k in IN_CONV_PATHS.items()}
     entries = [
-        exp_entry("conv3x3", cv.CONV3X3_KERNELS["tap9"], rows["conv3x3"],
-                  sum(by_variant.values()), errs["conv3x3"],
-                  conv_work + "; ms etc. of the tap9 order",
+        exp_entry("conv3x3", cv.CONV3X3_KERNELS["sm90", "tap9"],
+                  rows["conv3x3"], sum(by_route.values()), errs["conv3x3"],
+                  conv_work + "; ms etc. of the tap9 order on the sm90 "
+                  "route, with its K-major weight copy",
+                  conv_route="sm90 (TMA + wgmma), "
+                             "csrc/conv3x3_sm90.cu",
+                  earlier_ms=rows["conv3x3"][0]["earlier_ms"],
+                  earlier="the WMMA kernel of csrc/conv3x3.cu, timed in "
+                          "turns in this run; still the route for other "
+                          "bf16 shapes and for K4",
+                  launches_by_route=by_route,
                   launches_by_variant=by_variant,
-                  k3={k: k3_main[k] for k in ("ms", "plain_ms", "library_ms",
-                                              "bound_ms", "bound_by")},
+                  hold_launches_by_route=hold_by_route,
+                  k3={k: k3_main[k] for k in ("ms", "earlier_ms", "plain_ms",
+                                              "library_ms", "bound_ms",
+                                              "bound_by")},
                   library="F.conv2d", grad_max_abs_err_f32=grad_errs),
         exp_entry("gn_silu_conv3x3", cv.GN_SILU_CONV3X3_KERNEL,
                   rows["gn_silu_conv3x3"], launches["dmu_gn_silu_conv3x3"],
                   errs["gn_silu_conv3x3"], conv_work,
+                  conv_route="wmma (WMMA mma.sync), csrc/conv3x3.cu",
                   library="affine + SiLU, then F.conv2d"),
         exp_entry("out_head", bc.OUT_HEAD_KERNEL, rows["out_head"],
                   launches["dmu_out_head"], errs["out_head"],
                   f"the out-head unit at B={EXP_BATCH}, 32², C=128 → 3, "
                   "bf16",
                   library="F.group_norm + F.silu + F.conv2d"),
-        exp_entry("in_conv", bc.IN_CONV_KERNEL, rows["in_conv"],
-                  launches["dmu_in_conv"], errs["in_conv"],
-                  f"the in-conv at B={EXP_BATCH}, 32², 3 → 128, bf16",
+        exp_entry("in_conv", bc.IN_CONV_MMA_KERNEL, rows["in_conv"],
+                  sum(in_paths.values()), errs["in_conv"],
+                  f"the in-conv at B={EXP_BATCH}, 32², 3 → 128, bf16, on "
+                  "the tensor-core path",
+                  conv_route="bf16: mma.sync m16n8k16 on the tensor cores; "
+                             "f32: the CUDA cores",
+                  earlier_ms=None,
+                  earlier="the CUDA-core bf16 kernel this path replaced is "
+                          "gone from the source; PERF.md keeps its time",
+                  launches_by_path=in_paths,
+                  hold_launches_by_path={d: hold_launches.get(k, 0) for d, k
+                                         in IN_CONV_PATHS.items()},
                   library="F.conv2d"),
     ]
     secs = time.perf_counter() - t0

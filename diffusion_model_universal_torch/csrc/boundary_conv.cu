@@ -18,9 +18,11 @@
 // What bounds them on an H100: bytes. K6 must read x once (537 MB at the
 // bench shape B=2048, 32x32, C=128, bf16) and write 12.6 MB; K7 reads
 // 12.6 MB and writes 537 MB: about 0.16 ms each at 3.35 TB/s. Their products
-// have N = 3 or K = 27, too narrow for the tensor cores, so they run as f32
-// FMAs on the CUDA cores: 7.2 G FMAs each at the bench shape, about 0.22 ms
-// at the card's 67 TFLOP/s f32 rate, which is a floor of its own.
+// have N = 3 or K = 27. K6's N = 3 is too narrow for the tensor cores, so it
+// runs as f32 FMAs on the CUDA cores: 7.2 G FMAs at the bench shape, about
+// 0.22 ms at the card's 67 TFLOP/s f32 rate, a floor of its own. K7 in bf16
+// pads K to 32 and runs on the tensor cores, where its 7.2 G MACs take
+// about 0.02 ms, far under its store bound.
 //
 // K6 design. One sample's 32x32x128 bf16 slab is 256 KB, more than the 227 KB
 // of shared memory a block can have (the Pallas block held whole samples in
@@ -36,13 +38,25 @@
 //    rows in shared memory; output row r-1 is then the sum of 9 of them from
 //    rows r-2..r. A neighbour outside the image contributes nothing: the halo
 //    is 0 after SiLU, as in K4. No atomics: the result is reproducible.
-// K7 design. A block owns 256 consecutive pixels: it gathers their 27 inputs
-// each (zeros outside the image) into shared memory, then each thread writes
-// 8 consecutive output channels of a pixel (16 bytes of bf16), so a warp's
-// stores cover whole contiguous rows of the output. The weight sits in
-// shared memory in f32.
+// K7 design, bf16 (`in_conv_mma_kernel`): the tensor cores, as the TPU
+// body's bf16 dot_general with f32 accumulation. K is 27, padded to 32 =
+// two k16 steps of mma.sync m16n8k16. The wrapper packs the weight to
+// [32, Cout] bf16 with rows 27-31 zero; each warp keeps the B fragments of
+// up to 128 output channels in registers for the whole kernel. Persistent
+// blocks of 8 warps walk groups of 16 consecutive pixels; a lane gathers its
+// 8 im2col columns for 2 pixels straight into A fragments (x is 12.6 MB at
+// the bench shape and is read from L1/L2; a column outside the image or past
+// 27 is 0). The kernel is bound by its output stores, so the epilogue goes
+// f32 -> bf16 -> the warp's padded shared-memory tile -> 16-byte stores,
+// each warp store writing 512 contiguous bytes; every warp stores while the
+// others gather and multiply.
+// K7 design, f32 (`in_conv_kernel`, CUDA cores in full f32): a block owns
+// 256 consecutive pixels: it gathers their 27 inputs each (zeros outside
+// the image) into shared memory, then each thread writes 8 consecutive
+// output channels of a pixel, so a warp's stores cover whole contiguous
+// rows of the output. The weight sits in shared memory.
 // Not done yet: keeping K6's second pass out of HBM when the resident blocks'
-// samples outgrow the L2, and bf16x2 or tensor-core arithmetic for K7.
+// samples outgrow the L2.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -80,13 +94,6 @@ __device__ __forceinline__ void load8(const float* p, float v[8]) {
   const float4 b = *reinterpret_cast<const float4*>(p + 4);
   v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
   v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-__device__ __forceinline__ void store8(bf16* p, const float v[8]) {
-  uint4 u;
-  bf16* e = reinterpret_cast<bf16*>(&u);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) e[i] = __float2bfloat16(v[i]);
-  *reinterpret_cast<uint4*>(p) = u;
 }
 __device__ __forceinline__ void store8(float* p, const float v[8]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
@@ -258,17 +265,16 @@ __host__ __device__ inline int in_conv_smem_floats(int Cout) {
   return 27 * Cout + kInPixels * 27;
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-in_conv_kernel(const T* __restrict__ x, const T* __restrict__ w,
-               T* __restrict__ out, long long M, int H, int W, int Cout) {
+in_conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
+               float* __restrict__ out, long long M, int H, int W, int Cout) {
   extern __shared__ __align__(16) float smem[];
   float* w_s = smem;                      // [27][Cout]
   float* patch = w_s + 27 * Cout;         // [kInPixels][27]
   const int tid = threadIdx.x;
   const long long m0 = (long long)blockIdx.x * kInPixels;
 
-  for (int i = tid; i < 27 * Cout; i += kThreads) w_s[i] = to_f32(w[i]);
+  for (int i = tid; i < 27 * Cout; i += kThreads) w_s[i] = w[i];
   const int HW = H * W;
   for (int i = tid; i < kInPixels * 27; i += kThreads) {
     const int p = i / 27, j = i - p * 27;
@@ -281,7 +287,7 @@ in_conv_kernel(const T* __restrict__ x, const T* __restrict__ w,
       const int yy = rem / W + tap / 3 - 1;
       const int xx = rem % W + tap % 3 - 1;
       if (yy >= 0 && yy < H && xx >= 0 && xx < W)
-        val = to_f32(x[(((long long)b * H + yy) * W + xx) * 3 + ci]);
+        val = x[(((long long)b * H + yy) * W + xx) * 3 + ci];
     }
     patch[i] = val;
   }
@@ -312,6 +318,134 @@ in_conv_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
+// bf16 on the tensor cores.
+constexpr int kMmaWarps = 8;
+constexpr int kChunk = 128;          // output channels a warp holds at once
+constexpr int kEpiLd = kChunk + 8;   // padded staging row, bf16
+
+// d += a (16 x 16, row) . b (16 x 8, col), bf16 in, f32 accumulators.
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x [B,H,W,3], wp [32, Cout] (rows 27-31 zero), out [B,H,W,Cout], bf16.
+// Lane (g, tq) = (lane / 4, lane % 4) of a warp holds, for pixels g and g+8
+// of its group of 16, the im2col columns 16s + 8r + 2tq + e (k step s, half
+// r, element e), which is the m16n8k16 A fragment; column j is tap j / 3 =
+// ky*3 + kx, channel j % 3, the reference's (ky*3 + kx)*3 + ci.
+__global__ void __launch_bounds__(kMmaWarps * 32)
+in_conv_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wp,
+                   bf16* __restrict__ out, long long M, int H, int W,
+                   int Cout) {
+  __shared__ __align__(16) bf16 epi[kMmaWarps][16 * kEpiLd];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const unsigned short* xs = reinterpret_cast<const unsigned short*>(x);
+  const unsigned short* ws = reinterpret_cast<const unsigned short*>(wp);
+  bf16* st = epi[warp];
+
+  int col_dy[8], col_dx[8], col_ci[8];
+  bool col_ok[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int j = 16 * (i / 4) + 8 * ((i / 2) % 2) + 2 * tq + i % 2;
+    const int tap = j / 3;
+    col_ok[i] = j < 27;
+    col_dy[i] = tap / 3 - 1;
+    col_dx[i] = tap % 3 - 1;
+    col_ci[i] = j % 3;
+  }
+
+  const int HW = H * W;
+  const long long groups = (M + 15) / 16;
+  const long long first = (long long)blockIdx.x * kMmaWarps + warp;
+  const long long step = (long long)gridDim.x * kMmaWarps;
+  for (int n0 = 0; n0 < Cout; n0 += kChunk) {
+    const int nt = (Cout - n0 < kChunk ? Cout - n0 : kChunk) / 8;
+    // B fragment (s, j, h): rows k = 16s + 8h + 2tq (+1), column n0 + 8j + g.
+    uint32_t bfr[2][kChunk / 8][2];
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+#pragma unroll
+      for (int j = 0; j < kChunk / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          uint32_t v = 0;
+          if (j < nt) {
+            const int k = 16 * s + 8 * h + 2 * tq;
+            const int n = n0 + 8 * j + g;
+            v = (uint32_t)ws[k * Cout + n] |
+                ((uint32_t)ws[(k + 1) * Cout + n] << 16);
+          }
+          bfr[s][j][h] = v;
+        }
+
+    for (long long grp = first; grp < groups; grp += step) {
+      const long long mbase = grp * 16;
+      // vals[r][i]: pixel g + 8r, column i of this lane.
+      uint32_t vals[2][8];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const long long m = mbase + g + 8 * r;
+        int b = 0, y = -1000, xx = -1000;
+        if (m < M) {
+          b = (int)(m / HW);
+          const int rem = (int)(m - (long long)b * HW);
+          y = rem / W;
+          xx = rem - y * W;
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int yy = y + col_dy[i], xc = xx + col_dx[i];
+          uint32_t v = 0;
+          if (col_ok[i] && yy >= 0 && yy < H && xc >= 0 && xc < W)
+            v = __ldg(xs + (((long long)b * H + yy) * W + xc) * 3 +
+                      col_ci[i]);
+          vals[r][i] = v;
+        }
+      }
+      uint32_t a[2][4];
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        a[s][0] = vals[0][4 * s] | (vals[0][4 * s + 1] << 16);
+        a[s][1] = vals[1][4 * s] | (vals[1][4 * s + 1] << 16);
+        a[s][2] = vals[0][4 * s + 2] | (vals[0][4 * s + 3] << 16);
+        a[s][3] = vals[1][4 * s + 2] | (vals[1][4 * s + 3] << 16);
+      }
+      // Products and staging: accumulator e of n tile j sits at pixel
+      // g + 8 (e / 2), channel 8j + 2tq + e % 2.
+#pragma unroll
+      for (int j = 0; j < kChunk / 8; ++j) {
+        if (j < nt) {
+          float d[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_16816(d, a[0], bfr[0][j][0], bfr[0][j][1]);
+          mma_16816(d, a[1], bfr[1][j][0], bfr[1][j][1]);
+          *reinterpret_cast<__nv_bfloat162*>(&st[g * kEpiLd + 8 * j + 2 * tq]) =
+              __floats2bfloat162_rn(d[0], d[1]);
+          *reinterpret_cast<__nv_bfloat162*>(
+              &st[(g + 8) * kEpiLd + 8 * j + 2 * tq]) =
+              __floats2bfloat162_rn(d[2], d[3]);
+        }
+      }
+      __syncwarp();
+      // 16 rows of nt 16-byte vectors; rows are consecutive pixels.
+      for (int idx = lane; idx < 16 * nt; idx += 32) {
+        const int row = idx / nt, c = idx - row * nt;
+        const long long m = mbase + row;
+        if (m < M)
+          *reinterpret_cast<uint4*>(out + m * Cout + n0 + 8 * c) =
+              *reinterpret_cast<const uint4*>(&st[row * kEpiLd + 8 * c]);
+      }
+      __syncwarp();
+    }
+  }
+}
+
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
@@ -333,17 +467,38 @@ int launch_out_head(const void* x, const float* scale, const float* bias,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
 int launch_in_conv(const void* x, const void* w, void* out, int B, int H,
                    int W, int Cout, cudaStream_t st) {
   const size_t bytes = sizeof(float) * (size_t)in_conv_smem_floats(Cout);
-  cudaError_t err = allow_smem(in_conv_kernel<T>, bytes);
+  cudaError_t err = allow_smem(in_conv_kernel, bytes);
   if (err != cudaSuccess) return (int)err;
   const long long M = (long long)B * H * W;
   const unsigned blocks = (unsigned)((M + kInPixels - 1) / kInPixels);
-  in_conv_kernel<T><<<blocks, kThreads, bytes, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<T*>(out), M, H, W, Cout);
+  in_conv_kernel<<<blocks, kThreads, bytes, st>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<float*>(out), M, H, W, Cout);
+  return (int)cudaGetLastError();
+}
+
+// Persistent: as many blocks as fit on the card at once, at most one per
+// 8 pixel groups.
+int launch_in_conv_mma(const void* x, const void* wp, void* out, int B, int H,
+                       int W, int Cout, cudaStream_t st) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, in_conv_mma_kernel, kMmaWarps * 32, 0);
+  if (err != cudaSuccess) return (int)err;
+  const long long M = (long long)B * H * W;
+  const long long wanted = ((M + 15) / 16 + kMmaWarps - 1) / kMmaWarps;
+  const long long resident = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  const unsigned blocks = (unsigned)(wanted < resident ? wanted : resident);
+  in_conv_mma_kernel<<<blocks, kMmaWarps * 32, 0, st>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(wp),
+      static_cast<bf16*>(out), M, H, W, Cout);
   return (int)cudaGetLastError();
 }
 
@@ -367,16 +522,30 @@ extern "C" int dmu_out_head(const void* x, const float* scale,
                                 st);
 }
 
-// K7: x [B,H,W,3], w [3,3,3,Cout] and out [B,H,W,Cout] contiguous in one
-// dtype; Cout a multiple of 8.
+// K7 in f32 on the CUDA cores: x [B,H,W,3], w [3,3,3,Cout] and out
+// [B,H,W,Cout] contiguous f32; Cout a multiple of 8. bf16 takes
+// dmu_in_conv_mma, so is_bf16 must be 0.
 extern "C" int dmu_in_conv(const void* x, const void* w, void* out, int B,
                            int H, int W, int Cout, int is_bf16,
                            void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || Cout <= 0 || Cout % 8 != 0 || is_bf16)
+    return (int)cudaErrorInvalidValue;
+  return launch_in_conv(x, w, out, B, H, W, Cout,
+                        static_cast<cudaStream_t>(stream));
+}
+
+// K7 in bf16 on the tensor cores: x [B,H,W,3] and out [B,H,W,Cout]
+// contiguous bf16; wp the packed weight [32, Cout] bf16, row
+// (ky*3 + kx)*3 + ci = w[ky,kx,ci,:] and rows 27-31 zero; Cout a multiple
+// of 8; all 16-byte aligned.
+extern "C" int dmu_in_conv_mma(const void* x, const void* wp, void* out,
+                               int B, int H, int W, int Cout, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || Cout <= 0 || Cout % 8 != 0)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) return launch_in_conv<bf16>(x, w, out, B, H, W, Cout, st);
-  return launch_in_conv<float>(x, w, out, B, H, W, Cout, st);
+  if (reinterpret_cast<uintptr_t>(out) % 16 != 0)
+    return (int)cudaErrorMisalignedAddress;
+  return launch_in_conv_mma(x, wp, out, B, H, W, Cout,
+                            static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* dmu_error_string(int err) {

@@ -33,7 +33,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 build_logs: Dict[str, str] = {}
-#: Every :class:`Kernel`, by its C symbol.
+#: Every :class:`Kernel`, by its name.
 KERNELS: Dict[str, "Kernel"] = {}
 
 
@@ -117,16 +117,21 @@ class Kernel:
 
     ``launches`` goes up by one each time the launcher is called and
     returns success; it is the evidence that a run went through the
-    kernel. Calling raises if the launcher reports a CUDA error.
+    kernel. Calling raises if the launcher reports a CUDA error. ``name``
+    (default: the symbol) keys :data:`KERNELS` and :func:`launch_counts`;
+    a launcher whose routes are counted apart gets one Kernel per route,
+    each with its own name.
     """
 
-    def __init__(self, source: str, symbol: str, argtypes: Sequence):
+    def __init__(self, source: str, symbol: str, argtypes: Sequence,
+                 name: str = ""):
         self.source = source
         self.symbol = symbol
+        self.name = name or symbol
         self.argtypes = list(argtypes)
         self.launches = 0
         self._fn = None
-        KERNELS[symbol] = self
+        KERNELS[self.name] = self
 
     def __call__(self, *args) -> None:
         fn = self._fn
@@ -147,5 +152,5 @@ class Kernel:
 
 
 def launch_counts() -> Dict[str, int]:
-    """Launches of every kernel so far in this process, by C symbol."""
+    """Launches of every kernel so far in this process, by name."""
     return {name: k.launches for name, k in sorted(KERNELS.items())}

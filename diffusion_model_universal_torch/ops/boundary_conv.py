@@ -10,7 +10,9 @@ Counterpart of the reference's ``scripts/exp_boundary_kernel.py``:
   (``csrc/boundary_conv.cu``).
 * :func:`in_conv_plain` — the 27-column im2col matrix times w [27, Cout]
   in f32, the arithmetic of ``_kernel_in_conv``; the oracle of kernel K7
-  (same source).
+  (same source), which runs bf16 on the tensor cores (``mma.sync``, K
+  padded to 32 with the weight packed by :func:`pack_in_conv_weight`) and
+  f32 on the CUDA cores in full f32, each path with its own launch count.
 * :func:`out_head_conv2d` — the experiment CLI's out-head baseline, the
   port of ``out_head_xla``: ``group_norm_silu_plain`` (the port of
   ``group_norm_silu_xla``), then ``F.conv2d``. The in-conv baseline is
@@ -43,12 +45,21 @@ OUT_HEAD_KERNEL = Kernel("boundary_conv", "dmu_out_head", [
     _INT, _INT, _INT, _INT, _INT,           # B, H, W, C, G
     ctypes.c_float, _INT, _VOID,            # eps, is_bf16, stream
 ])
-#: Kernel K7; ``IN_CONV_KERNEL.launches`` counts its launches.
+#: Kernel K7 in f32 (CUDA cores); ``IN_CONV_KERNEL.launches`` counts its
+#: launches.
 IN_CONV_KERNEL = Kernel("boundary_conv", "dmu_in_conv", [
     _VOID, _VOID, _VOID,                    # x, w, out
     _INT, _INT, _INT, _INT,                 # B, H, W, Cout
-    _INT, _VOID,                            # is_bf16, stream
+    _INT, _VOID,                            # is_bf16 (0), stream
 ])
+#: Kernel K7 in bf16 (tensor cores); ``IN_CONV_MMA_KERNEL.launches``.
+IN_CONV_MMA_KERNEL = Kernel("boundary_conv", "dmu_in_conv_mma", [
+    _VOID, _VOID, _VOID,                    # x, packed w, out
+    _INT, _INT, _INT, _INT,                 # B, H, W, Cout
+    _VOID,                                  # stream
+])
+#: K7's bf16 K: the 27 im2col columns padded to two k16 steps.
+IN_CONV_K = 32
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -96,6 +107,15 @@ def in_conv_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                       for ky in range(3) for kx in range(3)], dim=-1)
     out = cols.reshape(-1, 9 * c) @ w.to(acc).reshape(9 * c, -1)
     return out.reshape(b, h, wd, -1).to(x.dtype)
+
+
+def pack_in_conv_weight(w: torch.Tensor) -> torch.Tensor:
+    """K7's bf16 B operand: w [3, 3, 3, Cout] as [32, Cout] bf16, row
+    (ky·3 + kx)·3 + ci holding w[ky, kx, ci, :] and rows 27–31 zero."""
+    cout = w.shape[-1]
+    packed = w.new_zeros((IN_CONV_K, cout), dtype=torch.bfloat16)
+    packed[:27] = w.reshape(27, cout)
+    return packed
 
 
 def _check_dtype_device(x, w, what):
@@ -161,16 +181,24 @@ def out_head_cuda(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 
 def in_conv_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Launch kernel K7."""
+    """Launch kernel K7: bf16 on the tensor cores, f32 on the CUDA cores."""
     check_in_conv_shapes(x, w)
     _check_dtype_device(x, w, "in_conv_cuda")
     b, h, wd, _ = x.shape
-    x, w = x.contiguous(), w.contiguous()
-    out = x.new_empty((b, h, wd, w.shape[-1]))
-    if out.numel():
+    cout = w.shape[-1]
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    x = x.contiguous()
+    out = x.new_empty((b, h, wd, cout))
+    if not out.numel():
+        return out
+    if x.dtype == torch.bfloat16:
+        wp = pack_in_conv_weight(w)
+        IN_CONV_MMA_KERNEL(x.data_ptr(), wp.data_ptr(), out.data_ptr(), b, h,
+                           wd, cout, stream)
+    else:
+        w = w.contiguous()
         IN_CONV_KERNEL(x.data_ptr(), w.data_ptr(), out.data_ptr(), b, h, wd,
-                       w.shape[-1], int(x.dtype == torch.bfloat16),
-                       torch.cuda.current_stream(x.device).cuda_stream)
+                       cout, 0, stream)
     return out
 
 

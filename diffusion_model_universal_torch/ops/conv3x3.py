@@ -6,12 +6,17 @@ Counterpart of the reference's ``scripts/exp_conv_kernel.py``:
   kernels: 9 shifted matmuls of (B·H·W, Cin) @ (Cin, Cout) (``"tap9"``) or
   3 of (B·H·W, 3·Cin) @ (3·Cin, Cout) (``"k3"``), summed in f32, stored in
   x's dtype. The CPU path and the numerics oracle of K5.
-* kernel K5 (``csrc/conv3x3.cu``), a hand-written CUDA kernel for Hopper
-  that replaces ``_kernel`` and ``_kernel_k3``: an implicit GEMM whose K
-  loop runs in either order.
+* kernel K5, hand-written CUDA for Hopper that replaces ``_kernel`` and
+  ``_kernel_k3``, an implicit GEMM, on three routes that
+  :func:`conv3x3_route` picks from the shapes and dtype:
+  ``"sm90"`` (``csrc/conv3x3_sm90.cu``: TMA loads, an mbarrier ring and
+  ``wgmma``; bf16 with Cin % 64 == 0, Cout % 128 == 0 and 256-pixel tiles
+  of whole image rows), ``"wmma"`` (``csrc/conv3x3.cu``: WMMA
+  ``mma.sync``; every other bf16 shape) and ``"f32"`` (same file, CUDA
+  cores in full f32). Each route and K order has its own launch count.
 * :func:`gn_silu_conv3x3_plain` — ``silu(x·a + b)`` in x's dtype, then
   the tap9 conv; the oracle of kernel K4 (same source), which replaces
-  ``_kernel_fused``.
+  ``_kernel_fused``; K4 always takes the WMMA kernel.
 * :func:`conv3x3_conv2d` and :func:`gn_silu_conv3x3_conv2d` — one
   ``F.conv2d`` on a channels-last view, ports of ``conv3x3_xla`` and
   ``gn_silu_conv3x3_xla``. They are the experiment CLI's baseline and the
@@ -26,6 +31,7 @@ so do the dispatchers, on either device.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -37,16 +43,32 @@ _INT = ctypes.c_int
 
 VARIANTS = ("tap9", "k3")
 
+ROUTES = ("sm90", "wmma", "f32")
+
 _CONV_ARGS = [
     _VOID, _VOID, _VOID,                    # x, w, out
     _INT, _INT, _INT, _INT, _INT,           # B, H, W, Cin, Cout
     _INT, _VOID,                            # is_bf16, stream
 ]
-#: Kernel K5 by K order; ``CONV3X3_KERNELS[v].launches`` counts launches.
+_SM90_ARGS = [
+    _VOID, _VOID, _VOID,                    # x, K-major w, out
+    _INT, _INT, _INT, _INT, _INT,           # B, H, W, Cin, Cout
+    _INT, _INT, _VOID,                      # rows, images per tile, stream
+]
+#: Kernel K5 by (route, K order); ``CONV3X3_KERNELS[r, v].launches`` counts
+#: the launches of that route and order. The WMMA and f32 routes are two
+#: dtypes of one C symbol, counted apart.
 CONV3X3_KERNELS = {
-    "tap9": Kernel("conv3x3", "dmu_conv3x3_tap9", _CONV_ARGS),
-    "k3": Kernel("conv3x3", "dmu_conv3x3_k3", _CONV_ARGS),
+    **{("sm90", v): Kernel("conv3x3_sm90", f"dmu_conv3x3_sm90_{v}",
+                           _SM90_ARGS) for v in VARIANTS},
+    **{(r, v): Kernel("conv3x3", f"dmu_conv3x3_{v}", _CONV_ARGS,
+                      name=f"dmu_conv3x3_{v}[{r}]")
+       for r in ("wmma", "f32") for v in VARIANTS},
 }
+#: The sm90 route's M tile: 256 output pixels, whole rows of whole images.
+SM90_TILE = 256
+SM90_BK = 64
+SM90_BN = 128
 #: Kernel K4; ``GN_SILU_CONV3X3_KERNEL.launches`` counts its launches.
 GN_SILU_CONV3X3_KERNEL = Kernel("conv3x3", "dmu_gn_silu_conv3x3", [
     _VOID, _VOID, _VOID, _VOID, _VOID,      # x, a, b, w, out
@@ -133,6 +155,62 @@ def check_conv_shapes(x: torch.Tensor, w: torch.Tensor) -> None:
                          f"{x.dtype} on {x.device}")
 
 
+class Conv3x3Route(NamedTuple):
+    """K5's route for one call. For ``"sm90"``, a 256-pixel M tile holds
+    ``images`` images of ``rows`` rows of W pixels (images·rows·W = 256);
+    the other routes leave both 0."""
+    name: str
+    images: int = 0
+    rows: int = 0
+
+
+def conv3x3_route(x_shape, w_shape, dtype: torch.dtype) -> Conv3x3Route:
+    """Which kernel K5 runs for x [B, H, W, Cin] and w [3, 3, Cin, Cout] of
+    ``dtype``: ``"f32"`` for float32; for bfloat16 ``"sm90"`` when Cin is a
+    multiple of 64, Cout of 128, and a tile of 256 pixels is whole rows of
+    whole images (W divides 256, and R = 256/W rows divide H, or H·W
+    divides 256), else ``"wmma"``. Raises ValueError for Cin or Cout not a
+    multiple of 8, or another dtype."""
+    _, h, wd, cin = (int(v) for v in x_shape)
+    cout = int(w_shape[-1])
+    if cin % 8 or cout % 8:
+        raise ValueError(f"the conv kernels take Cin and Cout that are "
+                         f"multiples of 8, got Cin={cin}, Cout={cout}")
+    if dtype == torch.float32:
+        return Conv3x3Route("f32")
+    if dtype != torch.bfloat16:
+        raise ValueError(f"x must be float32 or bfloat16, got {dtype}")
+    if (cin % SM90_BK == 0 and cout % SM90_BN == 0 and 0 < wd <= SM90_TILE
+            and SM90_TILE % wd == 0 and h > 0):
+        rows = SM90_TILE // wd
+        if h * wd >= SM90_TILE and h % rows == 0:
+            return Conv3x3Route("sm90", 1, rows)
+        if h * wd < SM90_TILE and SM90_TILE % (h * wd) == 0:
+            return Conv3x3Route("sm90", SM90_TILE // (h * wd), h)
+    return Conv3x3Route("wmma")
+
+
+def sm90_box(m0: int, k_step: int, h: int, wd: int, cin: int):
+    """The coordinates (c0, x0, y0, b0) at which the sm90 route's producer
+    loads x's box [images, rows, W, 64] for the M tile starting at pixel
+    ``m0`` and K step ``k_step`` (tap ``k_step // (Cin/64)``, channel block
+    ``k_step % (Cin/64)``): the tile's first pixel shifted by the tap.
+    Elements outside x read as 0. ``csrc/conv3x3_sm90.cu`` computes the
+    same; the CPU tests walk it."""
+    cblocks = cin // SM90_BK
+    tap, cb = divmod(k_step, cblocks)
+    b0 = m0 // (h * wd)
+    y0 = (m0 - b0 * h * wd) // wd
+    return cb * SM90_BK, tap % 3 - 1, y0 + tap // 3 - 1, b0
+
+
+def kmajor_weight(w: torch.Tensor) -> torch.Tensor:
+    """The sm90 route's B operand: HWIO w [3, 3, Cin, Cout] as the K-major
+    matrix [Cout, 9·Cin], row n holding w[ky, kx, ci, n] at column
+    (ky·3 + kx)·Cin + ci."""
+    return w.reshape(-1, w.shape[-1]).t().contiguous()
+
+
 def _kernel_args(x: torch.Tensor, what: str):
     if x.device.type != "cuda":
         raise ValueError(f"{what} needs a CUDA tensor, got {x.device}")
@@ -143,19 +221,35 @@ def _kernel_args(x: torch.Tensor, what: str):
         torch.cuda.current_stream(x.device).cuda_stream
 
 
-def conv3x3_cuda(x: torch.Tensor, w: torch.Tensor,
-                 variant: str = "tap9") -> torch.Tensor:
-    """Launch kernel K5 in the given K order. Anything it does not take
-    raises ValueError."""
+def conv3x3_cuda(x: torch.Tensor, w: torch.Tensor, variant: str = "tap9",
+                 route: str = "") -> torch.Tensor:
+    """Launch kernel K5 in the given K order, on the route
+    :func:`conv3x3_route` picks. ``route="wmma"`` runs a bf16 shape on the
+    WMMA kernel instead (to time it beside the sm90 route); any other
+    choice than the router's raises. Anything K5 does not take raises
+    ValueError."""
     check_conv_shapes(x, w)
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
     b, h, wd, c, is_bf16, stream = _kernel_args(x, "conv3x3_cuda")
+    picked = conv3x3_route(x.shape, w.shape, x.dtype)
+    if route and route != picked.name and not (route == "wmma" and is_bf16):
+        raise ValueError(f"route {route!r} does not take this call "
+                         f"(the router picks {picked.name!r})")
+    route = route or picked.name
     x, w = x.contiguous(), w.contiguous()
-    out = x.new_empty((b, h, wd, w.shape[-1]))
-    if out.numel():
-        CONV3X3_KERNELS[variant](x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                                 b, h, wd, c, w.shape[-1], is_bf16, stream)
+    cout = w.shape[-1]
+    out = x.new_empty((b, h, wd, cout))
+    if not out.numel():
+        return out
+    kernel = CONV3X3_KERNELS[route, variant]
+    if route == "sm90":
+        wk = kmajor_weight(w)
+        kernel(x.data_ptr(), wk.data_ptr(), out.data_ptr(), b, h, wd, c,
+               cout, picked.rows, picked.images, stream)
+    else:
+        kernel(x.data_ptr(), w.data_ptr(), out.data_ptr(), b, h, wd, c, cout,
+               is_bf16, stream)
     return out
 
 
@@ -199,7 +293,7 @@ def gn_silu_conv3x3(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
 
 class Conv3x3Function(torch.autograd.Function):
     """The differentiable conv, the port of ``conv3x3_pallas_vjp``: forward
-    K5 (tap9) on CUDA, the plain version on the CPU; backward the gradient
+    K5 (tap9, on its routed kernel) on CUDA, the plain version on the CPU; backward the gradient
     of :func:`conv3x3_conv2d`, as ``_vjp_bwd`` takes XLA's conv vjp. The
     reference has no backward kernel here, so the port has none."""
 

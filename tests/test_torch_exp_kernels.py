@@ -219,7 +219,8 @@ def test_conv3x3_function_matches_pallas_vjp():
 def _launches():
     return (tuple(k.launches for k in cv.CONV3X3_KERNELS.values())
             + (cv.GN_SILU_CONV3X3_KERNEL.launches,
-               bc.OUT_HEAD_KERNEL.launches, bc.IN_CONV_KERNEL.launches))
+               bc.OUT_HEAD_KERNEL.launches, bc.IN_CONV_KERNEL.launches,
+               bc.IN_CONV_MMA_KERNEL.launches))
 
 
 def test_dispatchers_route_cpu_tensors_to_plain_versions():
