@@ -11,7 +11,10 @@ T=1000, 4 heads, serve batch 16) with random weights made from a seed:
    source, all started together) and prints the build seconds;
 2. records every GroupNorm and attention call shape of one full-width
    forward, and holds each kernel against its plain PyTorch version at
-   each of those shapes, in bf16 and f32;
+   each of those shapes, in bf16 and f32 (K1 also bit-identical over two
+   calls, with its launch plan logged once per shape), and at edge shapes
+   (``GN_EDGE_SHAPES``: the re-read path, rows that are not whole 16-byte
+   vectors, a misaligned x, two samples a block);
 3. holds one f32 UNet forward (B=2) and a 3-step sampler run on the card
    against the same module on the CPU, where the plain versions run;
 4. serves three ``POST /generate`` requests and one ``GET /healthz``
@@ -30,7 +33,8 @@ on, dropout 0.1, the config's SNR-weighted MSE, Adam and EMA):
 6. records every GroupNorm and attention call of one training step and
    holds the GroupNorm backward (K2) against its plain version at each of
    its shapes in f32 and bf16, and at edge shapes; two calls must give
-   bit-identical results; and holds K1 and K3 at their training shapes;
+   bit-identical results (its plan logged once per shape); and holds K1
+   and K3 at their training shapes;
 7. holds one f32 training step (B=2, loss and every gradient) on the card
    against the CPU, and reports the same step's loss in bf16 autocast;
 8. runs the training CLI at full width as a subprocess on the synthetic
@@ -231,27 +235,53 @@ def mha_inputs(shape, dtype, gen):
         dtype).view(b, s, n, d).transpose(1, 2) for _ in range(3)]
 
 
+def log_plan(kernel: str, dname: str, key, plan) -> None:
+    """Logs the launch plan of K1/K2 at one shape and dtype, once."""
+    tag = (kernel, dname, key, plan)
+    if tag not in LOGGED_PLANS:
+        LOGGED_PLANS.add(tag)
+        log(f"  {kernel} {dname} {gn_label(key)} plan: {plan.describe()}")
+
+
+LOGGED_PLANS = set()
+
+
+def hold_gn_one(key, dtype, gen, x=None) -> float:
+    """K1 against its plain version on one shape (``x`` given, or made
+    from ``gen``) within TOL; two calls must be bit-identical."""
+    import torch
+    from diffusion_model_universal_torch.ops import group_norm as gn_ops
+    dname = str(dtype).removeprefix("torch.")
+    x0, scale, bias, tb = gn_inputs(key, dtype, gen)
+    x = x0 if x is None else x
+    groups, silu = key[3], key[5]
+    got = gn_ops.group_norm_silu_cuda(x, scale, bias, groups, tb,
+                                      apply_silu=silu)
+    again = gn_ops.group_norm_silu_cuda(x, scale, bias, groups, tb,
+                                        apply_silu=silu)
+    want = gn_ops.group_norm_silu_plain(x, scale, bias, groups, tb,
+                                        apply_silu=silu)
+    torch.cuda.synchronize()
+    log_plan("K1", dname, key, gn_ops.plan_for_call(x, groups, False, got))
+    check(torch.equal(got, again),
+          f"K1 {dname} {gn_label(key)} differs between calls")
+    return hold(f"K1 {dname} {gn_label(key)} (bit-identical over two "
+                "calls)", got, want, TOL[dname])
+
+
 def hold_kernels(gn_calls, mha_calls):
     """Each kernel against its plain version at ``gn_calls``/``mha_calls``
-    shapes in bf16 and f32; returns the max abs errors by (shape, dtype)."""
+    shapes in bf16 and f32 (K1 also bit-identical over two calls);
+    returns the max abs errors by (shape, dtype)."""
     import torch
     from diffusion_model_universal_torch.ops import attention as attn_ops
-    from diffusion_model_universal_torch.ops import group_norm as gn_ops
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
     errs = {"gn": {}, "mha": {}}
     for dname, dtype in (("bfloat16", torch.bfloat16),
                          ("float32", torch.float32)):
         tol = TOL[dname]
         for key in sorted(gn_calls):
-            x, scale, bias, tb = gn_inputs(key, dtype, gen)
-            groups, silu = key[3], key[5]
-            got = gn_ops.group_norm_silu_cuda(x, scale, bias, groups, tb,
-                                              apply_silu=silu)
-            want = gn_ops.group_norm_silu_plain(x, scale, bias, groups, tb,
-                                                apply_silu=silu)
-            torch.cuda.synchronize()
-            errs["gn"][(key, dname)] = hold(
-                f"K1 {dname} {gn_label(key)}", got, want, tol)
+            errs["gn"][(key, dname)] = hold_gn_one(key, dtype, gen)
         for shape in sorted(mha_calls):
             q, k, v = mha_inputs(shape, dtype, gen)
             got = attn_ops.mha_cuda(q, k, v)
@@ -262,20 +292,41 @@ def hold_kernels(gn_calls, mha_calls):
     return errs
 
 
+#: GroupNorm shapes off this config's path, K1 and K2 alike: the 64²
+#: config's S=4096 (in f32 K1, and K2 in both dtypes, too large for an
+#: 8-block cluster's shared memory: the re-read path), odd sizes, rows
+#: that are not a whole number of 16-byte vectors (C=12, 6 and 3: 8-, 4-
+#: and 2-byte vectors in bf16; at S=1024 the rows go through shared memory
+#: without bulk copies), 512 channels a group, and a batch of 600
+#: single-pixel samples (two samples a block).
+GN_EDGE_SHAPES = [(2, 4096, 128, 32, True, True), (3, 7, 24, 8, False, True),
+                  (1, 9, 48, 16, True, False), (3, 5, 12, 4, True, True),
+                  (2, 1024, 12, 4, True, True), (2, 9, 6, 3, False, True),
+                  (2, 7, 3, 1, True, False), (2, 4, 1024, 2, True, True),
+                  (600, 1, 512, 32, True, True)]
+
+
 def hold_edges():
-    """Shapes off this config's path: the 64² config's (S=4096 GroupNorm;
-    S=64 attention, past the default 48 KB of shared memory), K3's largest
-    (S=64, D=128), and odd sizes; then inputs the wrappers must refuse."""
+    """Shapes off this config's path: GN_EDGE_SHAPES, x one element off
+    16-byte alignment, the 64² config's S=64 attention (past the default
+    48 KB of shared memory), K3's largest (S=64, D=128), and odd sizes;
+    then inputs the wrappers must refuse."""
     import torch
     from diffusion_model_universal_torch.ops import attention as attn_ops
     from diffusion_model_universal_torch.ops import group_norm as gn_ops
     log("[hold] off-path shapes:")
-    hold_kernels({(2, 4096, 128, 32, True, True): 1,
-                  (3, 7, 24, 8, False, True): 1,
-                  (1, 9, 48, 16, True, False): 1},
+    hold_kernels({key: 1 for key in GN_EDGE_SHAPES},
                  {(2, 4, 64, 64): 1, (2, 4, 64, 128): 1, (3, 1, 7, 32): 1})
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 10)
+    key = (2, 64, 128, 32, True, True)
+    for dtype in (torch.bfloat16, torch.float32):
+        n = 2 * 64 * 128
+        flat = torch.randn(n + 1, generator=gen, device=DEVICE).to(dtype)
+        hold_gn_one(key, dtype, gen, x=flat[1:].view(2, 1, 64, 128))
     x = torch.zeros((2, 4, 4, 32), device=DEVICE)
     w = torch.ones(32, device=DEVICE)
+    wide = torch.zeros((1, 1, 1, 16384), device=DEVICE)
+    ww = torch.ones(16384, device=DEVICE)
     q = torch.zeros((1, 1, 128, 128), device=DEVICE)
     refusals = [
         ("float16 x", lambda: gn_ops.group_norm_silu_cuda(x.half(), w, w, 8)),
@@ -283,6 +334,8 @@ def hold_edges():
             x.transpose(1, 2), w, w, 8)),
         ("groups not dividing C", lambda: gn_ops.group_norm_silu_cuda(
             x, w, w, 5)),
+        ("a row of 16384 channels (K1)", lambda: gn_ops.group_norm_silu_cuda(
+            wide, ww, ww, 32)),
         ("S=128 D=128 attention", lambda: attn_ops.mha_cuda(q, q, q)),
     ]
     for what, call in refusals:
@@ -630,8 +683,7 @@ def profile_run(run_step, steps: int, what: str):
     busy = sum(v[0] for v in dev.values())
     kernels = sum(v[1] for v in dev.values())
     ours = {tag: sum(v[0] for k, v in dev.items() if tag in k)
-            for tag in ("gn_fwd_kernel", "gn_bwd_kernel",
-                        "gn_bwd_reduce_kernel", "mha_fwd_kernel")}
+            for tag in ("gn_fwd_kernel", "gn_bwd_kernel", "mha_fwd_kernel")}
     top = sorted(dev.items(), key=lambda kv: -kv[1][0])[:8]
     top_ops = sorted(ops.items(), key=lambda kv: -kv[1][0])[:6]
     summary = {"what": what, "steps": steps,
@@ -742,6 +794,8 @@ def hold_gn_bwd_one(key, dname, gen) -> float:
     again = gn_ops.group_norm_silu_bwd_cuda(*args, apply_silu=silu)
     want = gn_ops.group_norm_silu_bwd_plain(*args, apply_silu=silu)
     torch.cuda.synchronize()
+    log_plan("K2", dname, key, gn_ops.plan_for_call(x, groups, True, dy,
+                                                     got[0]))
     rel = TOL["float32"]
     tols = {"dx": (TOL[dname], TOL[dname]), "dscale": (red_tol(b * s), rel),
             "dbias": (red_tol(b * s), rel), "dtb": (red_tol(s), rel)}
@@ -769,8 +823,8 @@ def hold_gn_bwd_one(key, dname, gen) -> float:
 
 def hold_gn_bwd(bwd_calls):
     """Phase 6: K2 at every training shape in bf16 and f32, at edge shapes
-    (group sizes 12, 24 and 256, S=1, odd B, no time bias, no SiLU), and
-    inputs its wrapper must refuse."""
+    (GN_EDGE_SHAPES and group sizes 12, 24 and 256, S=1, odd B, no time
+    bias, no SiLU), and inputs its wrapper must refuse."""
     import torch
     from diffusion_model_universal_torch.ops import group_norm as gn_ops
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
@@ -779,16 +833,19 @@ def hold_gn_bwd(bwd_calls):
         for key in sorted(bwd_calls):
             errs[(key, dname)] = hold_gn_bwd_one(key, dname, gen)
     log("[hold] K2 off-path shapes:")
-    for key in [(3, 7, 24, 8, False, True), (1, 9, 48, 16, True, False),
-                (5, 1, 768, 32, True, True), (3, 5, 384, 32, True, True),
-                (2, 16, 64, 8, False, False), (2, 4, 512, 2, True, True)]:
+    for key in GN_EDGE_SHAPES + [
+            (5, 1, 768, 32, True, True), (3, 5, 384, 32, True, True),
+            (2, 16, 64, 8, False, False), (2, 4, 512, 2, True, True)]:
         for dname in ("bfloat16", "float32"):
             hold_gn_bwd_one(key, dname, gen)
     x = torch.zeros((2, 4, 4, 1024), device=DEVICE)
     w = torch.ones(1024, device=DEVICE)
+    wide = torch.zeros((1, 1, 1, 16384), device=DEVICE)
+    ww = torch.ones(16384, device=DEVICE)
     for what, call in [
-            ("512 channels per group", lambda: gn_ops.group_norm_silu_bwd_cuda(
-                x, w, w, None, x, 2)),
+            ("a row of 16384 channels",
+             lambda: gn_ops.group_norm_silu_bwd_cuda(wide, ww, ww, None,
+                                                     wide, 32)),
             ("dy of another dtype", lambda: gn_ops.group_norm_silu_bwd_cuda(
                 x, w, w, None, x.bfloat16(), 32))]:
         try:
