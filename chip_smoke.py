@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Drives the port's serving path at the full width of
-``diffusion_model_universal_tpu/configs/ddpm_config.yaml`` (C=128, 32²,
+``diffusion_model_universal_torch/configs/ddpm_config.yaml`` (C=128, 32²,
 T=1000, 4 heads, serve batch 16) with random weights made from a seed:
 
 1. builds the hand-written CUDA kernels from ``csrc/`` (one ``nvcc`` per
@@ -15,14 +15,21 @@ T=1000, 4 heads, serve batch 16) with random weights made from a seed:
    calls, with its launch plan logged once per shape), and at edge shapes
    (``GN_EDGE_SHAPES``: the re-read path, rows that are not whole 16-byte
    vectors, a misaligned x, two samples a block);
+   K3 also at S ∈ {1, 4, 16, 17, 64, 65, 256, 1024} × D ∈ {32, 64, 128}
+   and odd shapes (``MHA_EDGE_SHAPES``); K3 and K4's sm90 route must
+   refuse a launch plan off by one from the one Python gives them;
 3. holds one f32 UNet forward (B=2) and a 3-step sampler run on the card
-   against the same module on the CPU, where the plain versions run;
+   against the same module on the CPU, where the plain versions run; then
+   the config at ``image_size: 128`` (attention at S=256): one f32
+   forward at B=1 card vs CPU, and 3 bf16 sampler steps at B=16 on the
+   card;
 4. serves three ``POST /generate`` requests and one ``GET /healthz``
    through the port's HTTP server (bf16, 1000 ancestral steps each),
    checks the outputs, and checks that each request advanced the kernels'
    launch counters by exactly T × launches per forward;
 5. times each kernel at its main-path shapes beside its plain version,
-   one PyTorch library call computing the same function, and its bound;
+   one PyTorch library call computing the same function, and its bound
+   (K3 also at S=256 and 1024, D=64, B·N=64);
    traces a few sampler steps with ``torch.profiler``; and times sampler
    steps with the ops called through their autograd Functions and with
    the kernels called directly.
@@ -37,6 +44,8 @@ on, dropout 0.1, the config's SNR-weighted MSE, Adam and EMA):
    and K3 at their training shapes;
 7. holds one f32 training step (B=2, loss and every gradient) on the card
    against the CPU, and reports the same step's loss in bf16 autocast;
+   checks that the GroupNorm backward (K2) refuses a second derivative on
+   the card and that attention's grad-of-grad matches ``mha_plain``'s;
 8. runs the training CLI at full width as a subprocess on the synthetic
    dataset (2 epochs, checkpoints, validation, a sample grid), resumes it
    from its latest checkpoint for a third epoch, and generates from the
@@ -52,15 +61,16 @@ Then the experiment CLIs' kernels (``scripts/exp_conv_kernel.py`` and
 10. holds the 3×3 conv K5 in both K orders at the six stride-1 shapes of
     ``bench.py`` (bf16 at B=2048, on its TMA + wgmma route; f32 at B=16,
     on the CUDA cores) and at batch-packed edge shapes (bf16 on the WMMA
-    route), checking each call's route by its launch counts, and K4
-    (fused affine+SiLU→conv, WMMA), K6 (out-head) and K7 (in-conv; bf16 on
-    the tensor cores, f32 on the CUDA cores) at 32², C=128, each against
-    its plain version; checks refusals and ``Conv3x3Function``'s
-    gradients; runs both CLIs' ``--check`` and ``--bench`` as
-    subprocesses, each of which must launch every kernel it covers; and
-    times the four kernels at their bench shapes beside their plain
-    versions, ``F.conv2d`` and their bounds, K5 in turns with the earlier
-    WMMA kernel.
+    route), and K4 (fused affine+SiLU→conv; bf16 at 32² and on the CLI's
+    --check inputs on its TMA + wgmma route, at 8²·256→256 on WMMA, f32 on
+    the CUDA cores), checking each call's route by its launch counts, and
+    K6 (out-head) and K7 (in-conv; bf16 on the tensor cores, f32 on the
+    CUDA cores) at 32², C=128, each against its plain version; checks
+    refusals and ``Conv3x3Function``'s gradients; runs both CLIs'
+    ``--check`` and ``--bench`` as subprocesses, each of which must launch
+    every kernel it covers; and times the four kernels at their bench
+    shapes beside their plain versions, ``F.conv2d`` and their bounds, K5
+    and K4 in turns with their earlier WMMA kernel.
 
 The last three lines of standard output are the ``kernels`` JSON line
 (all seven kernels),
@@ -88,7 +98,7 @@ from pathlib import Path
 from diffusion_model_universal_torch.utils.timing import card_line, cuda_ms
 
 REPO = Path(__file__).resolve().parent
-CONFIG = REPO / "diffusion_model_universal_tpu" / "configs" / "ddpm_config.yaml"
+CONFIG = REPO / "diffusion_model_universal_torch" / "configs" / "ddpm_config.yaml"
 SERVE_BATCH = 16
 SEED = 0
 DEVICE = "cuda"
@@ -306,17 +316,33 @@ GN_EDGE_SHAPES = [(2, 4096, 128, 32, True, True), (3, 7, 24, 8, False, True),
                   (600, 1, 512, 32, True, True)]
 
 
+#: K3 off this config's path: S ∈ MHA_EDGE_S × D ∈ MHA_EDGE_D at B·N = 4
+#: (one key tile, several, ragged last tiles; S ≤ 16 packs four heads a
+#: block, S = 256 is the 128² UNet's down3/up1, S = 1024 a 32×32 map),
+#: and shapes the earlier kernel refused or that take other paths: S=128
+#: D=128 (refused before), B·N = 3 (a partial group of four heads), D=20
+#: (rows not whole 16-byte copies: scalar loads), D=300 (two output
+#: chunks), D=520 at S=5.
+MHA_EDGE_S = (1, 4, 16, 17, 64, 65, 256, 1024)
+MHA_EDGE_D = (32, 64, 128)
+MHA_EDGE_SHAPES = ([(2, 2, s, d) for s in MHA_EDGE_S for d in MHA_EDGE_D]
+                   + [(2, 2, 128, 128), (3, 1, 7, 32), (1, 2, 33, 20),
+                      (2, 1, 40, 300), (1, 1, 5, 520)])
+
+
 def hold_edges():
     """Shapes off this config's path: GN_EDGE_SHAPES, x one element off
-    16-byte alignment, the 64² config's S=64 attention (past the default
-    48 KB of shared memory), K3's largest (S=64, D=128), and odd sizes;
-    then inputs the wrappers must refuse."""
+    16-byte alignment, K3 at MHA_EDGE_SHAPES, and odd sizes; then inputs
+    the wrappers must refuse."""
     import torch
     from diffusion_model_universal_torch.ops import attention as attn_ops
     from diffusion_model_universal_torch.ops import group_norm as gn_ops
     log("[hold] off-path shapes:")
+    before = attn_ops.MHA_KERNEL.launches
     hold_kernels({key: 1 for key in GN_EDGE_SHAPES},
-                 {(2, 4, 64, 64): 1, (2, 4, 64, 128): 1, (3, 1, 7, 32): 1})
+                 {shape: 1 for shape in MHA_EDGE_SHAPES})
+    check(attn_ops.MHA_KERNEL.launches - before == 2 * len(MHA_EDGE_SHAPES),
+          "K3 did not launch once per edge shape and dtype")
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 10)
     key = (2, 64, 128, 32, True, True)
     for dtype in (torch.bfloat16, torch.float32):
@@ -327,7 +353,7 @@ def hold_edges():
     w = torch.ones(32, device=DEVICE)
     wide = torch.zeros((1, 1, 1, 16384), device=DEVICE)
     ww = torch.ones(16384, device=DEVICE)
-    q = torch.zeros((1, 1, 128, 128), device=DEVICE)
+    q = torch.zeros((1, 1, 8, 16), device=DEVICE, dtype=torch.float16)
     refusals = [
         ("float16 x", lambda: gn_ops.group_norm_silu_cuda(x.half(), w, w, 8)),
         ("non-contiguous x", lambda: gn_ops.group_norm_silu_cuda(
@@ -336,7 +362,7 @@ def hold_edges():
             x, w, w, 5)),
         ("a row of 16384 channels (K1)", lambda: gn_ops.group_norm_silu_cuda(
             wide, ww, ww, 32)),
-        ("S=128 D=128 attention", lambda: attn_ops.mha_cuda(q, q, q)),
+        ("float16 attention", lambda: attn_ops.mha_cuda(q, q, q)),
     ]
     for what, call in refusals:
         try:
@@ -345,6 +371,48 @@ def hold_edges():
             log(f"  refuses {what}: ok")
         else:
             raise SmokeFailure(f"a wrapper accepted {what}")
+    hold_plan_refusals()
+
+
+def hold_plan_refusals():
+    """K3 and K4's sm90 route launch on the plan Python gives them, and
+    their C entries check it: a plan off by one refuses to launch."""
+    import torch
+    from diffusion_model_universal_torch.ops import attention as attn_ops
+    from diffusion_model_universal_torch.ops import conv3x3 as cv
+    q = torch.zeros((2, 4, 16, 64), device=DEVICE, dtype=torch.bfloat16)
+    x = torch.zeros((1, 16, 16, 128), device=DEVICE, dtype=torch.bfloat16)
+    ab = torch.ones((1, 128), device=DEVICE)
+    w = torch.zeros((3, 3, 128, 128), device=DEVICE, dtype=torch.bfloat16)
+    mha_plan, gn_smem = attn_ops.mha_launch_plan, cv.gn_sm90_smem_bytes
+    k4 = cv.GN_SILU_CONV3X3_KERNELS["sm90"]
+    cases = [
+        ("K3, units + 1", attn_ops, "mha_launch_plan",
+         lambda *a: mha_plan(*a)._replace(units=mha_plan(*a).units + 1),
+         lambda: attn_ops.mha_cuda(q, q, q), attn_ops.MHA_KERNEL),
+        ("K3, a key tile short", attn_ops, "mha_launch_plan",
+         lambda *a: mha_plan(*a)._replace(
+             key_tiles=mha_plan(*a).key_tiles - 1),
+         lambda: attn_ops.mha_cuda(q, q, q), attn_ops.MHA_KERNEL),
+        ("K4 sm90, shared bytes + 16", cv, "gn_sm90_smem_bytes",
+         lambda *a: gn_smem(*a) + 16,
+         lambda: cv.gn_silu_conv3x3_cuda(x, ab, ab, w), k4),
+    ]
+    for what, module, name, wrong, call, kernel in cases:
+        before = kernel.launches
+        setattr(module, name, wrong)
+        try:
+            call()
+        except RuntimeError:
+            log(f"  refuses a plan off by one ({what}): ok")
+        else:
+            raise SmokeFailure(f"{what}: the kernel launched a wrong plan")
+        finally:
+            attn_ops.mha_launch_plan, cv.gn_sm90_smem_bytes = \
+                mha_plan, gn_smem
+        check(kernel.launches == before, f"{what}: counted a launch")
+    check(cv.gn_silu_conv3x3_route(x.shape, w.shape, x.dtype).name == "sm90",
+          "the K4 refusal shape left the sm90 route")
 
 
 def gn_label(key) -> str:
@@ -358,9 +426,9 @@ def mha_label(shape) -> str:
     return f"B{b} N{n} S{s} D{d}"
 
 
-def hold_unet(model):
-    """One f32 forward at B=2 and 3 sampler steps on the card, against
-    the same module on the CPU (plain versions there)."""
+def hold_unet(model, batch: int = 2, steps: bool = True):
+    """One f32 forward at ``batch`` and (``steps``) 3 sampler steps on the
+    card, against the same module on the CPU (plain versions there)."""
     import torch
     cpu_model = copy.copy(model)
     cpu_model.net = copy.deepcopy(model.net).cpu()
@@ -368,15 +436,18 @@ def hold_unet(model):
     cpu_model.schedule = type(model.schedule)(
         **{k: v.cpu() for k, v in vars(model.schedule).items()})
     gen = torch.Generator().manual_seed(SEED + 3)
-    x = torch.randn(model.sample_shape(2), generator=gen)
-    t = torch.tensor([0, 731])
+    x = torch.randn(model.sample_shape(batch), generator=gen)
+    t = torch.tensor([0, 731][:batch])
+    size = model.sample_shape(1)[1]
     with torch.no_grad():
         want = cpu_model.apply(x, t)
         got = model.apply(x.to(DEVICE), t.to(DEVICE)).cpu()
-    log(f"[unet] full-width f32 forward B=2, output |max| "
+    log(f"[unet] full-width f32 forward B={batch} at {size}², output |max| "
         f"{float(want.abs().max()):.3f}")
-    errs = [hold("UNet forward, card vs CPU", got, want, UNET_TOL)]
-    draws = [torch.randn(model.sample_shape(2), generator=gen)
+    errs = [hold(f"UNet forward {size}², card vs CPU", got, want, UNET_TOL)]
+    if not steps:
+        return errs[0]
+    draws = [torch.randn(model.sample_shape(batch), generator=gen)
              for _ in range(4)]
     it_c, it_g = iter(draws), iter([d.to(DEVICE) for d in draws])
     with torch.inference_mode():
@@ -384,9 +455,66 @@ def hold_unet(model):
                                         lambda: next(it_c))
         got = model._denoise_range(next(it_g), 3, 0,
                                    lambda: next(it_g)).cpu()
-    errs.append(hold("3 sampler steps t=2..0, card vs CPU", got, want,
-                     UNET_TOL))
+    errs.append(hold(f"3 sampler steps t=2..0 {size}², card vs CPU", got,
+                     want, UNET_TOL))
     return max(errs)
+
+
+def hold_unet_128(cfg):
+    """Phase 3b: the config at ``image_size: 128`` (only that key
+    overridden; C=128, so down3/up1's attention has S=256, D=64, which the
+    earlier K3 refused): one f32 forward at B=1 on the card against the
+    CPU within UNET_TOL, then 3 bf16 sampler steps at the serve batch on
+    the card, finite and of the expected shape, K3 launched each step."""
+    import torch
+    from diffusion_model_universal_torch.models import DDPM
+    from diffusion_model_universal_torch.models.convert import \
+        unet_params_to_jax
+    from diffusion_model_universal_torch.ops import attention as attn_ops
+    cfg128 = dict(cfg, image_size=128)
+    t0 = time.perf_counter()
+    model = make_f32_model(cfg128)
+    shapes = {}
+    mha = attn_ops.multi_head_attention
+
+    def rec(q, k, v):
+        shapes[tuple(q.shape)] = shapes.get(tuple(q.shape), 0) + 1
+        return mha(q, k, v)
+
+    attn_ops.multi_head_attention = rec
+    try:   # two forwards: the CPU's and the card's
+        err = hold_unet(model, batch=1, steps=False)
+    finally:
+        attn_ops.multi_head_attention = mha
+    shapes = {k: n // 2 for k, n in shapes.items()}
+    log(f"[unet128] attention shapes of a B=1 forward: "
+        f"{ {mha_label(k): n for k, n in sorted(shapes.items())} }")
+    check(any(s[2] == 256 for s in shapes), "no S=256 attention at 128²")
+    bf = DDPM(cfg128, device=DEVICE, seed=SEED)
+    bf.load_params(unet_params_to_jax(model.net))
+    del model
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 12)
+    before = attn_ops.MHA_KERNEL.launches
+    with torch.inference_mode():
+        x = bf._denoise_range(
+            torch.randn(bf.sample_shape(SERVE_BATCH), generator=gen,
+                        device=DEVICE), 3, 0,
+            lambda: torch.randn(bf.sample_shape(SERVE_BATCH), generator=gen,
+                                device=DEVICE))
+    torch.cuda.synchronize()
+    launched = attn_ops.MHA_KERNEL.launches - before
+    check(tuple(x.shape) == (SERVE_BATCH, 128, 128, 3)
+          and bool(x.isfinite().all()), f"128² sampler steps: {x.shape}")
+    check(launched == 3 * sum(shapes.values()),
+          f"K3 launched {launched} times in 3 steps, not 3 × "
+          f"{sum(shapes.values())}")
+    secs = time.perf_counter() - t0
+    log(f"[unet128] 3 bf16 sampler steps at B={SERVE_BATCH}, 128²: finite, "
+        f"range [{float(x.min()):.2f}, {float(x.max()):.2f}]; K3 launched "
+        f"{launched} times; phase {secs:.1f} s")
+    return {"unet_max_abs_err": err, "attention_shapes": {
+        mha_label(k): n for k, n in sorted(shapes.items())},
+        "k3_launches_3_steps": launched, "seconds": secs}
 
 
 def serve(model_f32, cfg, per_forward):
@@ -480,9 +608,14 @@ def serve(model_f32, cfg, per_forward):
     return service.model, results, launches
 
 
+#: K3 timed off the main path too (×0 in the totals): S=256 (the 128²
+#: UNet's down3/up1) and S=1024, D=64, B·N = 64 as when serving.
+MHA_TIME_SHAPES = [(16, 4, 256, 64), (16, 4, 1024, 64)]
+
+
 def time_kernels(gn_calls, mha_calls, dtype_name="bfloat16"):
     """Per-shape kernel, plain, library and bound ms at the main path's
-    serving dtype."""
+    serving dtype; K3 also at MHA_TIME_SHAPES (weighted ×0 in totals)."""
     import torch
     import torch.nn.functional as F
     from diffusion_model_universal_torch.ops import attention as attn_ops
@@ -515,7 +648,7 @@ def time_kernels(gn_calls, mha_calls, dtype_name="bfloat16"):
         gn_rows.append({"shape": gn_label(key), "per_forward": gn_calls[key],
                         "ms": ms, "plain_ms": plain, "library_ms": lib,
                         "bound_ms": bms, "bound_by": by})
-    for shape in sorted(mha_calls):
+    for shape in sorted(mha_calls) + MHA_TIME_SHAPES:
         b, n, s, d = shape
         q, k, v = mha_inputs(shape, dtype, gen)
         ms = cuda_ms(lambda: attn_ops.mha_cuda(q, k, v))
@@ -525,7 +658,7 @@ def time_kernels(gn_calls, mha_calls, dtype_name="bfloat16"):
         ops = b * n * (4 * s * s * d + 5 * s * s)
         bms, by = bound(nbytes, ops, dtype_name)
         mha_rows.append({"shape": mha_label(shape),
-                         "per_forward": mha_calls[shape], "ms": ms,
+                         "per_forward": mha_calls.get(shape, 0), "ms": ms,
                          "plain_ms": plain, "library_ms": lib,
                          "bound_ms": bms, "bound_by": by})
     for label, rows in (("K1", gn_rows), ("K3", mha_rows)):
@@ -683,7 +816,7 @@ def profile_run(run_step, steps: int, what: str):
     busy = sum(v[0] for v in dev.values())
     kernels = sum(v[1] for v in dev.values())
     ours = {tag: sum(v[0] for k, v in dev.items() if tag in k)
-            for tag in ("gn_fwd_kernel", "gn_bwd_kernel", "mha_fwd_kernel")}
+            for tag in ("gn_fwd_kernel", "gn_bwd_kernel", "mha_fwd")}
     top = sorted(dev.items(), key=lambda kv: -kv[1][0])[:8]
     top_ops = sorted(ops.items(), key=lambda kv: -kv[1][0])[:6]
     summary = {"what": what, "steps": steps,
@@ -917,6 +1050,52 @@ def hold_train_step(cfg):
             "loss_diff_bf16_vs_f32_cpu": bf_diff}
 
 
+def hold_double_backward():
+    """Phase 7b: second derivatives on the card. GroupNormSiLUFunction
+    must raise when its backward (K2) is asked for a graph; MHAFunction's
+    grad-of-grad of sum((MHA(q,k,v) + q³)²) (forward K3, backward
+    autograd through mha_plain) must equal the same through mha_plain,
+    f32 (TF32 off). The two differ only by K3's forward error (f32, about
+    1e-6 relative), which reaches the loss linearly: held within 1e-4 of
+    each result's largest magnitude, abs, plus the f32 TOL rel."""
+    import torch
+    from diffusion_model_universal_torch.ops import attention as attn_ops
+    from diffusion_model_universal_torch.ops import group_norm as gn_ops
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 13)
+    x = torch.randn((2, 4, 4, 32), generator=gen,
+                    device=DEVICE).requires_grad_()
+    w = torch.ones(32, device=DEVICE)
+    y = gn_ops.group_norm_silu(x, w, w * 0.1, 8)
+    try:
+        torch.autograd.grad(y.square().sum(), x, create_graph=True)
+    except RuntimeError as e:
+        check("second derivative" in str(e), f"unexpected error: {e}")
+        log("  GroupNormSiLUFunction on CUDA refuses create_graph: ok")
+    else:
+        raise SmokeFailure("K2's backward accepted create_graph=True")
+    (gx,) = torch.autograd.grad(
+        gn_ops.group_norm_silu(x, w, w * 0.1, 8).square().sum(), x)
+    check(bool(gx.isfinite().all()), "first-order GroupNorm gradient")
+    before = attn_ops.MHA_KERNEL.launches
+    qkv = mha_inputs((2, 4, 16, 64), torch.float32, gen)
+    results = []
+    for fn in (attn_ops.multi_head_attention, attn_ops.mha_plain):
+        q, k, v = (t.detach().mul(0.5).requires_grad_() for t in qkv)
+        loss = (fn(q, k, v) + q ** 3).square().sum()
+        (gq,) = torch.autograd.grad(loss, q, create_graph=True)
+        results.append([gq.detach(), *torch.autograd.grad(gq.sum(),
+                                                          (q, k, v))])
+    torch.cuda.synchronize()
+    check(attn_ops.MHA_KERNEL.launches == before + 1,
+          "MHAFunction's forward did not launch K3 once")
+    errs = {}
+    for name, got, want in zip(("dq", "d2q", "d2k", "d2v"), *results):
+        errs[name] = hold(f"MHAFunction grad-of-grad {name}, f32 card vs "
+                          f"mha_plain", got, want,
+                          1e-4 * float(want.abs().max()), TOL["float32"])
+    return errs
+
+
 def run_cli(module: str, args, what: str, timeout: int = 900) -> str:
     """Run one of the port's CLIs as a subprocess; fails on a non-zero
     exit. Returns its standard output."""
@@ -1106,16 +1285,16 @@ EXP_REPLACES = {
     "in_conv": "scripts/exp_boundary_kernel.py:114",
 }
 #: The kernels (launch-count names) each experiment CLI run must launch:
-#: the conv CLI's bf16 shapes take K5's sm90 route in both orders and K4's
-#: WMMA kernel; the boundary CLI's f32 --check takes K7's CUDA-core path,
-#: its bf16 --bench the tensor-core one.
+#: the conv CLI's bf16 shapes take K5's and K4's sm90 routes; the boundary
+#: CLI's f32 --check takes K7's CUDA-core path, its bf16 --bench the
+#: tensor-core one.
 EXP_SYMBOLS = {
     ("exp_conv_kernel", "--check"): ("dmu_conv3x3_sm90_tap9",
                                      "dmu_conv3x3_sm90_k3",
-                                     "dmu_gn_silu_conv3x3"),
+                                     "dmu_gn_silu_conv3x3_sm90"),
     ("exp_conv_kernel", "--bench"): ("dmu_conv3x3_sm90_tap9",
                                      "dmu_conv3x3_sm90_k3",
-                                     "dmu_gn_silu_conv3x3"),
+                                     "dmu_gn_silu_conv3x3_sm90"),
     ("exp_boundary_kernel", "--check"): ("dmu_out_head", "dmu_in_conv"),
     ("exp_boundary_kernel", "--bench"): ("dmu_out_head", "dmu_in_conv_mma"),
 }
@@ -1190,17 +1369,46 @@ def hold_k5(x, w, variant, route, what):
     return hold(f"K5 {dname} {what} ({route})", got, want, TOL[dname])
 
 
+def k4_route_launches():
+    """K4's launches so far in this process, by route."""
+    from diffusion_model_universal_torch.ops import conv3x3 as cv
+    return {r: cv.GN_SILU_CONV3X3_KERNELS[r].launches for r in cv.ROUTES}
+
+
+def hold_k4(x, a, b, w, route, what):
+    """K4 on x, a, b, w against its plain version within TOL; checks that
+    the call launched the kernel of ``route`` once and no other. Returns
+    max abs error."""
+    import torch
+    from diffusion_model_universal_torch.ops import conv3x3 as cv
+    before = k4_route_launches()
+    got = cv.gn_silu_conv3x3_cuda(x, a, b, w)
+    want = cv.gn_silu_conv3x3_plain(x, a, b, w)
+    torch.cuda.synchronize()
+    after = k4_route_launches()
+    check(all(after[r] - before[r] == (r == route) for r in cv.ROUTES),
+          f"K4 {what}: launches by route moved {before} -> {after}, "
+          f"expected one {route} launch")
+    dname = str(x.dtype).removeprefix("torch.")
+    return hold(f"K4 {dname} {what} ({route})", got, want, TOL[dname])
+
+
+#: A K4 shape that stays on the WMMA kernel (four images a 256-pixel
+#: tile), held at this batch.
+K4_WMMA_SHAPE, K4_WMMA_BATCH = (8, 256, 256), 256
+
+
 def hold_exp_kernels():
     """Phase 10a: K5 in both K orders at the six bench.py shapes (bf16 at
     B=2048 on the sm90 route, f32 at B=16 on the CUDA cores) and the three
     edge shapes (B=32, both dtypes; bf16 on the WMMA route); K4, K6 and K7
-    at 32², C=128 in both dtypes; and each kernel on the inputs the
-    experiment CLIs' ``--check`` builds (K4, K5 at B=4, 16², 128→128 bf16;
-    K6, K7 at B=4, 16², C=128 f32). Each against its plain version within
-    TOL, and each K5 and K7 call checked to have launched the route or path
-    its shapes and dtype call for. Returns max abs errors by kernel, keyed
-    by (case, dtype), and the K5 and K7 launches of this phase by route
-    and path."""
+    at 32², C=128 in both dtypes; each kernel on the inputs the experiment
+    CLIs' ``--check`` builds (K4, K5 at B=4, 16², 128→128 bf16; K6, K7 at
+    B=4, 16², C=128 f32); and K4 at K4_WMMA_SHAPE. Each against its plain
+    version within TOL, and each K4, K5 and K7 call checked to have
+    launched the route or path its shapes and dtype call for. Returns max
+    abs errors by kernel, keyed by (case, dtype), and the launches of this
+    phase by name."""
     import torch
     from diffusion_model_universal_torch.ops import _build
     from diffusion_model_universal_torch.ops import boundary_conv as bc
@@ -1227,12 +1435,9 @@ def hold_exp_kernels():
         shape = EXP_CONV_SHAPES[0]
         x, w = exp_conv_inputs(shape, batch, dtype, gen)
         a, b = exp_affine(batch, shape[1], dtype, gen)
-        got = cv.gn_silu_conv3x3_cuda(x, a, b, w)
-        want = cv.gn_silu_conv3x3_plain(x, a, b, w)
-        torch.cuda.synchronize()
         label = conv_label(shape, batch)
-        errs["gn_silu_conv3x3"][(label, dname)] = hold(
-            f"K4 {dname} {label}", got, want, TOL[dname])
+        errs["gn_silu_conv3x3"][(label, dname)] = hold_k4(
+            x, a, b, w, "sm90" if dname == "bfloat16" else "f32", label)
         x, scale, bias, w, x3, w3 = exp_head_inputs(batch, dtype, gen)
         got = bc.out_head_cuda(x, scale, bias, w)
         want = bc.out_head_plain(x, scale, bias, w)
@@ -1257,11 +1462,13 @@ def hold_exp_kernels():
     for variant in cv.VARIANTS:
         errs["conv3x3"][(f"{variant} {label}", dname)] = hold_k5(
             x, w, variant, "sm90", f"{variant} {label}")
-    got = cv.gn_silu_conv3x3_cuda(x, a, b, w)
-    want = cv.gn_silu_conv3x3_plain(x, a, b, w)
-    torch.cuda.synchronize()
-    errs["gn_silu_conv3x3"][(label, dname)] = hold(
-        f"K4 {dname} {label}", got, want, TOL[dname])
+    errs["gn_silu_conv3x3"][(label, dname)] = hold_k4(x, a, b, w, "sm90",
+                                                      label)
+    x, w = exp_conv_inputs(K4_WMMA_SHAPE, K4_WMMA_BATCH, torch.bfloat16, gen)
+    a, b = exp_affine(K4_WMMA_BATCH, K4_WMMA_SHAPE[1], torch.bfloat16, gen)
+    label = conv_label(K4_WMMA_SHAPE, K4_WMMA_BATCH)
+    errs["gn_silu_conv3x3"][(label, "bfloat16")] = hold_k4(x, a, b, w, "wmma",
+                                                           label)
     x, w, scale, bias, x3, w3 = exp_boundary_kernel.check_inputs(DEVICE)
     dname = str(x.dtype).removeprefix("torch.")
     b, h, _, c = x.shape
@@ -1295,12 +1502,15 @@ def exp_refusals():
     x3 = torch.zeros((2, 4, 4, 3), **z)
     x32, w32 = torch.zeros((2, 2, 2, 32), **z), torch.zeros((3, 3, 32, 32),
                                                             **z)
+    a32 = torch.zeros((2, 32), **z)
     for what, call in [
             ("Cin=12 (K5)", lambda: cv.conv3x3_cuda(x12, w12)),
             ("the sm90 route for 2², 32→32 (K5)", lambda: cv.conv3x3_cuda(
                 x32, w32, route="sm90")),
             ("Cin=12 (K4)", lambda: cv.gn_silu_conv3x3_cuda(x12, a12, a12,
                                                             w12)),
+            ("the sm90 route for 2², 32→32 (K4)", lambda:
+             cv.gn_silu_conv3x3_cuda(x32, a32, a32, w32, route="sm90")),
             ("Cout=4 out head (K6)", lambda: bc.out_head_cuda(
                 xh, s, s, torch.zeros((3, 3, 64, 4), **z))),
             ("Cout=12 (K7)", lambda: bc.in_conv_cuda(
@@ -1387,10 +1597,11 @@ def time_exp_kernels():
     K5 at all six bench.py shapes, both K orders): kernel, plain, library
     and bound ms. The library call is F.conv2d on channels-last views with
     the weight laid out once beforehand; for K4 the affine and SiLU first,
-    for K6 F.group_norm and F.silu first. K5 is timed in turns with the
-    earlier WMMA kernel on the same inputs (earlier, sm90, sm90, earlier;
-    each time the mean of its two runs), its ``ms`` including the K-major
-    weight copy its wrapper makes."""
+    for K6 F.group_norm and F.silu first. K5 and K4 are timed in turns
+    with their earlier WMMA kernel on the same inputs (earlier, sm90,
+    sm90, earlier; each time the mean of its two runs), their ``ms``
+    including the K-major weight copy their wrapper makes; K4's row also
+    carries K5's time on the same conv."""
     import torch
     import torch.nn.functional as F
     from diffusion_model_universal_torch.ops import boundary_conv as bc
@@ -1446,14 +1657,28 @@ def time_exp_kernels():
                 return F.conv2d(cv._affine_silu(x, a, bb).permute(0, 3, 1, 2),
                                 wl, padding=1)
 
+            turns = {"wmma": [], "sm90": []}
+            for route in ("wmma", "sm90", "sm90", "wmma"):
+                turns[route].append(cuda_ms(
+                    lambda: cv.gn_silu_conv3x3_cuda(x, a, bb, w,
+                                                    route=route),
+                    iters=10, reps=3))
+            ms, earlier = (statistics.mean(turns[r]) for r in ("sm90",
+                                                                "wmma"))
+            k5 = next(r["ms"] for r in rows["conv3x3"]
+                      if r["variant"] == "tap9")
             rows["gn_silu_conv3x3"].append(row(
-                f"K4 {conv_label(shape, b)}",
-                cuda_ms(lambda: cv.gn_silu_conv3x3_cuda(x, a, bb, w),
-                        iters=10, reps=3),
+                f"K4 {conv_label(shape, b)}", ms,
                 cuda_ms(lambda: cv.gn_silu_conv3x3_plain(x, a, bb, w),
                         iters=3, reps=3),
                 cuda_ms(unit, iters=10, reps=3),
-                nbytes + 2 * 2 * b * cin, ops + 5 * b * h * h * cin))
+                nbytes + 2 * 2 * b * cin, ops + 5 * b * h * h * cin,
+                earlier_ms=earlier, earlier_runs_ms=turns["wmma"],
+                runs_ms=turns["sm90"], k5_ms=k5, k4_over_k5=ms / k5,
+                tflops=ops / ms / 1e9))
+            log(f"  earlier (WMMA) {earlier * 1e3:.2f} us; K5 on the same "
+                f"conv {k5 * 1e3:.2f} us ({ms / k5:.3f}×); "
+                f"{ops / ms / 1e9:.1f} TFLOP/s")
         del x, w, xl, wl
     x, scale, bias, w, x3, w3 = exp_head_inputs(b, bf16, gen)
     h, c = EXP_HEAD
@@ -1529,6 +1754,8 @@ def experiment_kernels():
                                               0) for v in cv.VARIANTS)
                      for r in cv.ROUTES}
     k3_main = next(r for r in rows["conv3x3"] if r["variant"] == "k3")
+    k4_by_route = {r: launches.get(cv.GN_SILU_CONV3X3_KERNELS[r].name, 0)
+                   for r in cv.ROUTES}
     in_paths = {d: launches.get(k, 0) for d, k in IN_CONV_PATHS.items()}
     entries = [
         exp_entry("conv3x3", cv.CONV3X3_KERNELS["sm90", "tap9"],
@@ -1540,7 +1767,7 @@ def experiment_kernels():
                   earlier_ms=rows["conv3x3"][0]["earlier_ms"],
                   earlier="the WMMA kernel of csrc/conv3x3.cu, timed in "
                           "turns in this run; still the route for other "
-                          "bf16 shapes and for K4",
+                          "bf16 shapes",
                   launches_by_route=by_route,
                   launches_by_variant=by_variant,
                   hold_launches_by_route=hold_by_route,
@@ -1548,10 +1775,22 @@ def experiment_kernels():
                                               "library_ms", "bound_ms",
                                               "bound_by")},
                   library="F.conv2d", grad_max_abs_err_f32=grad_errs),
-        exp_entry("gn_silu_conv3x3", cv.GN_SILU_CONV3X3_KERNEL,
-                  rows["gn_silu_conv3x3"], launches["dmu_gn_silu_conv3x3"],
-                  errs["gn_silu_conv3x3"], conv_work,
-                  conv_route="wmma (WMMA mma.sync), csrc/conv3x3.cu",
+        exp_entry("gn_silu_conv3x3", cv.GN_SILU_CONV3X3_KERNELS["sm90"],
+                  rows["gn_silu_conv3x3"], sum(k4_by_route.values()),
+                  errs["gn_silu_conv3x3"], conv_work + "; ms etc. on the sm90 "
+                  "route, with its K-major weight copy",
+                  conv_route="sm90 (TMA + wgmma, x activated once into a "
+                             "haloed tile), csrc/conv3x3_sm90.cu",
+                  earlier_ms=rows["gn_silu_conv3x3"][0]["earlier_ms"],
+                  earlier="the WMMA kernel of csrc/conv3x3.cu, timed in "
+                          "turns in this run; still the route for other "
+                          "bf16 shapes",
+                  k5_ms=rows["gn_silu_conv3x3"][0]["k5_ms"],
+                  launches_by_route=k4_by_route,
+                  hold_launches_by_route={
+                      r: hold_launches.get(
+                          cv.GN_SILU_CONV3X3_KERNELS[r].name, 0)
+                      for r in cv.ROUTES},
                   library="affine + SiLU, then F.conv2d"),
         exp_entry("out_head", bc.OUT_HEAD_KERNEL, rows["out_head"],
                   launches["dmu_out_head"], errs["out_head"],
@@ -1612,6 +1851,7 @@ def main() -> int:
     errs = hold_kernels(gn_calls, mha_calls)
     hold_edges()
     unet_err = hold_unet(model)
+    unet128 = hold_unet_128(cfg)
 
     serve_model, requests, launches = serve(model, cfg, per_forward)
     del model
@@ -1640,6 +1880,8 @@ def main() -> int:
             "training shape:")
         train_errs = hold_kernels(calls["gn"], calls["mha"])
         step_check = hold_train_step(cfg)
+        log("[hold] second derivatives on the card:")
+        step_check["double_backward"] = hold_double_backward()
         cli = train_cli(len(train_loader))
         train_time = time_training(trainer, batch)
         train_profile = profile_run(lambda: trainer.step(batch), 5,
@@ -1697,6 +1939,7 @@ def main() -> int:
         *exp_entries,
     ]
     summary = {"requests": requests, "unet_max_abs_err": unet_err,
+               "unet128": unet128,
                "profile": profile, "dispatch": dispatch,
                "train_step_check": step_check,
                "train_cli": cli, "train_time": train_time,

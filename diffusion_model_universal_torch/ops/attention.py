@@ -6,9 +6,13 @@ Counterpart of the reference's ``ops/attention.py``:
   f32 softmax, probabilities cast to v's dtype for the product with v.
   The CPU path and the numerics oracle of the kernel.
 * kernel K3 (``csrc/attention.cu``), a hand-written CUDA kernel for
-  Hopper that replaces the TPU kernel ``_mha_kernel``: one block per
-  (batch, head), the whole S×S tile on chip, f32 throughout, stored in
-  q's dtype.
+  Hopper that replaces the TPU kernel ``_mha_kernel``: 16 query rows a
+  warp, keys and values streamed through shared memory in tiles of 64
+  with an online softmax, so every S and D runs; bf16 on the tensor cores
+  (``mma.sync``), f32 on the CUDA cores; stored in q's dtype.
+  :func:`mha_launch_plan` gives its launch, and every number of it is
+  passed to the kernel, which checks the plan and computes none of its
+  own.
 
 :func:`multi_head_attention` routes a CPU tensor to the plain version and
 a CUDA tensor to the kernel. There is no fallback between them. It goes
@@ -21,6 +25,7 @@ no attention backward kernel, so neither has the port.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -33,17 +38,64 @@ _INT = ctypes.c_int
 MHA_KERNEL = Kernel("attention", "dmu_mha_fwd", [
     _VOID, _VOID, _VOID, _VOID, _VOID,      # q, k, v, out, strides
     _INT, _INT, _INT, _INT,                 # B, N, S, D
-    ctypes.c_float, _INT, _VOID,            # scale, is_bf16, stream
+    ctypes.c_float, _INT, _VOID, _VOID,     # scale, is_bf16, plan, stream
 ])
 
 #: Shared memory a block may use on Hopper (232,448 bytes).
 MAX_SMEM_BYTES = 227 * 1024
 
+#: K3's tiling (``csrc/attention.cu``): 4 warps of 16 query rows a block;
+#: two stages of 64 key (or value) rows × 64 columns of D, or 128 columns
+#: in bf16 with four heads a block and D > 64; an output chunk at most 256
+#: columns.
+MHA_WARPS = 4
+MHA_STAGE_ROWS = 64
+MHA_OUT_COLS = 256
 
-def mha_smem_bytes(s: int, d: int) -> int:
-    """Shared memory of one K3 block: f32 Q, K, V with rows padded to
-    D+1, plus the S×S logits."""
-    return 4 * (3 * s * (d + 1) + s * s)
+
+class MHAPlan(NamedTuple):
+    """K3's launch for [B, N, S, D]: ``heads`` (batch, head) pairs a block
+    (4 for S ≤ 16, else 1), ``keys`` keys of each a stage, ``query_rows``
+    rows of each a block, ``blocks`` in the grid. D is walked in
+    ``chunks`` stages of ``cols`` columns for the logits, and the output in
+    ``out_chunks`` chunks of ``outs`` stages of v (cols·outs ≤ 256
+    columns; the logits are recomputed for each further chunk). ``units``
+    stage fills a block, ``smem_bytes`` of static shared memory."""
+    heads: int
+    cols: int
+    keys: int
+    query_rows: int
+    key_tiles: int
+    q_tiles: int
+    blocks: int
+    chunks: int
+    outs: int
+    out_chunks: int
+    units: int
+    smem_bytes: int
+
+
+def mha_launch_plan(b: int, n: int, s: int, d: int,
+                    dtype: torch.dtype = torch.bfloat16) -> MHAPlan:
+    """The launch ``csrc/attention.cu`` makes for these sizes; every S ≥ 1
+    and D ≥ 1 has one (shared memory does not grow with either)."""
+    if min(b, n, s, d) <= 0:
+        raise ValueError(f"B, N, S and D must be positive, got "
+                         f"{(b, n, s, d)}")
+    heads = 4 if s <= 16 else 1
+    bf16 = dtype == torch.bfloat16
+    cols = 128 if bf16 and heads == 4 and d > 64 else 64
+    keys = MHA_STAGE_ROWS // heads
+    rows = 16 * MHA_WARPS // heads
+    key_tiles, q_tiles = -(-s // keys), -(-s // rows)
+    chunks = -(-d // cols)
+    outs = min(chunks, MHA_OUT_COLS // cols)
+    out_chunks = -(-chunks // outs)
+    row_bytes = (cols + 8) * 2 if bf16 else (cols + 4) * 4
+    return MHAPlan(heads, cols, keys, rows, key_tiles, q_tiles,
+                   -(-(b * n) // heads) * q_tiles, chunks, outs, out_chunks,
+                   out_chunks * key_tiles * (chunks + outs),
+                   2 * MHA_STAGE_ROWS * row_bytes)
 
 
 def mha_plain(q: torch.Tensor, k: torch.Tensor,
@@ -81,19 +133,22 @@ def mha_cuda(q: torch.Tensor, k: torch.Tensor,
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("q, k and v need unit stride on the head dim")
     b, n, s, d = q.shape
-    if mha_smem_bytes(s, d) > MAX_SMEM_BYTES:
-        raise ValueError(f"S={s}, D={d} needs {mha_smem_bytes(s, d)} bytes "
-                         f"of shared memory; K3 holds at most "
-                         f"{MAX_SMEM_BYTES}")
     out = torch.empty((b, s, n, d), dtype=q.dtype,
                       device=q.device).permute(0, 2, 1, 3)
     if out.numel() == 0:
         return out
     strides = (ctypes.c_longlong * 12)(
         *(st for t in (q, k, v, out) for st in t.stride()[:3]))
+    plan = mha_launch_plan(b, n, s, d, q.dtype)
+    if plan.blocks > 2 ** 31 - 1:
+        raise ValueError(f"[B, N, S, D] = {(b, n, s, d)} needs "
+                         f"{plan.blocks} blocks, more than a grid holds")
+    launch = (ctypes.c_int * 8)(plan.heads, plan.cols, plan.chunks,
+                                plan.outs, plan.key_tiles, plan.q_tiles,
+                                plan.units, plan.blocks)
     MHA_KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                ctypes.cast(strides, _VOID), b, n, s, d, float(d ** -0.5),
-               int(q.dtype == torch.bfloat16),
+               int(q.dtype == torch.bfloat16), ctypes.cast(launch, _VOID),
                torch.cuda.current_stream(q.device).cuda_stream)
     return out
 
@@ -108,7 +163,8 @@ def _mha_fwd(q: torch.Tensor, k: torch.Tensor,
 
 class MHAFunction(torch.autograd.Function):
     """Forward through K3 (plain on the CPU); backward by autograd through
-    :func:`mha_plain` recomputed from the saved q, k, v."""
+    :func:`mha_plain` recomputed from the saved q, k, v, itself
+    differentiable (grad-of-grad goes through the plain version)."""
 
     @staticmethod
     def forward(ctx, q, k, v):
@@ -117,10 +173,19 @@ class MHAFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+        # The saved tensors are not detached, and the gradient is taken
+        # with a graph when the caller asked for one (create_graph), so a
+        # second derivative flows through mha_plain, as the reference's
+        # ``_mha_bwd`` (``jax.vjp`` of ``mha_xla``) is differentiated again.
+        create_graph = torch.is_grad_enabled()
+        saved = ctx.saved_tensors
+        wanted = [t for t, need in zip(saved, ctx.needs_input_grad) if need]
         with torch.enable_grad():
-            out = mha_plain(q, k, v)
-        return torch.autograd.grad(out, (q, k, v), grad)
+            out = mha_plain(*saved)
+        grads = iter(torch.autograd.grad(out, wanted, grad,
+                                         create_graph=create_graph))
+        return tuple(next(grads) if need else None
+                     for need in ctx.needs_input_grad)
 
 
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor,

@@ -15,8 +15,14 @@ Counterpart of the reference's ``scripts/exp_conv_kernel.py``:
   ``mma.sync``; every other bf16 shape) and ``"f32"`` (same file, CUDA
   cores in full f32). Each route and K order has its own launch count.
 * :func:`gn_silu_conv3x3_plain` — ``silu(x·a + b)`` in x's dtype, then
-  the tap9 conv; the oracle of kernel K4 (same source), which replaces
-  ``_kernel_fused``; K4 always takes the WMMA kernel.
+  the tap9 conv; the oracle of kernel K4, which replaces
+  ``_kernel_fused``, on three routes that :func:`gn_silu_conv3x3_route`
+  picks: ``"sm90"`` (``csrc/conv3x3_sm90.cu``: K5's TMA + ``wgmma``
+  pipeline with each element of x activated once into a haloed tile in
+  shared memory, the 9 taps read from it; bf16 shapes of K5's sm90 route
+  with one image a tile and W ≤ 32), ``"wmma"`` (``csrc/conv3x3.cu``, the
+  activation applied on each tap load; other bf16 shapes) and ``"f32"``
+  (same file, CUDA cores). Each route has its own launch count.
 * :func:`conv3x3_conv2d` and :func:`gn_silu_conv3x3_conv2d` — one
   ``F.conv2d`` on a channels-last view, ports of ``conv3x3_xla`` and
   ``gn_silu_conv3x3_xla``. They are the experiment CLI's baseline and the
@@ -37,6 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from ._build import Kernel
+from .attention import MAX_SMEM_BYTES
 
 _VOID = ctypes.c_void_p
 _INT = ctypes.c_int
@@ -69,12 +76,30 @@ CONV3X3_KERNELS = {
 SM90_TILE = 256
 SM90_BK = 64
 SM90_BN = 128
-#: Kernel K4; ``GN_SILU_CONV3X3_KERNEL.launches`` counts its launches.
-GN_SILU_CONV3X3_KERNEL = Kernel("conv3x3", "dmu_gn_silu_conv3x3", [
+_GN_ARGS = [
     _VOID, _VOID, _VOID, _VOID, _VOID,      # x, a, b, w, out
     _INT, _INT, _INT, _INT, _INT,           # B, H, W, Cin, Cout
     _INT, _VOID,                            # is_bf16, stream
-])
+]
+_GN_SM90_ARGS = [
+    _VOID, _VOID, _VOID, _VOID, _VOID,      # x, a, b, K-major w, out
+    _INT, _INT, _INT, _INT, _INT,           # B, H, W, Cin, Cout
+    _INT, _INT, _VOID,                      # rows a tile, shared bytes,
+]                                           # stream
+#: Kernel K4 by route; ``GN_SILU_CONV3X3_KERNELS[r].launches`` counts the
+#: launches of route r. The WMMA and f32 routes are two dtypes of one C
+#: symbol, counted apart.
+GN_SILU_CONV3X3_KERNELS = {
+    "sm90": Kernel("conv3x3_sm90", "dmu_gn_silu_conv3x3_sm90",
+                   _GN_SM90_ARGS),
+    **{r: Kernel("conv3x3", "dmu_gn_silu_conv3x3", _GN_ARGS,
+                 name=f"dmu_gn_silu_conv3x3[{r}]") for r in ("wmma", "f32")},
+}
+#: K4's sm90 route: a 3-stage weight ring, the epilogue boxes, the raw x
+#: tile of R + 2 rows and two activated tiles of (R + 2) × (W + 2) pixels
+#: of 144 bytes (``csrc/conv3x3_sm90.cu::gn_smem_bytes``).
+GN_SM90_STAGES = 3
+GN_SM90_PIXEL_BYTES = 144
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -190,6 +215,40 @@ def conv3x3_route(x_shape, w_shape, dtype: torch.dtype) -> Conv3x3Route:
     return Conv3x3Route("wmma")
 
 
+def gn_sm90_smem_bytes(wd: int, rows: int) -> int:
+    """Shared memory of K4's sm90 route for tiles of ``rows`` rows of
+    ``wd`` pixels (with 1024 bytes of alignment slack). It is passed to the
+    kernel, which refuses a launch whose size differs from its layout's."""
+    return (1024 + GN_SM90_STAGES * SM90_BN * SM90_BK * 2
+            + 2 * 2 * 64 * 64 * 2 + (rows + 2) * wd * 128
+            + 2 * (rows + 2) * (wd + 2) * GN_SM90_PIXEL_BYTES + 12 * 8)
+
+
+def gn_silu_conv3x3_route(x_shape, w_shape, dtype: torch.dtype
+                          ) -> Conv3x3Route:
+    """Which kernel K4 runs: ``"sm90"`` for the shapes K5's sm90 route
+    takes with one image a tile (H·W ≥ 256), W ≥ 4 and the route's shared
+    memory (:func:`gn_sm90_smem_bytes`) within 227 KB, which holds for
+    W of 4 to 32; else ``"wmma"`` for bf16 and ``"f32"`` for float32.
+    Raises ValueError as :func:`conv3x3_route` does."""
+    k5 = conv3x3_route(x_shape, w_shape, dtype)
+    wd = int(x_shape[2])
+    if (k5.name == "sm90" and k5.images == 1 and wd >= 4
+            and gn_sm90_smem_bytes(wd, k5.rows) <= MAX_SMEM_BYTES):
+        return k5
+    return Conv3x3Route("f32" if k5.name == "f32" else "wmma")
+
+
+def gn_sm90_tap_pixel(m: int, tap: int, wd: int) -> int:
+    """The pixel of K4's activated tile (rows of W + 2 pixels, the first
+    and last column the zero halo) that the sm90 route's A fragments read
+    for output pixel ``m`` of an M tile at tap ``tap`` = 3·ky + kx:
+    (m // W + ky, m % W + kx). ``csrc/conv3x3_sm90.cu`` computes the same
+    in bytes (× 144); the CPU tests walk it."""
+    ky, kx = divmod(tap, 3)
+    return (m // wd + ky) * (wd + 2) + m % wd + kx
+
+
 def sm90_box(m0: int, k_step: int, h: int, wd: int, cin: int):
     """The coordinates (c0, x0, y0, b0) at which the sm90 route's producer
     loads x's box [images, rows, W, 64] for the M tile starting at pixel
@@ -254,22 +313,38 @@ def conv3x3_cuda(x: torch.Tensor, w: torch.Tensor, variant: str = "tap9",
 
 
 def gn_silu_conv3x3_cuda(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
-                         w: torch.Tensor) -> torch.Tensor:
-    """Launch kernel K4; a, b are [B, Cin], cast to x's dtype here."""
+                         w: torch.Tensor, route: str = "") -> torch.Tensor:
+    """Launch kernel K4 on the route :func:`gn_silu_conv3x3_route` picks;
+    a, b are [B, Cin], cast to x's dtype here. ``route="wmma"`` runs a bf16
+    shape on the WMMA kernel instead (to time it beside the sm90 route);
+    any other choice than the router's raises ValueError."""
     check_conv_shapes(x, w)
     bsz, h, wd, c, is_bf16, stream = _kernel_args(x, "gn_silu_conv3x3_cuda")
     for name, t in (("a", a), ("b", b)):
         if tuple(t.shape) != (bsz, c) or t.device != x.device:
             raise ValueError(f"{name} must be [{bsz}, {c}] on {x.device}, "
                              f"got {tuple(t.shape)} on {t.device}")
+    picked = gn_silu_conv3x3_route(x.shape, w.shape, x.dtype)
+    if route and route != picked.name and not (route == "wmma" and is_bf16):
+        raise ValueError(f"route {route!r} does not take this call "
+                         f"(the router picks {picked.name!r})")
+    route = route or picked.name
     x, w = x.contiguous(), w.contiguous()
     a = a.to(x.dtype).contiguous()
     b = b.to(x.dtype).contiguous()
-    out = x.new_empty((bsz, h, wd, w.shape[-1]))
-    if out.numel():
-        GN_SILU_CONV3X3_KERNEL(x.data_ptr(), a.data_ptr(), b.data_ptr(),
-                               w.data_ptr(), out.data_ptr(), bsz, h, wd, c,
-                               w.shape[-1], is_bf16, stream)
+    cout = w.shape[-1]
+    out = x.new_empty((bsz, h, wd, cout))
+    if not out.numel():
+        return out
+    kernel = GN_SILU_CONV3X3_KERNELS[route]
+    if route == "sm90":
+        wk = kmajor_weight(w)
+        kernel(x.data_ptr(), a.data_ptr(), b.data_ptr(), wk.data_ptr(),
+               out.data_ptr(), bsz, h, wd, c, cout, picked.rows,
+               gn_sm90_smem_bytes(wd, picked.rows), stream)
+    else:
+        kernel(x.data_ptr(), a.data_ptr(), b.data_ptr(), w.data_ptr(),
+               out.data_ptr(), bsz, h, wd, c, cout, is_bf16, stream)
     return out
 
 

@@ -537,7 +537,11 @@ def _gn_bwd(x, scale, bias, time_bias, dy, num_groups, eps, apply_silu):
 class GroupNormSiLUFunction(torch.autograd.Function):
     """The differentiable op: forward K1 and backward K2 on CUDA, the two
     plain versions on the CPU. Saves the inputs, not the statistics: the
-    backward recomputes them from x, as the reference's ``custom_vjp``."""
+    backward recomputes them from x, as the reference's ``custom_vjp``.
+    On the CPU the plain backward is itself differentiable; on CUDA a
+    backward asked for a graph (``create_graph=True``) raises, because K2
+    records none (the reference never differentiates its Pallas K2 twice
+    either: ``EnergyNet`` calls the XLA version)."""
 
     @staticmethod
     def forward(ctx, x, scale, bias, time_bias, num_groups, eps,
@@ -551,6 +555,16 @@ class GroupNormSiLUFunction(torch.autograd.Function):
     def backward(ctx, dy):
         x, scale, bias, time_bias = ctx.saved_tensors
         num_groups, eps, apply_silu = ctx.args
+        if (x.device.type != "cpu" and torch.is_grad_enabled()
+                and any(t is not None and t.requires_grad
+                        for t in (x, scale, bias, time_bias, dy))):
+            # K2 computes outside autograd: its gradients would carry no
+            # graph, and a second derivative would be silently wrong.
+            raise RuntimeError(
+                "group_norm_silu on CUDA has no second derivative: its "
+                "backward (kernel K2) records no graph. Differentiate "
+                "group_norm_silu_plain instead where a graph of the "
+                "backward is needed (create_graph=True)")
         dx, dscale, dbias, dtb = _gn_bwd(x, scale, bias, time_bias, dy,
                                          num_groups, eps, apply_silu)
         if dtb is not None:

@@ -2,13 +2,16 @@
 ``scripts/generate.py``, the ancestral-sampler slice).
 
     python -m diffusion_model_universal_torch.scripts.generate \
-        --config diffusion_model_universal_tpu/configs/ddpm_config.yaml \
+        --config diffusion_model_universal_torch/configs/ddpm_config.yaml \
         --model_type ddpm --checkpoint path/to/model.ckpt \
         [--num_samples N] [--output_dir D] [--device cuda|cpu]
 
 Runs on ``cuda`` unless ``--device cpu`` is given. Reads the model-only
 checkpoint that either package writes, or a trainer checkpoint directory
-of the port (``--ema`` picks its EMA weights).
+of the port (``--ema`` picks its EMA weights). A request whose estimated
+footprint exceeds the card's budget is drawn in equal chunks, each from
+its own generator, or refused (``utils/memory.py``); the CPU has no
+budget unless ``DMU_SAMPLER_HBM_BYTES`` sets one.
 """
 
 from __future__ import annotations
@@ -87,6 +90,34 @@ def load_params(model, path: str, use_ema: bool) -> None:
     model.net.load_state_dict(weights, strict=True)
 
 
+def chunk_seed(seed: int, index: int) -> int:
+    """Seed of chunk ``index``'s generator when a request is split into
+    chunks: a fixed mix of ``seed`` and ``index`` (the counterpart of the
+    reference's ``jax.random.fold_in(key, index)``)."""
+    return (seed * 0x9E3779B97F4A7C15 + index + 1) % (1 << 63)
+
+
+def plan_chunks(num_samples: int, model, model_cfg: dict):
+    """``(chunk, n_chunks)`` for a request of ``num_samples`` on
+    ``model``'s device, from the memory preflight
+    (``utils/memory.py``); exits with the planner's message when even one
+    sample does not fit."""
+    from ..utils.memory import (SamplerMemoryError, device_memory_budget,
+                                plan_sampler_chunks)
+    try:
+        return plan_sampler_chunks(
+            num_samples,
+            image_size=int(model_cfg.get("image_size", 32)),
+            model_channels=int(model_cfg.get("model_channels", 64)),
+            in_channels=int(model_cfg.get("in_channels", 3)),
+            dtype_bytes=model.compute_dtype.itemsize,
+            params_bytes=sum(p.numel() * p.element_size()
+                             for p in model.net.parameters()),
+            budget_bytes=device_memory_budget(model.device))
+    except SamplerMemoryError as e:
+        raise SystemExit(f"--num_samples {num_samples}: {e}")
+
+
 def check_ported(args) -> None:
     """Raise SystemExit for options this package does not run yet."""
     if args.model_type != "ddpm":
@@ -117,9 +148,23 @@ def main(argv=None) -> int:
     model = MODEL_REGISTRY[args.model_type](model_cfg, device=args.device)
     load_params(model, args.checkpoint, args.ema)
 
-    gen = torch.Generator(device=model.device).manual_seed(args.seed)
-    samples = model.generate_samples(args.num_samples,
-                                     generator=gen).cpu().numpy()
+    chunk, n_chunks = plan_chunks(args.num_samples, model, model_cfg)
+    if n_chunks == 1:
+        gen = torch.Generator(device=model.device).manual_seed(args.seed)
+        samples = model.generate_samples(args.num_samples,
+                                         generator=gen).cpu().numpy()
+    else:
+        print(f"Memory preflight: {args.num_samples} samples split into "
+              f"{n_chunks} chunks of {chunk} (estimated footprint exceeds "
+              f"the device budget; set DMU_SAMPLER_HBM_BYTES to override)",
+              flush=True)
+        parts = []
+        for ci in range(n_chunks):
+            n = min(chunk, args.num_samples - ci * chunk)
+            gen = torch.Generator(device=model.device).manual_seed(
+                chunk_seed(args.seed, ci))
+            parts.append(model.generate_samples(n, generator=gen).cpu())
+        samples = torch.cat(parts).numpy()
     out = Path(args.output_dir)
     out.mkdir(parents=True, exist_ok=True)
     if not args.grid_only:

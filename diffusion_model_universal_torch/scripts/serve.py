@@ -21,7 +21,7 @@ Endpoints:
 
 Usage:
     python -m diffusion_model_universal_torch.scripts.serve \
-        --config diffusion_model_universal_tpu/configs/ddpm_config.yaml \
+        --config diffusion_model_universal_torch/configs/ddpm_config.yaml \
         --model_type ddpm --checkpoint model.ckpt --port 8000 --device cuda
 """
 

@@ -2,7 +2,7 @@
 ``scripts/train.py``).
 
     python -m diffusion_model_universal_torch.scripts.train \
-        --config diffusion_model_universal_tpu/configs/ddpm_config.yaml \
+        --config diffusion_model_universal_torch/configs/ddpm_config.yaml \
         --model_type ddpm [--resume latest|NAME] [--eval_only] [--seed N] \
         [--device cuda|cpu]
 

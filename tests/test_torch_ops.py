@@ -215,8 +215,11 @@ def test_kernel_wrappers_refuse_what_the_kernels_cannot_take():
         gn_ops.group_norm_silu_bwd_cuda(x, w, w, None, x, 8)
     with pytest.raises(ValueError, match="CUDA"):
         attn_ops.mha_cuda(x, x, x)
-    assert attn_ops.mha_smem_bytes(64, 128) <= attn_ops.MAX_SMEM_BYTES
-    assert attn_ops.mha_smem_bytes(128, 128) > attn_ops.MAX_SMEM_BYTES
+    # K3 tiles over the keys: the shape the earlier kernel refused (S=128,
+    # D=128) and the 128² UNet's S=256 have a plan within the shared memory.
+    for s, d in ((64, 128), (128, 128), (256, 64), (4096, 1024)):
+        plan = attn_ops.mha_launch_plan(2, 4, s, d, torch.bfloat16)
+        assert plan.smem_bytes <= attn_ops.MAX_SMEM_BYTES
 
 
 def test_kernel_build_names_sources_and_raises_without_nvcc(monkeypatch,
