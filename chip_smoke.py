@@ -63,14 +63,21 @@ Then the experiment CLIs' kernels (``scripts/exp_conv_kernel.py`` and
     on the CUDA cores) and at batch-packed edge shapes (bf16 on the WMMA
     route), and K4 (fused affine+SiLU→conv; bf16 at 32² and on the CLI's
     --check inputs on its TMA + wgmma route, at 8²·256→256 on WMMA, f32 on
-    the CUDA cores), checking each call's route by its launch counts, and
-    K6 (out-head) and K7 (in-conv; bf16 on the tensor cores, f32 on the
-    CUDA cores) at 32², C=128, each against its plain version; checks
-    refusals and ``Conv3x3Function``'s gradients; runs both CLIs'
-    ``--check`` and ``--bench`` as subprocesses, each of which must launch
-    every kernel it covers; and times the four kernels at their bench
-    shapes beside their plain versions, ``F.conv2d`` and their bounds, K5
-    and K4 in turns with their earlier WMMA kernel.
+    the CUDA cores), checking each call's route by its launch counts;
+    K6 (out-head) on each of its routes at ``K6_HOLDS`` (the bench shape,
+    the CLI's --check inputs, MNIST's 28²·64→1, a 1 MB sample, C=512 and
+    2048, G=16, B=1, Cout 2 and 6; bf16 on the cluster + tensor-core
+    route, bf16 shapes it does not take on the CUDA-core kernel, f32 on
+    that kernel; every template instance of both kernels), checking each
+    call's route; and K7 (in-conv; bf16 on the
+    tensor cores, f32 on the CUDA cores) at 32², C=128, each against its
+    plain version; checks refusals and ``Conv3x3Function``'s gradients;
+    runs both CLIs' ``--check`` and ``--bench`` as subprocesses, each of
+    which must launch every kernel it covers; and times the four kernels
+    at their bench shapes beside their plain versions, ``F.conv2d`` and
+    their bounds, K5 and K4 in turns with their earlier WMMA kernel, K6 in
+    turns with its CUDA-core kernel (also at 64²·128→3, B=256, and
+    28²·64→1, B=2048).
 
 The last three lines of standard output are the ``kernels`` JSON line
 (all seven kernels),
@@ -1286,8 +1293,8 @@ EXP_REPLACES = {
 }
 #: The kernels (launch-count names) each experiment CLI run must launch:
 #: the conv CLI's bf16 shapes take K5's and K4's sm90 routes; the boundary
-#: CLI's f32 --check takes K7's CUDA-core path, its bf16 --bench the
-#: tensor-core one.
+#: CLI's f32 --check takes K6's and K7's CUDA-core paths, its bf16 --bench
+#: K6's sm90 route and K7's tensor-core path.
 EXP_SYMBOLS = {
     ("exp_conv_kernel", "--check"): ("dmu_conv3x3_sm90_tap9",
                                      "dmu_conv3x3_sm90_k3",
@@ -1295,8 +1302,9 @@ EXP_SYMBOLS = {
     ("exp_conv_kernel", "--bench"): ("dmu_conv3x3_sm90_tap9",
                                      "dmu_conv3x3_sm90_k3",
                                      "dmu_gn_silu_conv3x3_sm90"),
-    ("exp_boundary_kernel", "--check"): ("dmu_out_head", "dmu_in_conv"),
-    ("exp_boundary_kernel", "--bench"): ("dmu_out_head", "dmu_in_conv_mma"),
+    ("exp_boundary_kernel", "--check"): ("dmu_out_head[f32]", "dmu_in_conv"),
+    ("exp_boundary_kernel", "--bench"): ("dmu_out_head_sm90",
+                                         "dmu_in_conv_mma"),
 }
 #: K7's launch-count name by path.
 IN_CONV_PATHS = {"bfloat16": "dmu_in_conv_mma", "float32": "dmu_in_conv"}
@@ -1326,11 +1334,52 @@ def exp_affine(batch, cin, dtype, gen):
     return a.to(dtype), b.to(dtype)
 
 
-def exp_head_inputs(batch, dtype, gen):
-    """K6's x [B, 32, 32, 128], scale, bias [128] (f32), w [3, 3, 128, 3];
-    K7's x3 [B, 32, 32, 3] and w3 [3, 3, 3, 128]."""
+def exp_in_conv_inputs(batch, dtype, gen):
+    """K7's x3 [B, 32, 32, 3] and w3 [3, 3, 3, 128]."""
     import torch
     h, c = EXP_HEAD
+    x3 = torch.randn((batch, h, h, 3), generator=gen, device=DEVICE)
+    w3 = torch.randn((3, 3, 3, c), generator=gen, device=DEVICE) * (
+        1.0 / 27) ** 0.5
+    return x3.to(dtype), w3.to(dtype)
+
+
+#: K6's calls held in phase 10a, (B, H, C, G, Cout, dtype, route) on
+#: square images: the bench shape, MNIST's head (W=28 fills no m16 tile
+#: evenly), heads with learn_sigma (Cout 2 and 6), a 1 MB sample, wide C,
+#: G=16, B=1, bf16 shapes the sm90 route does not take, and every template
+#: instance of both kernels (the sm90 kernel's n-tiles × m16 tiles a warp,
+#: the CUDA-core kernel's Cout 1–7 in both dtypes).
+#: tests/test_torch_out_head_plan.py checks the same routes and that every
+#: instance is held, on the CPU.
+K6_HOLDS = [
+    (EXP_BATCH, 32, 128, 32, 3, "bfloat16", "sm90"),
+    (EXP_F32_BATCH, 32, 128, 32, 3, "float32", "f32"),
+    (256, 28, 64, 32, 1, "bfloat16", "sm90"),
+    (EXP_F32_BATCH, 28, 64, 32, 1, "float32", "f32"),
+    (16, 28, 64, 32, 2, "bfloat16", "sm90"),
+    (256, 64, 128, 32, 3, "bfloat16", "sm90"),
+    (64, 8, 512, 32, 3, "bfloat16", "sm90"),
+    (4, 2, 2048, 32, 3, "bfloat16", "sm90"),
+    (64, 32, 128, 16, 3, "bfloat16", "sm90"),
+    (1, 32, 128, 32, 3, "bfloat16", "sm90"),
+    (8, 32, 128, 32, 6, "bfloat16", "sm90"),
+    (4, 16, 64, 32, 1, "bfloat16", "sm90"),    # Cout 1, one m16 tile a warp
+    (8, 16, 96, 32, 3, "bfloat16", "simt"),    # C not a multiple of 64
+    (4, 64, 256, 32, 3, "bfloat16", "simt"),   # no 8-block cluster holds it
+    *[(2, 8, 96, 32, cout, dname, route) for cout in range(1, 8)
+      for dname, route in (("bfloat16", "simt"), ("float32", "f32"))],
+]
+#: K6's timed shapes (B, H, C, Cout), bf16, G=32: the sm90 route and the
+#: CUDA-core kernel in turns.
+K6_TIMES = [(EXP_BATCH, 32, 128, 3), (256, 64, 128, 3),
+            (EXP_BATCH, 28, 64, 1)]
+
+
+def k6_inputs(batch, h, c, cout, dtype, gen):
+    """K6's x [B, H, H, C], scale, bias [C] (f32) and w [3, 3, C, Cout]
+    scaled so that the outputs are ~ N(0, 1)."""
+    import torch
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=DEVICE)
@@ -1338,10 +1387,42 @@ def exp_head_inputs(batch, dtype, gen):
     x = (randn(batch, h, h, c) * 0.5 + 0.3).to(dtype)
     scale = randn(c) * 0.2 + 1.0
     bias = randn(c) * 0.1
-    w = (randn(3, 3, c, 3) * (1.0 / (9 * c)) ** 0.5).to(dtype)
-    x3 = randn(batch, h, h, 3).to(dtype)
-    w3 = (randn(3, 3, 3, c) * (1.0 / 27) ** 0.5).to(dtype)
-    return x, scale, bias, w, x3, w3
+    w = (randn(3, 3, c, cout) * (1.0 / (9 * c)) ** 0.5).to(dtype)
+    return x, scale, bias, w
+
+
+def k6_label(batch, h, c, g, cout) -> str:
+    return f"B{batch} {h}² {c}→{cout} G{g}"
+
+
+def k6_route_launches():
+    """K6's launches so far in this process, by route."""
+    from diffusion_model_universal_torch.ops import boundary_conv as bc
+    return {r: bc.OUT_HEAD_KERNELS[r].launches for r in bc.OUT_HEAD_ROUTES}
+
+
+def hold_k6(x, scale, bias, w, groups, route, what, force=""):
+    """K6 on x against its plain version within TOL; checks that the call
+    launched the kernel of ``route`` once and no other (``force`` asks the
+    wrapper for a route), and logs the sm90 route's launch plan once per
+    shape. Returns max abs error."""
+    import torch
+    from diffusion_model_universal_torch.ops import boundary_conv as bc
+    dname = str(x.dtype).removeprefix("torch.")
+    if route == "sm90":
+        plan = bc.out_head_launch_plan(*x.shape, groups, w.shape[-1])
+        if (x.shape, plan) not in LOGGED_PLANS:
+            LOGGED_PLANS.add((x.shape, plan))
+            log(f"  K6 {dname} {what} plan: {plan.describe()}")
+    before = k6_route_launches()
+    got = bc.out_head_cuda(x, scale, bias, w, groups, route=force)
+    want = bc.out_head_plain(x, scale, bias, w, groups)
+    torch.cuda.synchronize()
+    after = k6_route_launches()
+    check(all(after[r] - before[r] == (r == route) for r in after),
+          f"K6 {what}: launches by route moved {before} -> {after}, "
+          f"expected one {route} launch")
+    return hold(f"K6 {dname} {what} ({route})", got, want, TOL[dname])
 
 
 def k5_route_launches():
@@ -1401,14 +1482,15 @@ K4_WMMA_SHAPE, K4_WMMA_BATCH = (8, 256, 256), 256
 def hold_exp_kernels():
     """Phase 10a: K5 in both K orders at the six bench.py shapes (bf16 at
     B=2048 on the sm90 route, f32 at B=16 on the CUDA cores) and the three
-    edge shapes (B=32, both dtypes; bf16 on the WMMA route); K4, K6 and K7
-    at 32², C=128 in both dtypes; each kernel on the inputs the experiment
-    CLIs' ``--check`` builds (K4, K5 at B=4, 16², 128→128 bf16; K6, K7 at
-    B=4, 16², C=128 f32); and K4 at K4_WMMA_SHAPE. Each against its plain
-    version within TOL, and each K4, K5 and K7 call checked to have
-    launched the route or path its shapes and dtype call for. Returns max
-    abs errors by kernel, keyed by (case, dtype), and the launches of this
-    phase by name."""
+    edge shapes (B=32, both dtypes; bf16 on the WMMA route); K4 and K7 at
+    32², C=128 in both dtypes; K6 at ``K6_HOLDS`` on each of its routes
+    (and its CUDA-core kernel asked for at 64²·128→3); each kernel on the
+    inputs the experiment CLIs' ``--check`` builds (K4, K5 at B=4, 16²,
+    128→128 bf16; K6, K7 at B=4, 16², C=128 f32, K6 also in bf16); and K4
+    at K4_WMMA_SHAPE. Each against its plain version within TOL, and each
+    K4–K7 call checked to have launched the route or path its shapes and
+    dtype call for. Returns max abs errors by kernel, keyed by (case,
+    dtype), and the launches of this phase by name."""
     import torch
     from diffusion_model_universal_torch.ops import _build
     from diffusion_model_universal_torch.ops import boundary_conv as bc
@@ -1438,13 +1520,7 @@ def hold_exp_kernels():
         label = conv_label(shape, batch)
         errs["gn_silu_conv3x3"][(label, dname)] = hold_k4(
             x, a, b, w, "sm90" if dname == "bfloat16" else "f32", label)
-        x, scale, bias, w, x3, w3 = exp_head_inputs(batch, dtype, gen)
-        got = bc.out_head_cuda(x, scale, bias, w)
-        want = bc.out_head_plain(x, scale, bias, w)
-        torch.cuda.synchronize()
-        label = f"B{batch} 32² 128→3 G32"
-        errs["out_head"][(label, dname)] = hold(
-            f"K6 {dname} {label}", got, want, TOL[dname])
+        x3, w3 = exp_in_conv_inputs(batch, dtype, gen)
         path = _build.KERNELS[IN_CONV_PATHS[dname]]
         before = path.launches
         got, want = bc.in_conv_cuda(x3, w3), bc.in_conv_plain(x3, w3)
@@ -1455,6 +1531,17 @@ def hold_exp_kernels():
         errs["in_conv"][(label, dname)] = hold(
             f"K7 {dname} {label}", got, want, TOL[dname])
         del x, w, a, b, got, want, x3, w3
+    for batch, h, c, g, cout, dname, route in K6_HOLDS:
+        x, scale, bias, w = k6_inputs(batch, h, c, cout,
+                                      getattr(torch, dname), gen)
+        label = k6_label(batch, h, c, g, cout)
+        errs["out_head"][(label, dname)] = hold_k6(x, scale, bias, w, g,
+                                                   route, label)
+        if (batch, h, c, cout) == (256, 64, 128, 3):
+            label += " (the CUDA-core kernel, asked for)"
+            errs["out_head"][(label, dname)] = hold_k6(
+                x, scale, bias, w, g, "simt", label, force="simt")
+        del x, w
     x, w, a, b = exp_conv_kernel.check_inputs(DEVICE)
     dname = str(x.dtype).removeprefix("torch.")
     label = (f"{conv_label(exp_conv_kernel.CHECK_SHAPE, x.shape[0])} "
@@ -1472,16 +1559,16 @@ def hold_exp_kernels():
     x, w, scale, bias, x3, w3 = exp_boundary_kernel.check_inputs(DEVICE)
     dname = str(x.dtype).removeprefix("torch.")
     b, h, _, c = x.shape
-    for name, kernel, got, want in [
-            ("out_head", "K6", bc.out_head_cuda(x, scale, bias, w),
-             bc.out_head_plain(x, scale, bias, w)),
-            ("in_conv", "K7", bc.in_conv_cuda(x3, w3),
-             bc.in_conv_plain(x3, w3))]:
-        torch.cuda.synchronize()
-        label = (f"B{b} {h}² {c}→3 G32" if name == "out_head"
-                 else f"B{b} {h}² 3→{c}") + " (CLI check)"
-        errs[name][(label, dname)] = hold(f"{kernel} {dname} {label}", got,
-                                          want, TOL[dname])
+    label = f"{k6_label(b, h, c, 32, 3)} (CLI check)"
+    errs["out_head"][(label, dname)] = hold_k6(x, scale, bias, w, 32, "f32",
+                                               label)
+    errs["out_head"][(label, "bfloat16")] = hold_k6(
+        x.bfloat16(), scale, bias, w.bfloat16(), 32, "sm90", label)
+    got, want = bc.in_conv_cuda(x3, w3), bc.in_conv_plain(x3, w3)
+    torch.cuda.synchronize()
+    label = f"B{b} {h}² 3→{c} (CLI check)"
+    errs["in_conv"][(label, dname)] = hold(f"K7 {dname} {label}", got, want,
+                                           TOL[dname])
     end = _build.launch_counts()
     moved = {k: end[k] - start.get(k, 0) for k in end
              if end[k] != start.get(k, 0)}
@@ -1511,8 +1598,11 @@ def exp_refusals():
                                                             w12)),
             ("the sm90 route for 2², 32→32 (K4)", lambda:
              cv.gn_silu_conv3x3_cuda(x32, a32, a32, w32, route="sm90")),
-            ("Cout=4 out head (K6)", lambda: bc.out_head_cuda(
-                xh, s, s, torch.zeros((3, 3, 64, 4), **z))),
+            ("Cout=8 out head (K6)", lambda: bc.out_head_cuda(
+                xh, s, s, torch.zeros((3, 3, 64, 8), **z))),
+            ("the sm90 route for f32 (K6)", lambda: bc.out_head_cuda(
+                xh.float(), s, s, torch.zeros((3, 3, 64, 3), device=DEVICE),
+                route="sm90")),
             ("Cout=12 (K7)", lambda: bc.in_conv_cuda(
                 x3, torch.zeros((3, 3, 3, 12), **z)))]:
         try:
@@ -1594,14 +1684,15 @@ def exp_clis():
 
 def time_exp_kernels():
     """Phase 10e: each experiment kernel at its bench shape in bf16 (B=2048;
-    K5 at all six bench.py shapes, both K orders): kernel, plain, library
-    and bound ms. The library call is F.conv2d on channels-last views with
-    the weight laid out once beforehand; for K4 the affine and SiLU first,
-    for K6 F.group_norm and F.silu first. K5 and K4 are timed in turns
-    with their earlier WMMA kernel on the same inputs (earlier, sm90,
-    sm90, earlier; each time the mean of its two runs), their ``ms``
-    including the K-major weight copy their wrapper makes; K4's row also
-    carries K5's time on the same conv."""
+    K5 at all six bench.py shapes, both K orders; K6 also at the other
+    ``K6_TIMES``): kernel, plain, library and bound ms. The library call is
+    F.conv2d on channels-last views with the weight laid out once
+    beforehand; for K4 the affine and SiLU first, for K6 F.group_norm and
+    F.silu first. K5 and K4 are timed in turns with their earlier WMMA
+    kernel on the same inputs, K6 with its CUDA-core kernel (earlier, new,
+    new, earlier; each time the mean of its two runs), their ``ms``
+    including the weight copy their wrapper makes; K4's row also carries
+    K5's time on the same conv."""
     import torch
     import torch.nn.functional as F
     from diffusion_model_universal_torch.ops import boundary_conv as bc
@@ -1680,24 +1771,35 @@ def time_exp_kernels():
                 f"conv {k5 * 1e3:.2f} us ({ms / k5:.3f}×); "
                 f"{ops / ms / 1e9:.1f} TFLOP/s")
         del x, w, xl, wl
-    x, scale, bias, w, x3, w3 = exp_head_inputs(b, bf16, gen)
+    for batch, h, c, cout in K6_TIMES:
+        x, scale, bias, w = k6_inputs(batch, h, c, cout, bf16, gen)
+        xl, wl, sl, bl = x.permute(0, 3, 1, 2), lay(w), scale.to(bf16), \
+            bias.to(bf16)
+
+        def head_unit():
+            return F.conv2d(F.silu(F.group_norm(xl, 32, sl, bl, 1e-5)), wl,
+                            padding=1)
+
+        turns = {"simt": [], "sm90": []}
+        for route in ("simt", "sm90", "sm90", "simt"):
+            turns[route].append(cuda_ms(
+                lambda: bc.out_head_cuda(x, scale, bias, w, route=route),
+                iters=20, reps=3))
+        ms, earlier = (statistics.mean(turns[r]) for r in ("sm90", "simt"))
+        rows["out_head"].append(row(
+            f"K6 {k6_label(batch, h, c, 32, cout)}", ms,
+            cuda_ms(lambda: bc.out_head_plain(x, scale, bias, w), iters=3,
+                    reps=3),
+            cuda_ms(head_unit, iters=20, reps=3),
+            2 * batch * h * h * (c + cout) + 2 * 9 * c * cout + 8 * c,
+            2 * batch * h * h * 9 * c * cout + 10 * batch * h * h * c,
+            earlier_ms=earlier, earlier_runs_ms=turns["simt"],
+            runs_ms=turns["sm90"]))
+        log(f"  earlier (CUDA-core kernel) {earlier * 1e3:.2f} us "
+            f"({earlier / ms:.2f}× the sm90 route)")
+        del x, w, xl, wl
+    x3, w3 = exp_in_conv_inputs(b, bf16, gen)
     h, c = EXP_HEAD
-    xl, wl, sl, bl = x.permute(0, 3, 1, 2), lay(w), scale.to(bf16), \
-        bias.to(bf16)
-
-    def head_unit():
-        return F.conv2d(F.silu(F.group_norm(xl, 32, sl, bl, 1e-5)), wl,
-                        padding=1)
-
-    rows["out_head"].append(row(
-        f"K6 B{b} 32² 128→3 G32",
-        cuda_ms(lambda: bc.out_head_cuda(x, scale, bias, w), iters=20,
-                reps=3),
-        cuda_ms(lambda: bc.out_head_plain(x, scale, bias, w), iters=3,
-                reps=3),
-        cuda_ms(head_unit, iters=20, reps=3),
-        2 * b * h * h * (c + 3) + 2 * 27 * c + 8 * c,
-        2 * b * h * h * 27 * c + 10 * b * h * h * c))
     x3l, w3l = x3.permute(0, 3, 1, 2), lay(w3)
     in_bytes = 2 * (b * h * h * (3 + c) + 27 * c)
     ms = cuda_ms(lambda: bc.in_conv_cuda(x3, w3), iters=20, reps=3)
@@ -1757,6 +1859,8 @@ def experiment_kernels():
     k4_by_route = {r: launches.get(cv.GN_SILU_CONV3X3_KERNELS[r].name, 0)
                    for r in cv.ROUTES}
     in_paths = {d: launches.get(k, 0) for d, k in IN_CONV_PATHS.items()}
+    k6_by_route = {r: launches.get(bc.OUT_HEAD_KERNELS[r].name, 0)
+                   for r in bc.OUT_HEAD_ROUTES}
     entries = [
         exp_entry("conv3x3", cv.CONV3X3_KERNELS["sm90", "tap9"],
                   rows["conv3x3"], sum(by_route.values()), errs["conv3x3"],
@@ -1792,10 +1896,23 @@ def experiment_kernels():
                           cv.GN_SILU_CONV3X3_KERNELS[r].name, 0)
                       for r in cv.ROUTES},
                   library="affine + SiLU, then F.conv2d"),
-        exp_entry("out_head", bc.OUT_HEAD_KERNEL, rows["out_head"],
-                  launches["dmu_out_head"], errs["out_head"],
+        exp_entry("out_head", bc.OUT_HEAD_KERNELS["sm90"], rows["out_head"],
+                  sum(k6_by_route.values()), errs["out_head"],
                   f"the out-head unit at B={EXP_BATCH}, 32², C=128 → 3, "
-                  "bf16",
+                  "bf16; ms etc. on the sm90 route, with its packed weight "
+                  "copy",
+                  conv_route="sm90 (a cluster reads x once; the 9 taps × "
+                             "Cout as the columns of an mma.sync product), "
+                             "csrc/out_head_sm90.cu; simt and f32 (the "
+                             "CUDA-core kernel), csrc/boundary_conv.cu",
+                  earlier_ms=rows["out_head"][0]["earlier_ms"],
+                  earlier="the CUDA-core kernel of csrc/boundary_conv.cu, "
+                          "timed in turns in this run; still the route for "
+                          "f32 and other bf16 shapes",
+                  launches_by_route=k6_by_route,
+                  hold_launches_by_route={
+                      r: hold_launches.get(bc.OUT_HEAD_KERNELS[r].name, 0)
+                      for r in bc.OUT_HEAD_ROUTES},
                   library="F.group_norm + F.silu + F.conv2d"),
         exp_entry("in_conv", bc.IN_CONV_MMA_KERNEL, rows["in_conv"],
                   sum(in_paths.values()), errs["in_conv"],

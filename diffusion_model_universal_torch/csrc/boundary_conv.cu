@@ -1,5 +1,5 @@
 // The UNet's two boundary convolutions for Hopper: the output head (kernel
-// K6: GroupNorm statistics, scale/bias, SiLU and a 3x3 conv C -> 3 in one
+// K6: GroupNorm statistics, scale/bias, SiLU and a 3x3 conv C -> Cout in one
 // kernel) and the input conv (kernel K7: a 3x3 conv 3 -> C). NHWC
 // activations, HWIO weights, SAME padding, stride 1.
 //
@@ -15,29 +15,42 @@
 // :131): out = im2col(x) [M, 27] @ w [27, Cout], accumulated in f32, with
 // column (ky*3 + kx)*3 + ci.
 //
+// Which shapes take the K6 kernel of this file (out_head_kernel, the
+// CUDA-core kernel; ops/boundary_conv.py::out_head_route): every f32 call
+// (route "f32"), and the bf16 calls that csrc/out_head_sm90.cu (route
+// "sm90": a cluster that reads x once, the conv on the tensor cores) does
+// not take, route "simt": C not a multiple of 64, or a sample that no
+// 8-block cluster holds in shared memory (64x64x256 and up). Both dtypes
+// take C a multiple of 8 and of G up to 2048 and Cout from 1 to 7, where
+// the block's shared memory (out_head_smem_floats) fits 227 KB.
+//
 // What bounds them on an H100: bytes. K6 must read x once (537 MB at the
 // bench shape B=2048, 32x32, C=128, bf16) and write 12.6 MB; K7 reads
 // 12.6 MB and writes 537 MB: about 0.16 ms each at 3.35 TB/s. Their products
-// have N = 3 or K = 27. K6's N = 3 is too narrow for the tensor cores, so it
-// runs as f32 FMAs on the CUDA cores: 7.2 G FMAs at the bench shape, about
-// 0.22 ms at the card's 67 TFLOP/s f32 rate, a floor of its own. K7 in bf16
-// pads K to 32 and runs on the tensor cores, where its 7.2 G MACs take
-// about 0.02 ms, far under its store bound.
+// have N = 3 or K = 27. This K6 runs N = 9*Cout as f32 FMAs on the CUDA
+// cores: 7.2 G FMAs at the bench shape, about 0.22 ms at the card's 67
+// TFLOP/s f32 rate, a floor of its own (the sm90 route takes the 9 taps x
+// Cout as the columns of one tensor-core product instead). K7 in bf16 pads
+// K to 32 and runs on the tensor cores, where its 7.2 G MACs take about
+// 0.02 ms, far under its store bound.
 //
-// K6 design. One sample's 32x32x128 bf16 slab is 256 KB, more than the 227 KB
-// of shared memory a block can have (the Pallas block held whole samples in
-// VMEM). So one block per sample makes two passes over x:
+// K6 design (CUDA cores). One sample's 32x32x128 bf16 slab is 256 KB, more
+// than the 227 KB of shared memory a block can have (the Pallas block held
+// whole samples in VMEM). So one block per sample makes two passes over x:
 // 1. statistics: each thread reads 8 channels (16 bytes of bf16) of a pixel
 //    and keeps their f32 sums of x and x^2; the per-channel sums are taken
 //    over the threads in a fixed order in shared memory, then per group, as
 //    K1's device code and `_block_stats` do;
 // 2. apply and conv, one image row at a time: each pixel of the row is read
-//    again (now mostly from the 50 MB L2), y is formed once per element, and
-//    its 27 partial products y[q] . w[tap][:, k] (9 taps x 3 outputs) are
-//    summed over the channels by groups of 8 lanes. They go into a ring of 3
-//    rows in shared memory; output row r-1 is then the sum of 9 of them from
-//    rows r-2..r. A neighbour outside the image contributes nothing: the halo
-//    is 0 after SiLU, as in K4. No atomics: the result is reproducible.
+//    again, from HBM as a rule: 4-7 blocks share an SM, and their samples
+//    (135-236 MB at the bench shape) are several times the 50 MB L2, so
+//    this design moves twice the bytes of its bound. y is formed once per
+//    element, and its 9*Cout partial products y[q] . w[tap][:, k] are
+//    summed over the channels by groups of 8 lanes. They go into a ring of
+//    3 rows in shared memory; output row r-1 is then the sum of 9 of them
+//    from rows r-2..r. A neighbour outside the image contributes nothing:
+//    the halo is 0 after SiLU, as in K4. No atomics: the result is
+//    reproducible.
 // K7 design, bf16 (`in_conv_mma_kernel`): the tensor cores, as the TPU
 // body's bf16 dot_general with f32 accumulation. K is 27, padded to 32 =
 // two k16 steps of mma.sync m16n8k16. The wrapper packs the weight to
@@ -55,8 +68,6 @@
 // the image) into shared memory, then each thread writes 8 consecutive
 // output channels of a pixel, so a warp's stores cover whole contiguous
 // rows of the output. The weight sits in shared memory.
-// Not done yet: keeping K6's second pass out of HBM when the resident blocks'
-// samples outgrow the L2.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -67,8 +78,7 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 256;
-constexpr int kOut = 3;          // K6's output channels
-constexpr int kTapOut = 9 * kOut;  // partial products per input pixel
+constexpr int kMaxOut = 7;       // K6's widest output
 constexpr int kLanes = 8;        // K6: lanes that share one pixel
 constexpr int kInPixels = 256;   // K7: pixels per block
 
@@ -103,21 +113,25 @@ __device__ __forceinline__ void store8(float* p, const float v[8]) {
 // ---------------------------------------------------------------------------
 // K6.
 
-// Shared memory of one K6 block, in floats (ops/boundary_conv.py computes
-// the same to refuse what does not fit).
-__host__ __device__ inline int out_head_smem_floats(int W, int C, int G) {
+// Shared memory of one K6 block, in floats (ops/boundary_conv.py::
+// out_head_smem_bytes computes the same to refuse what does not fit).
+__host__ __device__ inline int out_head_smem_floats(int W, int C, int G,
+                                                    int cout) {
   const int stats = 2 * kThreads * 8;     // per-thread partial sums
-  const int ring = 3 * W * kTapOut;       // 3 rows of partial products
-  return kTapOut * C + 4 * C + 2 * G + (stats > ring ? stats : ring);
+  const int ring = 3 * W * 9 * cout;      // 3 rows of partial products
+  return 9 * cout * C + 4 * C + 2 * G + (stats > ring ? stats : ring);
 }
 
-template <typename T>
+// KOUT output channels: 9 * KOUT partial products per input pixel.
+template <typename T, int KOUT>
 __global__ void __launch_bounds__(kThreads)
 out_head_kernel(const T* __restrict__ x, const float* __restrict__ scale,
                 const float* __restrict__ bias, const T* __restrict__ w,
                 T* __restrict__ out, int H, int W, int C, int G, float eps) {
+  constexpr int kOut = KOUT, kTapOut = 9 * KOUT;
   extern __shared__ __align__(16) float smem[];
-  float* w_s = smem;                      // [C][27]: w[tap][c][k] at c*27 + j
+  float* w_s = smem;                      // [C][9*Cout]: w[tap][c][k] at
+                                          // c*9*Cout + tap*Cout + k
   float* a_s = w_s + kTapOut * C;         // [C]
   float* b_s = a_s + C;                   // [C]
   float* colsum = b_s + C;                // [C]
@@ -132,7 +146,7 @@ out_head_kernel(const T* __restrict__ x, const float* __restrict__ scale,
   const T* xb = x + (long long)b * HW * C;
 
   for (int i = tid; i < kTapOut * C; i += kThreads) {
-    const int c = i / kTapOut, j = i - c * kTapOut;   // j = tap*3 + k
+    const int c = i / kTapOut, j = i - c * kTapOut;   // j = tap*Cout + k
     const int tap = j / kOut, k = j - tap * kOut;
     w_s[i] = to_f32(w[((long long)tap * C + c) * kOut + k]);
   }
@@ -192,7 +206,7 @@ out_head_kernel(const T* __restrict__ x, const float* __restrict__ scale,
 
   // Pass 2: row r's partial products into ring slot r % 3, then output row
   // r - 1 from rows r-2..r.
-  float* ring = work;                     // [3][W][27]
+  float* ring = work;                     // [3][W][9*Cout]
   const int slice = tid % kLanes;         // this lane's share of channels
   const int px = tid / kLanes;            // pixel within a pass over the row
   const int per_pass = kThreads / kLanes;
@@ -454,14 +468,16 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
                               (int)bytes);
 }
 
-template <typename T>
+template <typename T, int KOUT>
 int launch_out_head(const void* x, const float* scale, const float* bias,
                     const void* w, void* out, int B, int H, int W, int C,
                     int G, float eps, cudaStream_t st) {
-  const size_t bytes = sizeof(float) * (size_t)out_head_smem_floats(W, C, G);
-  cudaError_t err = allow_smem(out_head_kernel<T>, bytes);
+  const size_t bytes =
+      sizeof(float) * (size_t)out_head_smem_floats(W, C, G, KOUT);
+  if (bytes > 232448) return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(out_head_kernel<T, KOUT>, bytes);
   if (err != cudaSuccess) return (int)err;
-  out_head_kernel<T><<<B, kThreads, bytes, st>>>(
+  out_head_kernel<T, KOUT><<<B, kThreads, bytes, st>>>(
       static_cast<const T*>(x), scale, bias, static_cast<const T*>(w),
       static_cast<T*>(out), H, W, C, G, eps);
   return (int)cudaGetLastError();
@@ -502,24 +518,47 @@ int launch_in_conv_mma(const void* x, const void* wp, void* out, int B, int H,
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int launch_out_head_cout(const void* x, const float* scale, const float* bias,
+                         const void* w, void* out, int B, int H, int W, int C,
+                         int G, int Cout, float eps, cudaStream_t st) {
+  switch (Cout) {
+    case 1: return launch_out_head<T, 1>(x, scale, bias, w, out, B, H, W, C,
+                                         G, eps, st);
+    case 2: return launch_out_head<T, 2>(x, scale, bias, w, out, B, H, W, C,
+                                         G, eps, st);
+    case 3: return launch_out_head<T, 3>(x, scale, bias, w, out, B, H, W, C,
+                                         G, eps, st);
+    case 4: return launch_out_head<T, 4>(x, scale, bias, w, out, B, H, W, C,
+                                         G, eps, st);
+    case 5: return launch_out_head<T, 5>(x, scale, bias, w, out, B, H, W, C,
+                                         G, eps, st);
+    case 6: return launch_out_head<T, 6>(x, scale, bias, w, out, B, H, W, C,
+                                         G, eps, st);
+    case 7: return launch_out_head<T, 7>(x, scale, bias, w, out, B, H, W, C,
+                                         G, eps, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// K6: x [B,H,W,C], w [3,3,C,3] and out [B,H,W,3] contiguous in one dtype
-// (bf16 when is_bf16, else f32); scale and bias f32 [C]. C a multiple of 8
-// and of G, at most 2048.
+// K6 on the CUDA cores: x [B,H,W,C], w [3,3,C,Cout] and out [B,H,W,Cout]
+// contiguous in one dtype (bf16 when is_bf16, else f32); scale and bias f32
+// [C]. C a multiple of 8 and of G, at most 2048; Cout from 1 to 7.
 extern "C" int dmu_out_head(const void* x, const float* scale,
                             const float* bias, const void* w, void* out,
-                            int B, int H, int W, int C, int G, float eps,
-                            int is_bf16, void* stream) {
+                            int B, int H, int W, int C, int G, int Cout,
+                            float eps, int is_bf16, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || C % 8 != 0 || C / 8 > kThreads ||
-      G <= 0 || C % G != 0)
+      G <= 0 || C % G != 0 || Cout < 1 || Cout > kMaxOut)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch_out_head<bf16>(x, scale, bias, w, out, B, H, W, C, G, eps,
-                                 st);
-  return launch_out_head<float>(x, scale, bias, w, out, B, H, W, C, G, eps,
-                                st);
+    return launch_out_head_cout<bf16>(x, scale, bias, w, out, B, H, W, C, G,
+                                      Cout, eps, st);
+  return launch_out_head_cout<float>(x, scale, bias, w, out, B, H, W, C, G,
+                                     Cout, eps, st);
 }
 
 // K7 in f32 on the CUDA cores: x [B,H,W,3], w [3,3,3,Cout] and out

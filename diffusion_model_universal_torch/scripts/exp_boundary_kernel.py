@@ -8,8 +8,10 @@ unfused PyTorch units. Counterpart of the reference's
         diffusion_model_universal_torch.scripts.exp_boundary_kernel --bench
 
 Units:
-  1. out-head: GroupNorm(32) + SiLU → 3×3 conv C→3, kernel K6 against
-     ``group_norm_silu_plain`` then ``F.conv2d``;
+  1. out-head: GroupNorm(32) + SiLU → 3×3 conv C→3, kernel K6 (on the
+     route ``ops/boundary_conv.py::out_head_route`` picks: ``--check``'s
+     f32 on the CUDA-core kernel, ``--bench``'s bf16 on the sm90 route)
+     against ``group_norm_silu_plain`` then ``F.conv2d``;
   2. in-conv: 3×3 conv 3→C, kernel K7 against ``F.conv2d``.
 
 ``--check`` holds the dispatchers (the kernels on the card) against the

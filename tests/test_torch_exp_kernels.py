@@ -60,10 +60,10 @@ def _conv_inputs(b, h, cin, cout, seed=0, dtype="float32"):
     return [_pair(v, dtype) for v in (x, w, a, bb)]
 
 
-def _head_inputs(b, h, c, seed=1, dtype="float32"):
+def _head_inputs(b, h, c, seed=1, dtype="float32", cout=3):
     rng = _rng(seed)
     x = _pair(rng.normal(size=(b, h, h, c)) * 0.5 + 0.3, dtype)
-    w = _pair(rng.normal(size=(3, 3, c, 3)) * 0.05, dtype)
+    w = _pair(rng.normal(size=(3, 3, c, cout)) * 0.05, dtype)
     scale = _pair(rng.normal(size=c) * 0.2 + 1.0)
     bias = _pair(rng.normal(size=c) * 0.1)
     return x, w, scale, bias
@@ -97,12 +97,18 @@ def test_gn_silu_conv3x3_plain_matches_pallas_and_xla():
         plain, _f32(jck.gn_silu_conv3x3_xla(jx, ja, jb, jw)), **F32_TOL)
 
 
-def test_out_head_plain_matches_pallas_and_xla():
-    (jx, tx), (jw, tw), (js, ts), (jb, tb) = _head_inputs(2, 4, 64)
+@pytest.mark.parametrize("cout", [1, 3])
+def test_out_head_plain_matches_pallas_and_xla(cout):
+    """Cout = 1 is MNIST's head, 3 the RGB datasets'; the dispatcher takes
+    both on the CPU."""
+    (jx, tx), (jw, tw), (js, ts), (jb, tb) = _head_inputs(2, 4, 64,
+                                                          cout=cout)
     plain = _f32(bc.out_head_plain(tx, ts, tb, tw, num_groups=32))
     pallas = jbk.out_head_pallas(jx, js, jb, jw, num_groups=32, block_b=2,
                                  interpret=True)
     np.testing.assert_allclose(plain, _f32(pallas), **F32_TOL)
+    np.testing.assert_allclose(_f32(bc.out_head(tx, ts, tb, tw)),
+                               _f32(pallas), **F32_TOL)
     np.testing.assert_allclose(plain, _f32(jbk.out_head_xla(jx, js, jb, jw)),
                                **F32_TOL)
 
@@ -219,8 +225,8 @@ def test_conv3x3_function_matches_pallas_vjp():
 def _launches():
     return (tuple(k.launches for k in cv.CONV3X3_KERNELS.values())
             + tuple(k.launches for k in cv.GN_SILU_CONV3X3_KERNELS.values())
-            + (bc.OUT_HEAD_KERNEL.launches, bc.IN_CONV_KERNEL.launches,
-               bc.IN_CONV_MMA_KERNEL.launches))
+            + tuple(k.launches for k in bc.OUT_HEAD_KERNELS.values())
+            + (bc.IN_CONV_KERNEL.launches, bc.IN_CONV_MMA_KERNEL.launches))
 
 
 def test_dispatchers_route_cpu_tensors_to_plain_versions():
@@ -265,14 +271,14 @@ def test_wrappers_refuse_what_the_kernels_cannot_take():
                  lambda: bc.in_conv_cuda(x3, w3)):
         with pytest.raises(ValueError, match="CUDA"):
             call()
-    for call in (lambda: bc.out_head(hx, s, s, torch.zeros(3, 3, 64, 4)),
+    for call in (lambda: bc.out_head(hx, s, s, torch.zeros(3, 3, 64, 8)),
                  lambda: bc.out_head(hx, s, s, hw, num_groups=24),
                  lambda: bc.out_head(torch.zeros(1, 4, 4000, 64), s, s, hw),
                  lambda: bc.in_conv(x3, torch.zeros(3, 3, 3, 12)),
                  lambda: bc.in_conv(x, w)):
         with pytest.raises(ValueError):
             call()
-    assert bc.out_head_smem_bytes(32, 128, 32) < 48 * 1024
+    assert bc.out_head_smem_bytes(32, 128, 32, 3) < 48 * 1024
     assert bc.in_conv_smem_bytes(128) < 48 * 1024
 
 

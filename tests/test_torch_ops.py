@@ -227,7 +227,8 @@ def test_kernel_build_names_sources_and_raises_without_nvcc(monkeypatch,
     """Each csrc/*.cu is one library, named by a hash of its source and
     flags, built for sm_90a; a build that cannot run raises."""
     assert _build.kernel_names() == ["attention", "boundary_conv", "conv3x3",
-                                     "conv3x3_sm90", "group_norm"]
+                                     "conv3x3_sm90", "group_norm",
+                                     "out_head_sm90"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert _build._target("attention") == _build._target("attention")
     assert _build._target("attention") != _build._target("group_norm")
