@@ -66,18 +66,46 @@ Then the experiment CLIs' kernels (``scripts/exp_conv_kernel.py`` and
     the CUDA cores), checking each call's route by its launch counts;
     K6 (out-head) on each of its routes at ``K6_HOLDS`` (the bench shape,
     the CLI's --check inputs, MNIST's 28²·64→1, a 1 MB sample, C=512 and
-    2048, G=16, B=1, Cout 2 and 6; bf16 on the cluster + tensor-core
-    route, bf16 shapes it does not take on the CUDA-core kernel, f32 on
-    that kernel; every template instance of both kernels), checking each
-    call's route; and K7 (in-conv; bf16 on the
+    2048, G=16, B=1, Cout 2 and 6; heads of Cout 8, 9, 12 and 16 in
+    passes of at most 7; on the CUDA-core kernel C in chunks on group
+    boundaries (f32 at C=1760 and 2048, bf16 at 2080 into an f32 sum),
+    a 700-wide row in column tiles and C=12 by element loads; bf16 on
+    the cluster + tensor-core route, bf16 shapes it does not take on the
+    CUDA-core kernel, f32 on that kernel; every template instance of both
+    kernels), checking each call's route and its launches (one a pass
+    and chunk); and K7 (in-conv; bf16 on the
     tensor cores, f32 on the CUDA cores) at 32², C=128, each against its
     plain version; checks refusals and ``Conv3x3Function``'s gradients;
     runs both CLIs' ``--check`` and ``--bench`` as subprocesses, each of
     which must launch every kernel it covers; and times the four kernels
     at their bench shapes beside their plain versions, ``F.conv2d`` and
     their bounds, K5 and K4 in turns with their earlier WMMA kernel, K6 in
-    turns with its CUDA-core kernel (also at 64²·128→3, B=256, and
-    28²·64→1, B=2048).
+    turns with its CUDA-core kernel (also at 32²·128→8 and →16, B=2048,
+    64²·128→3, B=256, and 28²·64→1, B=2048).
+
+Then the samplers, through the entry points a user calls:
+
+11. a. holds each new sampler on the card against the same sampler on
+       the CPU (f32, B=2, full width, the same x_T and injected draws,
+       within 1e-3 + 1e-3·|ref|): DDIM S=4 at η=0 and 0.5, DPM++ S=4,
+       Heun S=3, strided S=4, CFG 3.0 through DDIM S=4 and DPM++ S=4 on
+       the conditional model, inpainting at ``num_timesteps: 10`` (a cut),
+       and on the learned-variance model 3 ancestral steps, strided S=4,
+       ``nll_bits_per_dim`` at ``num_timesteps: 10`` and the hybrid loss
+       with every gradient;
+    b. serves ``ddim_config.yaml`` (``--model_type ddim``; one DDIM-50
+       request also traced with ``torch.profiler``), the same with
+       ``num_classes: 10`` and ``ddpm_config.yaml`` with ``learn_sigma:
+       true`` over HTTP in bf16 at the serve batch, and times three
+       requests after a warm-up for each of ``SERVE_CASES`` (DDIM-50,
+       DPM++-20, Heun-18, strided-100; CFG 3.0 through DDIM-50 and
+       DPM++-20; strided-100 with the learned variance), each of which
+       must launch K1 and K3 exactly 53× and 5× its UNet forwards;
+    c. runs ``train --model_type ddim`` for a few steps at full width (a
+       DDIM sample grid), ``generate --ema --sampler dpm++`` from its
+       checkpoint, ``generate --class_id 3`` and ``--inpaint_image/
+       --inpaint_mask`` on a saved conditional model, and ``train`` with
+       ``learn_sigma: true``.
 
 The last three lines of standard output are the ``kernels`` JSON line
 (all seven kernels),
@@ -1369,11 +1397,29 @@ K6_HOLDS = [
     (4, 64, 256, 32, 3, "bfloat16", "simt"),   # no 8-block cluster holds it
     *[(2, 8, 96, 32, cout, dname, route) for cout in range(1, 8)
       for dname, route in (("bfloat16", "simt"), ("float32", "f32"))],
+    # Heads wider than 7 outputs, in passes of at most 7.
+    (64, 32, 128, 32, 8, "bfloat16", "sm90"),
+    (64, 32, 128, 32, 16, "bfloat16", "sm90"),
+    (16, 32, 128, 32, 12, "float32", "f32"),
+    (2, 8, 96, 32, 9, "bfloat16", "simt"),
+    # The f32 C whose weight the CUDA-core block cannot hold: two chunks
+    # of C on group boundaries, summed in f32.
+    (2, 4, 2048, 32, 3, "float32", "f32"),
+    (2, 4, 1760, 32, 3, "float32", "f32"),
+    # bf16 C over 2048 (and not a multiple of 64): chunks summed in an f32
+    # output, every Cout instance of that path.
+    *[(2, 4, 2080, 32, cout, "bfloat16", "simt") for cout in range(1, 8)],
+    # A row wider than the CUDA-core block's ring: column tiles.
+    (1, 700, 64, 32, 3, "float32", "f32"),
+    # C not whole 16-byte vectors: element loads.
+    (2, 8, 12, 4, 3, "bfloat16", "simt"),
+    (2, 8, 12, 4, 5, "float32", "f32"),
 ]
 #: K6's timed shapes (B, H, C, Cout), bf16, G=32: the sm90 route and the
 #: CUDA-core kernel in turns.
 K6_TIMES = [(EXP_BATCH, 32, 128, 3), (256, 64, 128, 3),
-            (EXP_BATCH, 28, 64, 1)]
+            (EXP_BATCH, 28, 64, 1), (EXP_BATCH, 32, 128, 8),
+            (EXP_BATCH, 32, 128, 16)]
 
 
 def k6_inputs(batch, h, c, cout, dtype, gen):
@@ -1403,25 +1449,33 @@ def k6_route_launches():
 
 def hold_k6(x, scale, bias, w, groups, route, what, force=""):
     """K6 on x against its plain version within TOL; checks that the call
-    launched the kernel of ``route`` once and no other (``force`` asks the
-    wrapper for a route), and logs the sm90 route's launch plan once per
-    shape. Returns max abs error."""
+    launched the kernel of ``route`` as often as its plan has launches
+    (a pass of at most 7 outputs each, times the chunks of C on the
+    CUDA-core kernel) and no other (``force`` asks the wrapper for a
+    route), and logs the route's plan once per shape. Returns max abs
+    error."""
     import torch
     from diffusion_model_universal_torch.ops import boundary_conv as bc
     dname = str(x.dtype).removeprefix("torch.")
+    b, h, wd, c = x.shape
     if route == "sm90":
-        plan = bc.out_head_launch_plan(*x.shape, groups, w.shape[-1])
-        if (x.shape, plan) not in LOGGED_PLANS:
-            LOGGED_PLANS.add((x.shape, plan))
-            log(f"  K6 {dname} {what} plan: {plan.describe()}")
+        plan = bc.out_head_launch_plan(b, h, wd, c, groups, w.shape[-1])
+        n = len(plan.passes)
+    else:
+        plan = bc.out_head_simt_plan(h, wd, c, groups, w.shape[-1])
+        n = plan.launches
+    if (x.shape, plan) not in LOGGED_PLANS:
+        LOGGED_PLANS.add((x.shape, plan))
+        log(f"  K6 {dname} {what} {route} plan: {plan.describe()}")
     before = k6_route_launches()
     got = bc.out_head_cuda(x, scale, bias, w, groups, route=force)
     want = bc.out_head_plain(x, scale, bias, w, groups)
     torch.cuda.synchronize()
     after = k6_route_launches()
-    check(all(after[r] - before[r] == (r == route) for r in after),
+    check(all(after[r] - before[r] == (n if r == route else 0)
+              for r in after),
           f"K6 {what}: launches by route moved {before} -> {after}, "
-          f"expected one {route} launch")
+          f"expected {n} {route} launch(es)")
     return hold(f"K6 {dname} {what} ({route})", got, want, TOL[dname])
 
 
@@ -1598,8 +1652,11 @@ def exp_refusals():
                                                             w12)),
             ("the sm90 route for 2², 32→32 (K4)", lambda:
              cv.gn_silu_conv3x3_cuda(x32, a32, a32, w32, route="sm90")),
-            ("Cout=8 out head (K6)", lambda: bc.out_head_cuda(
-                xh, s, s, torch.zeros((3, 3, 64, 8), **z))),
+            ("Cout=0 out head (K6)", lambda: bc.out_head_cuda(
+                xh, s, s, torch.zeros((3, 3, 64, 0), **z))),
+            ("C not a multiple of num_groups (K6)", lambda:
+             bc.out_head_cuda(xh, s, s, torch.zeros((3, 3, 64, 3), **z),
+                              num_groups=24)),
             ("the sm90 route for f32 (K6)", lambda: bc.out_head_cuda(
                 xh.float(), s, s, torch.zeros((3, 3, 64, 3), device=DEVICE),
                 route="sm90")),
@@ -1934,6 +1991,385 @@ def experiment_kernels():
                      "cli_lines": lines}
 
 
+# -- the samplers (phase 11) ------------------------------------------------
+
+DDIM_CONFIG = (REPO / "diffusion_model_universal_torch" / "configs"
+               / "ddim_config.yaml")
+#: Phase 11b's requests: (model, request fields, UNet forwards a request).
+#: A request launches K1 and K3 53× and 5× its forwards (CFG's two a step
+#: are counted): DDIM-50 50, DPM++-20 19, Heun-18 2·17, strided-100 100.
+SERVE_CASES = [
+    ("ddim", {}, 50),
+    ("ddim", {"sampler": "dpm++", "sampler_steps": 20}, 19),
+    ("ddim", {"sampler": "heun", "sampler_steps": 18}, 34),
+    ("ddim", {"sampler": "strided", "sampler_steps": 100}, 100),
+    ("conditional", {"class_id": 3, "guidance_scale": 3.0}, 100),
+    ("conditional", {"class_id": 3, "guidance_scale": 3.0,
+                     "sampler": "dpm++", "sampler_steps": 20}, 38),
+    ("learned", {"sampler": "strided", "sampler_steps": 100}, 100),
+]
+#: Each model's config and --model_type: ddim_config.yaml, the same with
+#: num_classes: 10, and ddpm_config.yaml with learn_sigma: true.
+SAMPLER_MODELS = {"ddim": (DDIM_CONFIG, "ddim", {}),
+                  "conditional": (DDIM_CONFIG, "ddim", {"num_classes": 10}),
+                  "learned": (CONFIG, "ddpm", {"learn_sigma": True})}
+
+
+def sampler_config(variant: str, **extra):
+    from diffusion_model_universal_torch.utils.config import (
+        canonicalize_model_config, load_config, resolve_interpolations)
+    path, _, keys = SAMPLER_MODELS[variant]
+    cfg = canonicalize_model_config(
+        resolve_interpolations(load_config(str(path)))["model_config"])
+    return dict(cfg, **keys, **extra)
+
+
+def seeded_model(variant: str, device, state=None, trainable=False,
+                 **extra):
+    """The variant's model on ``device`` from seeded weights (the
+    zero-initialized leaves given small seeded values), or holding
+    ``state``; ``extra`` overrides config keys."""
+    import torch
+    from diffusion_model_universal_torch.models import MODEL_REGISTRY
+    cls = MODEL_REGISTRY[SAMPLER_MODELS[variant][1]]
+    model = cls(sampler_config(variant, **extra), device=device, seed=SEED,
+                trainable=trainable)
+    with torch.no_grad():
+        if state is not None:
+            model.net.load_state_dict(state)
+        else:
+            gen = torch.Generator().manual_seed(SEED + 1)
+            for p in model.net.parameters():
+                if not p.any():
+                    p.copy_(0.02 * torch.randn(p.shape, generator=gen))
+    return model
+
+
+def card_and_cpu(variant: str, **extra):
+    """The variant in f32 on the card and the same weights on the CPU."""
+    card = seeded_model(variant, DEVICE, compute_dtype="float32", **extra)
+    state = {k: v.cpu() for k, v in card.net.state_dict().items()}
+    return card, seeded_model(variant, "cpu", state,
+                              compute_dtype="float32", **extra)
+
+
+def hold_samplers():
+    """Phase 11a: each new sampler on the card against the same sampler on
+    the CPU (the plain versions there), f32, B=2, full width, the same x_T
+    and injected draws; within UNET_TOL."""
+    import torch
+    from diffusion_model_universal_torch.models import DDPM
+    gen = torch.Generator().manual_seed(SEED + 21)
+    shape = (2, 32, 32, 3)
+
+    def draws(n):
+        return [torch.randn(shape, generator=gen) for _ in range(n)]
+
+    def on(device, tensors):
+        return [t.to(device) for t in tensors]
+
+    errs = {}
+
+    def pair(name, run, card, cpu, noise, **kw):
+        """run(model, noise=..., **kw) on both; kw tensors moved."""
+        with torch.inference_mode():
+            want = run(cpu, noise=noise, **kw)
+            got = run(card, noise=on(DEVICE, noise),
+                      **{k: v.to(DEVICE) if torch.is_tensor(v) else v
+                         for k, v in kw.items()})
+        torch.cuda.synchronize()
+        errs[name] = hold(f"{name}, card vs CPU", got.cpu(), want, UNET_TOL)
+
+    for eta in (0.0, 0.5):
+        card, cpu = card_and_cpu("ddim", ddim_sampling_steps=4, eta=eta)
+        pair(f"DDIM S=4 eta={eta}",
+             lambda m, **k: m.generate_samples(2, **k), card, cpu,
+             draws(5 if eta else 1))
+    pair("DPM++ S=4", lambda m, **k: m.generate_samples_dpm(2, 4, **k),
+         card, cpu, draws(1))
+    pair("Heun S=3", lambda m, **k: m.generate_samples_heun(2, 3, **k),
+         card, cpu, draws(1))
+    pair("strided S=4",
+         lambda m, **k: m.generate_samples_strided(2, 4, **k), card, cpu,
+         draws(5))
+    del card, cpu
+    card, cpu = card_and_cpu("conditional", ddim_sampling_steps=4)
+    y = torch.tensor([3, 7])
+    pair("CFG 3.0 DDIM S=4",
+         lambda m, y, **k: m.generate_samples_cfg(2, y, 3.0, **k), card,
+         cpu, draws(1), y=y)
+    pair("CFG 3.0 DPM++ S=4",
+         lambda m, y, **k: m.generate_samples_dpm(
+             2, 4, labels=y, guidance_scale=3.0, **k), card, cpu, draws(1),
+         y=y)
+    del card, cpu
+    # Inpainting at num_timesteps: 10 (a cut: ten steps of the same net).
+    card, cpu = card_and_cpu("ddim", num_timesteps=10)
+    image = (torch.rand(shape, generator=gen) * 2 - 1)
+    mask = torch.zeros((1, 32, 32, 1))
+    mask[:, :, :16] = 1.0
+    pair("inpainting T=10",
+         lambda m, image, mask, **k: m.generate_samples_inpaint(
+             image, mask, **k), card, cpu, draws(21), image=image, mask=mask)
+    del card, cpu
+    card, cpu = card_and_cpu("learned")
+    check(card.net.output_conv.weight.shape[0] == 6,
+          "learn_sigma: the head is not 6 channels")
+    pair("learned variance, 3 ancestral steps t=2..0",
+         lambda m, noise: m._denoise_range(
+             noise[0], 3, 0, m._drawer(shape, None, noise[1:])), card, cpu,
+         draws(4))
+    pair("learned variance, strided S=4",
+         lambda m, **k: m.generate_samples_strided(2, 4, **k), card, cpu,
+         draws(5))
+    del card, cpu
+    card, cpu = card_and_cpu("learned", num_timesteps=10)
+    x = (torch.rand(shape, generator=gen) * 2 - 1)
+    pair("nll_bits_per_dim T=10",
+         lambda m, x, **k: m.nll_bits_per_dim(x, **k), card, cpu, draws(10),
+         x=x)
+    del card, cpu
+    f32 = dict(compute_dtype="float32", dropout=0.0)
+    card = seeded_model("learned", DEVICE, trainable=True, **f32)
+    state = {k: v.cpu() for k, v in card.net.state_dict().items()}
+    cpu = seeded_model("learned", "cpu", state, trainable=True, **f32)
+    check(isinstance(card, DDPM) and card.learn_sigma, "learned model")
+    t = torch.tensor([17, 803]) % card.num_timesteps
+    noise = draws(1)[0]
+    want_loss, want = grads_of_step(cpu, x, t, noise)
+    got_loss, got = grads_of_step(card, x.to(DEVICE), t.to(DEVICE),
+                                  noise.to(DEVICE))
+    errs["hybrid loss"] = hold("hybrid loss, card vs CPU", got_loss,
+                               want_loss, UNET_TOL)
+    worst = 0.0
+    for g, w in zip(got, want):
+        worst = max(worst, hold_quiet(g, w))
+    log(f"  hybrid loss gradients, card vs CPU: {len(want)} tensors, max "
+        f"abs err {worst:.3e} ok")
+    errs["hybrid loss gradients"] = worst
+    return errs
+
+
+def hold_quiet(got, want) -> float:
+    """``hold`` within UNET_TOL without a log line."""
+    d = (got.float() - want.float()).abs()
+    check(bool((d <= UNET_TOL + UNET_TOL * want.float().abs()).all()),
+          "a gradient disagrees with the CPU")
+    return float(d.max())
+
+
+def serve_samplers(per_forward):
+    """Phase 11b: serve the three models over HTTP in bf16 at the serve
+    batch; each case of SERVE_CASES gets a warm-up request and three timed
+    ones, each of which must launch K1 and K3 exactly 53× and 5× its UNet
+    forwards."""
+    import numpy as np
+    import torch
+    from diffusion_model_universal_torch.ops import attention as attn_ops
+    from diffusion_model_universal_torch.ops import group_norm as gn_ops
+    from diffusion_model_universal_torch.scripts.serve import (
+        build_argparser, make_server)
+    kernels = {"gn": gn_ops.GN_KERNEL, "mha": attn_ops.MHA_KERNEL}
+    tmp = Path(tempfile.mkdtemp(prefix="dmu_samplers_"))
+    rows, profile = [], None
+    try:
+        for variant in SAMPLER_MODELS:
+            model = seeded_model(variant, DEVICE)
+            ckpt = str(tmp / f"{variant}.ckpt")
+            model.save(ckpt)
+            del model
+            path, model_type, _ = SAMPLER_MODELS[variant]
+            srv = make_server(build_argparser().parse_args([
+                "--config", str(path), "--model_type", model_type,
+                "--checkpoint", ckpt, "--port", "0", "--serve_batch",
+                str(SERVE_BATCH), "--device", DEVICE]))
+            thread = threading.Thread(target=srv.serve_forever, daemon=True)
+            thread.start()
+            host, port = srv.server_address[:2]
+            try:
+                for name, fields, forwards in SERVE_CASES:
+                    if name != variant:
+                        continue
+                    body = dict(fields, num_samples=SERVE_BATCH,
+                                format="npy")
+                    want = {n: forwards * per_forward[n] for n in kernels}
+                    times = []
+                    for seed in range(4):      # a warm-up, then three
+                        for k in kernels.values():
+                            k.launches = 0
+                        req = urllib.request.Request(
+                            f"http://{host}:{port}/generate",
+                            data=json.dumps(dict(body, seed=seed)).encode(),
+                            headers={"Content-Type": "application/json"})
+                        t0 = time.perf_counter()
+                        with urllib.request.urlopen(req, timeout=600) as r:
+                            arr = np.load(io.BytesIO(r.read()))
+                        secs = time.perf_counter() - t0
+                        got = {n: k.launches for n, k in kernels.items()}
+                        check(got == want, f"{variant} {fields}: launches "
+                              f"{got} != {want}")
+                        check(arr.shape == (SERVE_BATCH, 32, 32, 3)
+                              and bool(np.isfinite(arr).all()),
+                              f"{variant} {fields}: samples {arr.shape}")
+                        if seed:
+                            times.append(secs)
+                    rows.append({
+                        "model": variant, "request": fields,
+                        "unet_forwards": forwards, "launches": want,
+                        "seconds": times,
+                        "images_per_s": [SERVE_BATCH / s for s in times]})
+                    log(f"[serve] {variant} {fields or 'default (DDIM-50)'}"
+                        f": {', '.join(f'{s:.3f}' for s in times)} s a "
+                        f"request ({SERVE_BATCH / statistics.mean(times):.1f}"
+                        f" img/s); launches {want} each")
+                if variant == "ddim":   # where a DDIM-50 request goes
+                    model = srv.service.model
+                    gen = torch.Generator(device=DEVICE)
+                    profile = profile_run(
+                        lambda: model.generate_samples(
+                            SERVE_BATCH, generator=gen.manual_seed(9)), 1,
+                        f"DDIM-50 request B={SERVE_BATCH}")
+                    del model
+            finally:
+                srv.shutdown()
+                srv.server_close()
+                thread.join(timeout=60)
+            check(not thread.is_alive(), "server thread did not stop")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return rows, profile
+
+
+def sampler_clis():
+    """Phase 11c: ``train --model_type ddim`` for a few steps at full width,
+    then ``generate --ema --sampler dpm++`` from its checkpoint;
+    ``generate --class_id 3`` on a saved conditional model;
+    ``generate --inpaint_image/--inpaint_mask`` on .npy files; and
+    ``train`` with ``learn_sigma: true``."""
+    import numpy as np
+    import yaml
+    from diffusion_model_universal_torch.utils.config import load_config
+    from diffusion_model_universal_torch.utils.images import decode_png
+    tmp = Path(tempfile.mkdtemp(prefix="dmu_sampler_cli_"))
+    out = {}
+    try:
+        def run_config(path, name, sample_interval, **model):
+            """``path`` for one epoch of 3 steps on 512 synthetic images,
+            saving only ``final_model``."""
+            cfg = load_config(str(path))
+            cfg["model_config"] = dict(cfg["model_config"], **model)
+            cfg["data"] = dict(cfg["data"], dataset="synthetic",
+                               num_samples=512)
+            cfg["training"] = dict(cfg["training"], num_epochs=1,
+                                   sample_interval=sample_interval,
+                                   val_interval=1000,
+                                   checkpoint_interval=10)
+            cfg["output"] = dict(cfg["output"],
+                                 output_dir=str(tmp / name))
+            p = tmp / f"{name}.yaml"
+            p.write_text(yaml.safe_dump(cfg))
+            return str(p)
+
+        def trained(name, model_type, cfg_path):
+            stdout = run_cli("train", ["--config", cfg_path, "--model_type",
+                                       model_type, "--seed", str(SEED)],
+                             f"train --model_type {model_type} ({name})")
+            launches = json.loads(stdout.split("Kernel launches: ")[1]
+                                  .splitlines()[0])
+            check(all(launches.get(s, 0) > 0 for s in (
+                "dmu_group_norm_silu_fwd", "dmu_group_norm_silu_bwd",
+                "dmu_mha_fwd")), f"{name}: a kernel never launched")
+            losses = [json.loads(line)["train/loss"] for line in
+                      (tmp / name / "metrics.jsonl").read_text()
+                      .splitlines() if "train/loss" in line]
+            check(losses and all(math.isfinite(v) for v in losses),
+                  f"{name}: losses {losses}")
+            return launches, losses
+
+        ddim_cfg = run_config(DDIM_CONFIG, "ddim", 1)   # a DDIM grid
+        launches, losses = trained("ddim", "ddim", ddim_cfg)
+        logged = [json.loads(line) for line in
+                  (tmp / "ddim" / "metrics.jsonl").read_text().splitlines()]
+        check(any(d.get("ddim/sampling_steps") == 50 and "ddim/eta" in d
+                  for d in logged),
+              "DDIMTrainer did not log ddim/sampling_steps and ddim/eta")
+        grid = decode_png((tmp / "ddim" / "samples" / "epoch_0.png")
+                          .read_bytes())
+        # 4 samples, x_T and the 25 saved DDIM positions a row.
+        check(grid.shape == (4 * 34 + 2, 26 * 34 + 2, 3),
+              f"DDIM sample grid {grid.shape}")
+        out["train_ddim"] = {"launches": launches, "steps": len(losses),
+                             "losses": [losses[0], losses[-1]]}
+        gen_dir = tmp / "gen_dpm"
+        run_cli("generate", ["--config", ddim_cfg, "--model_type", "ddim",
+                             "--checkpoint", str(tmp / "ddim" / "checkpoints"
+                                                 / "final_model"),
+                             "--ema", "--sampler", "dpm++", "--num_samples",
+                             "4", "--output_dir", str(gen_dir)],
+                "generate --ema --sampler dpm++")
+        check((gen_dir / "samples_grid.png").is_file(), "dpm++ grid")
+        cond = seeded_model("conditional", DEVICE)
+        cond_ckpt = str(tmp / "conditional.ckpt")
+        cond.save(cond_ckpt)
+        del cond
+        run_cli("generate", ["--config", str(DDIM_CONFIG), "--model_type",
+                             "ddim", "--checkpoint", cond_ckpt,
+                             "--class_id", "3", "--num_samples", "4",
+                             "--output_dir", str(tmp / "gen_cfg")],
+                "generate --class_id 3 (CFG 3.0, DDIM-50)")
+        image = np.clip(np.random.default_rng(SEED).standard_normal(
+            (32, 32, 3)), -1, 1).astype(np.float32)
+        mask = np.zeros((32, 32), np.float32)
+        mask[:, :16] = 1.0
+        np.save(tmp / "image.npy", image)
+        np.save(tmp / "mask.npy", mask)
+        run_cli("generate", ["--config", str(DDIM_CONFIG), "--model_type",
+                             "ddim", "--checkpoint", cond_ckpt,
+                             "--inpaint_image", str(tmp / "image.npy"),
+                             "--inpaint_mask", str(tmp / "mask.npy"),
+                             "--num_samples", "4", "--output_dir",
+                             str(tmp / "gen_inpaint")],
+                "generate --inpaint_image/--inpaint_mask, 4 samples, "
+                "1000 ancestral steps")
+        left = decode_png((tmp / "gen_inpaint" / "sample_0000.png")
+                          .read_bytes())[:, :16]
+        want = np.round((image[:, :16] + 1) * 127.5).clip(0, 255)
+        check(np.abs(left.astype(np.float32) - want).max() <= 1.0,
+              "inpainting did not keep the known pixels")
+        launches, losses = trained(
+            "learned", "ddpm", run_config(CONFIG, "learned", 0,
+                                          learn_sigma=True))
+        out["train_learn_sigma"] = {"launches": launches,
+                                    "steps": len(losses),
+                                    "losses": [losses[0], losses[-1]]}
+        log(f"[cli] DDIM and learn_sigma training, dpm++, CFG and "
+            f"inpainting generation: {json.dumps(out)}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def samplers(per_forward):
+    """Phase 11: DDIM, the fast samplers, CFG, inpainting and learned
+    variance through their entry points."""
+    t0 = time.perf_counter()
+    log("[hold] phase 11a: the samplers on the card against the CPU:")
+    errs = hold_samplers()
+    t1 = time.perf_counter()
+    log("[serve] phase 11b: the samplers over HTTP, bf16, batch "
+        f"{SERVE_BATCH}:")
+    rows, profile = serve_samplers(per_forward)
+    t2 = time.perf_counter()
+    cli = sampler_clis()
+    t3 = time.perf_counter()
+    secs = {"11a": t1 - t0, "11b": t2 - t1, "11c": t3 - t2,
+            "total": t3 - t0}
+    log(f"[phase 11] samplers: {secs['total']:.1f} s (11a {secs['11a']:.1f}"
+        f", 11b {secs['11b']:.1f}, 11c {secs['11c']:.1f})")
+    return {"card_vs_cpu_max_abs_err": errs, "serve": rows,
+            "profile_ddim50": profile, "cli": cli, "seconds": secs}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2011,9 +2447,14 @@ def main() -> int:
         shutil.rmtree(train_dir, ignore_errors=True)
 
     exp_entries, exp_summary = experiment_kernels()
+    sampler_summary = samplers(per_forward)
 
     symbols = {"gn": "dmu_group_norm_silu_fwd",
                "gn_bwd": "dmu_group_norm_silu_bwd", "mha": "dmu_mha_fwd"}
+
+    def by_sampler(kind):
+        return {f"{r['model']} {json.dumps(r['request'])}": r["launches"][kind]
+                for r in sampler_summary["serve"]}
 
     def by_path(kind):
         return {"serve": launches.get(kind),
@@ -2032,6 +2473,7 @@ def main() -> int:
                      launches_per_forward=per_forward["gn"],
                      launches_per_train_step=per_step["gn"],
                      launches_by_path=by_path("gn"),
+                     launches_per_request_by_sampler=by_sampler("gn"),
                      train={**totals(k1_train), "work": train_work,
                             "max_abs_err": max(train_errs["gn"].values()),
                             "shapes": k1_train}),
@@ -2050,6 +2492,7 @@ def main() -> int:
                      launches_per_forward=per_forward["mha"],
                      launches_per_train_step=per_step["mha"],
                      launches_by_path=by_path("mha"),
+                     launches_per_request_by_sampler=by_sampler("mha"),
                      train={**totals(k3_train), "work": train_work,
                             "max_abs_err": max(train_errs["mha"].values()),
                             "shapes": k3_train}),
@@ -2062,6 +2505,7 @@ def main() -> int:
                "train_cli": cli, "train_time": train_time,
                "train_profile": train_profile,
                "experiment_kernels": exp_summary,
+               "samplers": sampler_summary,
                "seconds": time.perf_counter() - t_start}
     log(f"[summary] {json.dumps(summary)}")
     print(json.dumps({"kernels": entries}))

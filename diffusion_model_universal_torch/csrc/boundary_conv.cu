@@ -19,11 +19,20 @@
 // CUDA-core kernel; ops/boundary_conv.py::out_head_route): every f32 call
 // (route "f32"), and the bf16 calls that csrc/out_head_sm90.cu (route
 // "sm90": a cluster that reads x once, the conv on the tensor cores) does
-// not take, route "simt": C not a multiple of 64, or a sample that no
-// 8-block cluster holds in shared memory (64x64x256 and up). Both dtypes
-// take C a multiple of 8 and of G up to 2048 and Cout from 1 to 7, where
-// the block's shared memory (out_head_smem_floats) fits 227 KB.
-//
+// not take, route "simt": C not a multiple of 64 or over 2048, or a sample
+// that no 8-block cluster holds in shared memory (64x64x256 and up). One
+// launch takes up to 7 output channels and a chunk of up to 2048 input
+// channels that starts and ends on group boundaries (GroupNorm statistics
+// are per group, so a chunk normalises exactly); it walks each row in
+// tiles of `tile_w` columns. The wrapper (out_head_simt_plan) runs wider
+// heads in passes of at most 7 outputs, each output depending only on its
+// own column of w, and splits C where the chunk's f32 weight does not fit
+// 227 KB: the chunks' partial outputs are then summed in f32 in the
+// output (`accumulate`, launches in order on one stream) and cast once.
+// A chunk whose channels are not whole 16-byte vectors (C not a multiple
+// of 8) is read element by element (`vec` = 0), its padding channels
+// zero.
+
 // What bounds them on an H100: bytes. K6 must read x once (537 MB at the
 // bench shape B=2048, 32x32, C=128, bf16) and write 12.6 MB; K7 reads
 // 12.6 MB and writes 537 MB: about 0.16 ms each at 3.35 TB/s. Their products
@@ -78,7 +87,8 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 256;
-constexpr int kMaxOut = 7;       // K6's widest output
+constexpr int kMaxOut = 7;       // K6's widest output a launch
+constexpr int kMaxChunk = 2048;  // K6's widest chunk of input channels
 constexpr int kLanes = 8;        // K6: lanes that share one pixel
 constexpr int kInPixels = 256;   // K7: pixels per block
 
@@ -114,52 +124,78 @@ __device__ __forceinline__ void store8(float* p, const float v[8]) {
 // K6.
 
 // Shared memory of one K6 block, in floats (ops/boundary_conv.py::
-// out_head_smem_bytes computes the same to refuse what does not fit).
+// out_head_smem_bytes computes the same to plan and refuse): C padded to
+// whole 8-channel vectors, the ring as wide as a tile and its 2 halo
+// columns (the whole row when the tile takes it).
+__host__ __device__ inline int out_head_ring_cols(int W, int tile_w) {
+  return tile_w + 2 < W ? tile_w + 2 : W;
+}
 __host__ __device__ inline int out_head_smem_floats(int W, int C, int G,
-                                                    int cout) {
+                                                    int cout, int tile_w) {
+  const int cp = (C + 7) / 8 * 8;
   const int stats = 2 * kThreads * 8;     // per-thread partial sums
-  const int ring = 3 * W * 9 * cout;      // 3 rows of partial products
-  return 9 * cout * C + 4 * C + 2 * G + (stats > ring ? stats : ring);
+  const int ring = 3 * out_head_ring_cols(W, tile_w) * 9 * cout;
+  return 9 * cout * cp + 4 * cp + 2 * G + (stats > ring ? stats : ring);
 }
 
-// KOUT output channels: 9 * KOUT partial products per input pixel.
-template <typename T, int KOUT>
+// 8 consecutive channels c..c+7 of a pixel at p in f32: a 16-byte vector
+// where `vec`, else element by element with channels past C as 0.
+template <typename T>
+__device__ __forceinline__ void load8_masked(const T* p, int c, int C,
+                                             int vec, float v[8]) {
+  if (vec) {
+    load8(p, v);
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) v[i] = c + i < C ? to_f32(p[i]) : 0.f;
+}
+
+// KOUT output channels: 9 * KOUT partial products per input pixel. x points
+// at the chunk's first channel of pixel 0 (pixel stride ldx), w is the
+// chunk's [3,3,C,KOUT], out points at the pass's first output channel
+// (pixel stride ldo); TO is T, or float where chunks accumulate.
+template <typename T, typename TO, int KOUT>
 __global__ void __launch_bounds__(kThreads)
 out_head_kernel(const T* __restrict__ x, const float* __restrict__ scale,
                 const float* __restrict__ bias, const T* __restrict__ w,
-                T* __restrict__ out, int H, int W, int C, int G, float eps) {
+                TO* __restrict__ out, int H, int W, int C, int G, int ldx,
+                int ldo, int tile_w, int vec, int accumulate, float eps) {
   constexpr int kOut = KOUT, kTapOut = 9 * KOUT;
+  const int V = (C + 7) / 8;              // 8-channel vectors per pixel
+  const int Cp = 8 * V;                   // C padded to whole vectors
   extern __shared__ __align__(16) float smem[];
-  float* w_s = smem;                      // [C][9*Cout]: w[tap][c][k] at
+  float* w_s = smem;                      // [Cp][9*Cout]: w[tap][c][k] at
                                           // c*9*Cout + tap*Cout + k
-  float* a_s = w_s + kTapOut * C;         // [C]
-  float* b_s = a_s + C;                   // [C]
-  float* colsum = b_s + C;                // [C]
-  float* colsq = colsum + C;              // [C]
-  float* mean_g = colsq + C;              // [G]
+  float* a_s = w_s + kTapOut * Cp;        // [Cp]
+  float* b_s = a_s + Cp;                  // [Cp]
+  float* colsum = b_s + Cp;               // [Cp]
+  float* colsq = colsum + Cp;             // [Cp]
+  float* mean_g = colsq + Cp;             // [G]
   float* rstd_g = mean_g + G;             // [G]
   float* work = rstd_g + G;               // stats partials, then the ring
 
   const int tid = threadIdx.x;
   const int b = blockIdx.x;
   const int HW = H * W;
-  const T* xb = x + (long long)b * HW * C;
+  const T* xb = x + (long long)b * HW * ldx;
 
-  for (int i = tid; i < kTapOut * C; i += kThreads) {
+  // Padding channels get a zero weight and a zero affine: their y is
+  // silu(0) = 0 and adds nothing.
+  for (int i = tid; i < kTapOut * Cp; i += kThreads) {
     const int c = i / kTapOut, j = i - c * kTapOut;   // j = tap*Cout + k
     const int tap = j / kOut, k = j - tap * kOut;
-    w_s[i] = to_f32(w[((long long)tap * C + c) * kOut + k]);
+    w_s[i] = c < C ? to_f32(w[((long long)tap * C + c) * kOut + k]) : 0.f;
   }
 
   // Pass 1: per-channel f32 sums of x and x^2.
-  const int V = C / 8;                    // 8-channel vectors per pixel
   const int rows = kThreads / V;          // pixels in flight
   const int v = tid % V, r0 = tid / V;
   float s1[8] = {}, s2[8] = {};
   if (r0 < rows)
     for (int p = r0; p < HW; p += rows) {
       float e[8];
-      load8(xb + (long long)p * C + 8 * v, e);
+      load8_masked(xb + (long long)p * ldx + 8 * v, 8 * v, C, vec, e);
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         s1[i] += e[i];
@@ -197,77 +233,86 @@ out_head_kernel(const T* __restrict__ x, const float* __restrict__ scale,
     rstd_g[g] = rsqrtf(fmaxf(t2 / n - mean * mean, 0.f) + eps);
   }
   __syncthreads();
-  for (int c = tid; c < C; c += kThreads) {
-    const float a = rstd_g[c / cg] * scale[c];
+  for (int c = tid; c < Cp; c += kThreads) {
+    const float a = c < C ? rstd_g[c / cg] * scale[c] : 0.f;
     a_s[c] = a;
-    b_s[c] = bias[c] - mean_g[c / cg] * a;
+    b_s[c] = c < C ? bias[c] - mean_g[c / cg] * a : 0.f;
   }
   __syncthreads();  // the partials are dead: work becomes the ring
 
-  // Pass 2: row r's partial products into ring slot r % 3, then output row
-  // r - 1 from rows r-2..r.
-  float* ring = work;                     // [3][W][9*Cout]
+  // Pass 2, a tile of columns [x0, x1) at a time: row r's partial products
+  // of the tile and its halo columns [lo, hi) into ring slot r % 3, then
+  // output row r - 1 of the tile from rows r-2..r.
+  float* ring = work;                     // [3][ring columns][9*Cout]
+  const int ring_cols = out_head_ring_cols(W, tile_w);
   const int slice = tid % kLanes;         // this lane's share of channels
   const int px = tid / kLanes;            // pixel within a pass over the row
   const int per_pass = kThreads / kLanes;
-  for (int r = 0; r <= H; ++r) {
-    if (r < H) {
-      float* slot = ring + (r % 3) * W * kTapOut;
-      for (int x0 = 0; x0 < W; x0 += per_pass) {
-        const int col = x0 + px;
-        float acc[kTapOut] = {};
-        if (col < W) {
-          const T* xp = xb + ((long long)r * W + col) * C;
-          for (int vv = slice; vv < V; vv += kLanes) {
-            float e[8];
-            load8(xp + 8 * vv, e);
+  for (int x0 = 0; x0 < W; x0 += tile_w) {
+    const int x1 = x0 + tile_w < W ? x0 + tile_w : W;
+    const int lo = x0 > 0 ? x0 - 1 : 0;
+    const int hi = x1 < W ? x1 + 1 : W;
+    for (int r = 0; r <= H; ++r) {
+      if (r < H) {
+        float* slot = ring + (r % 3) * ring_cols * kTapOut;
+        for (int c0 = lo; c0 < hi; c0 += per_pass) {
+          const int col = c0 + px;
+          float acc[kTapOut] = {};
+          if (col < hi) {
+            const T* xp = xb + ((long long)r * W + col) * ldx;
+            for (int vv = slice; vv < V; vv += kLanes) {
+              float e[8];
+              load8_masked(xp + 8 * vv, 8 * vv, C, vec, e);
 #pragma unroll
-            for (int i = 0; i < 8; ++i) {
-              const int c = 8 * vv + i;
-              const float z = e[i] * a_s[c] + b_s[c];
-              const float s = z * (1.f / (1.f + expf(-z)));
-              const float y = to_f32(from_f32<T>(s));  // rounded once
-              const float* wc = w_s + c * kTapOut;
+              for (int i = 0; i < 8; ++i) {
+                const int c = 8 * vv + i;
+                const float z = e[i] * a_s[c] + b_s[c];
+                const float s = z * (1.f / (1.f + expf(-z)));
+                const float y = to_f32(from_f32<T>(s));  // rounded once
+                const float* wc = w_s + c * kTapOut;
 #pragma unroll
-              for (int j = 0; j < kTapOut; ++j)
-                acc[j] = fmaf(y, wc[j], acc[j]);
+                for (int j = 0; j < kTapOut; ++j)
+                  acc[j] = fmaf(y, wc[j], acc[j]);
+              }
             }
           }
-        }
-        // Sum over the kLanes lanes of this pixel (all lanes take part).
+          // Sum over the kLanes lanes of this pixel (all lanes take part).
 #pragma unroll
-        for (int j = 0; j < kTapOut; ++j) {
+          for (int j = 0; j < kTapOut; ++j) {
 #pragma unroll
-          for (int off = kLanes / 2; off > 0; off >>= 1)
-            acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], off);
-        }
-        if (slice == 0 && col < W)
-#pragma unroll
-          for (int j = 0; j < kTapOut; ++j) slot[col * kTapOut + j] = acc[j];
-      }
-    }
-    __syncthreads();
-    if (r >= 1) {
-      const int orow = r - 1;
-      for (int i = tid; i < W * kOut; i += kThreads) {
-        const int col = i / kOut, k = i - col * kOut;
-        float sum = 0.f;
-        for (int dy = -1; dy <= 1; ++dy) {
-          const int rr = orow + dy;
-          if (rr < 0 || rr >= H) continue;
-          const float* slot = ring + (rr % 3) * W * kTapOut;
-          for (int dx = -1; dx <= 1; ++dx) {
-            const int cc = col + dx;
-            if (cc < 0 || cc >= W) continue;
-            const int tap = (dy + 1) * 3 + (dx + 1);
-            sum += slot[cc * kTapOut + tap * kOut + k];
+            for (int off = kLanes / 2; off > 0; off >>= 1)
+              acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], off);
           }
+          if (slice == 0 && col < hi)
+#pragma unroll
+            for (int j = 0; j < kTapOut; ++j)
+              slot[(col - lo) * kTapOut + j] = acc[j];
         }
-        const long long o = (((long long)b * H + orow) * W + col) * kOut + k;
-        out[o] = from_f32<T>(sum);
       }
+      __syncthreads();
+      if (r >= 1) {
+        const int orow = r - 1;
+        for (int i = tid; i < (x1 - x0) * kOut; i += kThreads) {
+          const int col = x0 + i / kOut, k = i % kOut;
+          float sum = 0.f;
+          for (int dy = -1; dy <= 1; ++dy) {
+            const int rr = orow + dy;
+            if (rr < 0 || rr >= H) continue;
+            const float* slot = ring + (rr % 3) * ring_cols * kTapOut;
+            for (int dx = -1; dx <= 1; ++dx) {
+              const int cc = col + dx;
+              if (cc < 0 || cc >= W) continue;
+              const int tap = (dy + 1) * 3 + (dx + 1);
+              sum += slot[(cc - lo) * kTapOut + tap * kOut + k];
+            }
+          }
+          const long long o = (((long long)b * H + orow) * W + col) * ldo + k;
+          if (accumulate) sum += to_f32(out[o]);
+          out[o] = from_f32<TO>(sum);
+        }
+      }
+      __syncthreads();
     }
-    __syncthreads();
   }
 }
 
@@ -468,18 +513,20 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
                               (int)bytes);
 }
 
-template <typename T, int KOUT>
+template <typename T, typename TO, int KOUT>
 int launch_out_head(const void* x, const float* scale, const float* bias,
                     const void* w, void* out, int B, int H, int W, int C,
-                    int G, float eps, cudaStream_t st) {
+                    int G, int ldx, int ldo, int tile_w, int vec,
+                    int accumulate, float eps, cudaStream_t st) {
   const size_t bytes =
-      sizeof(float) * (size_t)out_head_smem_floats(W, C, G, KOUT);
+      sizeof(float) * (size_t)out_head_smem_floats(W, C, G, KOUT, tile_w);
   if (bytes > 232448) return (int)cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(out_head_kernel<T, KOUT>, bytes);
+  cudaError_t err = allow_smem(out_head_kernel<T, TO, KOUT>, bytes);
   if (err != cudaSuccess) return (int)err;
-  out_head_kernel<T, KOUT><<<B, kThreads, bytes, st>>>(
+  out_head_kernel<T, TO, KOUT><<<B, kThreads, bytes, st>>>(
       static_cast<const T*>(x), scale, bias, static_cast<const T*>(w),
-      static_cast<T*>(out), H, W, C, G, eps);
+      static_cast<TO*>(out), H, W, C, G, ldx, ldo, tile_w, vec, accumulate,
+      eps);
   return (int)cudaGetLastError();
 }
 
@@ -518,47 +565,61 @@ int launch_in_conv_mma(const void* x, const void* wp, void* out, int B, int H,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename TO>
 int launch_out_head_cout(const void* x, const float* scale, const float* bias,
                          const void* w, void* out, int B, int H, int W, int C,
-                         int G, int Cout, float eps, cudaStream_t st) {
+                         int G, int Cout, int ldx, int ldo, int tile_w,
+                         int vec, int accumulate, float eps,
+                         cudaStream_t st) {
+#define DMU_OUT_HEAD_ARGS \
+  x, scale, bias, w, out, B, H, W, C, G, ldx, ldo, tile_w, vec, accumulate, \
+      eps, st
   switch (Cout) {
-    case 1: return launch_out_head<T, 1>(x, scale, bias, w, out, B, H, W, C,
-                                         G, eps, st);
-    case 2: return launch_out_head<T, 2>(x, scale, bias, w, out, B, H, W, C,
-                                         G, eps, st);
-    case 3: return launch_out_head<T, 3>(x, scale, bias, w, out, B, H, W, C,
-                                         G, eps, st);
-    case 4: return launch_out_head<T, 4>(x, scale, bias, w, out, B, H, W, C,
-                                         G, eps, st);
-    case 5: return launch_out_head<T, 5>(x, scale, bias, w, out, B, H, W, C,
-                                         G, eps, st);
-    case 6: return launch_out_head<T, 6>(x, scale, bias, w, out, B, H, W, C,
-                                         G, eps, st);
-    case 7: return launch_out_head<T, 7>(x, scale, bias, w, out, B, H, W, C,
-                                         G, eps, st);
+    case 1: return launch_out_head<T, TO, 1>(DMU_OUT_HEAD_ARGS);
+    case 2: return launch_out_head<T, TO, 2>(DMU_OUT_HEAD_ARGS);
+    case 3: return launch_out_head<T, TO, 3>(DMU_OUT_HEAD_ARGS);
+    case 4: return launch_out_head<T, TO, 4>(DMU_OUT_HEAD_ARGS);
+    case 5: return launch_out_head<T, TO, 5>(DMU_OUT_HEAD_ARGS);
+    case 6: return launch_out_head<T, TO, 6>(DMU_OUT_HEAD_ARGS);
+    case 7: return launch_out_head<T, TO, 7>(DMU_OUT_HEAD_ARGS);
   }
+#undef DMU_OUT_HEAD_ARGS
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// K6 on the CUDA cores: x [B,H,W,C], w [3,3,C,Cout] and out [B,H,W,Cout]
-// contiguous in one dtype (bf16 when is_bf16, else f32); scale and bias f32
-// [C]. C a multiple of 8 and of G, at most 2048; Cout from 1 to 7.
+// K6 on the CUDA cores, one pass over one chunk: x [B,H,W,C] at pixel
+// stride ldx (a chunk of a wider x), w [3,3,C,Cout] contiguous and out
+// [B,H,W,Cout] at pixel stride ldo, in one dtype (bf16 when is_bf16, else
+// f32), or out in f32 (out_f32) for a bf16 x whose chunks accumulate; scale
+// and bias f32 [C]. C a multiple of G, at most 2048; Cout from 1 to 7;
+// `vec` only where C, ldx and x's address allow 16-byte vectors;
+// `accumulate` adds to out (f32 out only).
 extern "C" int dmu_out_head(const void* x, const float* scale,
                             const float* bias, const void* w, void* out,
                             int B, int H, int W, int C, int G, int Cout,
-                            float eps, int is_bf16, void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || C % 8 != 0 || C / 8 > kThreads ||
-      G <= 0 || C % G != 0 || Cout < 1 || Cout > kMaxOut)
+                            float eps, int is_bf16, int ldx, int ldo,
+                            int tile_w, int vec, int out_f32, int accumulate,
+                            void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || C > kMaxChunk || G <= 0 ||
+      C % G != 0 || Cout < 1 || Cout > kMaxOut || ldx < C || ldo < Cout ||
+      tile_w < 1 || (accumulate && !out_f32 && is_bf16) ||
+      (vec && (C % 8 != 0 || ldx % 8 != 0 ||
+               reinterpret_cast<uintptr_t>(x) % 16 != 0)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16 && out_f32)
+    return launch_out_head_cout<bf16, float>(
+        x, scale, bias, w, out, B, H, W, C, G, Cout, ldx, ldo, tile_w, vec,
+        accumulate, eps, st);
   if (is_bf16)
-    return launch_out_head_cout<bf16>(x, scale, bias, w, out, B, H, W, C, G,
-                                      Cout, eps, st);
-  return launch_out_head_cout<float>(x, scale, bias, w, out, B, H, W, C, G,
-                                     Cout, eps, st);
+    return launch_out_head_cout<bf16, bf16>(
+        x, scale, bias, w, out, B, H, W, C, G, Cout, ldx, ldo, tile_w, vec,
+        0, eps, st);
+  return launch_out_head_cout<float, float>(
+      x, scale, bias, w, out, B, H, W, C, G, Cout, ldx, ldo, tile_w, vec,
+      accumulate, eps, st);
 }
 
 // K7 in f32 on the CUDA cores: x [B,H,W,3], w [3,3,3,Cout] and out

@@ -2,9 +2,10 @@
 ``--model_type`` strings)."""
 
 from .base import BaseDiffusionModel
+from .ddim import DDIM
 from .ddpm import DDPM
 from .unet import UNet
 
-MODEL_REGISTRY = {"ddpm": DDPM}
+MODEL_REGISTRY = {"ddpm": DDPM, "ddim": DDIM}
 
-__all__ = ["BaseDiffusionModel", "DDPM", "UNet", "MODEL_REGISTRY"]
+__all__ = ["BaseDiffusionModel", "DDIM", "DDPM", "UNet", "MODEL_REGISTRY"]

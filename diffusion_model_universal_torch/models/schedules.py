@@ -1,6 +1,7 @@
 """Noise schedules and the core diffusion math (counterpart of the
-reference's ``models/schedules.py``, the DDPM sampling and training
-slice).
+reference's ``models/schedules.py``): the DDPM schedule and steps, the
+learned-variance (VLB) terms, and the tables of the DDIM, DPM-Solver++,
+Karras-Heun and strided samplers.
 
 Schedules are f32 tensors on the model's device; per-step math gathers
 them with [B] integer timesteps and broadcasts to NHWC image rank.
@@ -9,6 +10,8 @@ them with [B] integer timesteps and broadcasts to NHWC image rank.
 from __future__ import annotations
 
 import dataclasses
+import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -159,3 +162,268 @@ def ddpm_posterior_step(schedule: NoiseSchedule, x: torch.Tensor,
     sigma = torch.sqrt(_bcast(schedule.posterior_variance, t))
     nonzero = (t > 0).to(x.dtype)[:, None, None, None]
     return mean + nonzero * sigma * noise
+
+
+def respace_timesteps(num_timesteps: int, num_sampling_steps: int
+                      ) -> torch.Tensor:
+    """Evenly respaced timestep subsequence for the strided ancestral
+    sampler (iDDPM §4): S indices from 0 to T−1 inclusive, strictly
+    increasing (int64, on the CPU)."""
+    if not 2 <= num_sampling_steps <= num_timesteps:
+        raise ValueError(
+            f"num_steps must be in [2, {num_timesteps}] "
+            f"(got {num_sampling_steps})")
+    ts = np.round(np.linspace(0, num_timesteps - 1,
+                              num_sampling_steps)).astype(np.int64)
+    assert (np.diff(ts) > 0).all()  # spacing ≥ 1 ⇒ no duplicates
+    return torch.from_numpy(ts)
+
+
+def respaced_schedule(schedule: NoiseSchedule,
+                      timesteps: torch.Tensor) -> NoiseSchedule:
+    """The coarse schedule over a timestep subsequence: the marginals
+    ᾱ_new[i] = ᾱ[ts[i]] kept, β_new[i] = 1 − ᾱ_new[i]/ᾱ_new[i−1] (with
+    ᾱ_new[−1] := 1), every other buffer derived from β_new."""
+    abar = schedule.alphas_cumprod[timesteps.to(
+        schedule.alphas_cumprod.device)]
+    abar_prev = torch.cat([torch.ones(1, dtype=abar.dtype,
+                                      device=abar.device), abar[:-1]])
+    return schedule_from_betas(1.0 - abar / abar_prev)
+
+
+def posterior_log_variance_clipped(schedule: NoiseSchedule) -> torch.Tensor:
+    """log β̃_t with β̃_0 (exactly 0) replaced by β̃_1: the lower end of
+    the learned-range interpolation and the true posterior's
+    log-variance in the VLB."""
+    pv = schedule.posterior_variance
+    return torch.log(torch.cat([pv[1:2], pv[1:]]))
+
+
+def learned_range_log_variance(schedule: NoiseSchedule, v: torch.Tensor,
+                               t: torch.Tensor) -> torch.Tensor:
+    """iDDPM's learned-range variance (eq. 15): log σ²_t = f·log β_t +
+    (1−f)·log β̃_t with f = (v+1)/2, ``v`` the raw variance head
+    (unclamped), in f32."""
+    min_log = _bcast(posterior_log_variance_clipped(schedule), t)
+    max_log = _bcast(torch.log(schedule.betas), t)
+    frac = (v.float() + 1.0) * 0.5
+    return frac * max_log + (1.0 - frac) * min_log
+
+
+def q_posterior_mean(schedule: NoiseSchedule, x0: torch.Tensor,
+                     x_t: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Mean of q(x_{t−1} | x_t, x₀):
+    √ᾱ_{t−1}·β_t/(1−ᾱ_t)·x₀ + √α_t·(1−ᾱ_{t−1})/(1−ᾱ_t)·x_t."""
+    c0 = (torch.sqrt(schedule.alphas_cumprod_prev) * schedule.betas
+          / (1.0 - schedule.alphas_cumprod))
+    ct = (torch.sqrt(schedule.alphas) * (1.0 - schedule.alphas_cumprod_prev)
+          / (1.0 - schedule.alphas_cumprod))
+    return _bcast(c0, t) * x0 + _bcast(ct, t) * x_t
+
+
+def normal_kl(mean1, logvar1, mean2, logvar2) -> torch.Tensor:
+    """KL(N(mean1, e^{logvar1}) ‖ N(mean2, e^{logvar2})), elementwise, in
+    nats."""
+    return 0.5 * (-1.0 + logvar2 - logvar1 + torch.exp(logvar1 - logvar2)
+                  + (mean1 - mean2) ** 2 * torch.exp(-logvar2))
+
+
+def discretized_gaussian_log_likelihood(x: torch.Tensor, means: torch.Tensor,
+                                        log_scales: torch.Tensor
+                                        ) -> torch.Tensor:
+    """log p(x) of images in [−1, 1] quantized to 256 levels under
+    N(means, e^{2·log_scales}): the mass of the 2/255-wide bin around x
+    (open-ended edge bins), through the tanh approximation of the normal
+    CDF."""
+    def cdf(z):
+        return 0.5 * (1.0 + torch.tanh(math.sqrt(2.0 / math.pi)
+                                       * (z + 0.044715 * z ** 3)))
+
+    inv_std = torch.exp(-log_scales)
+    plus = cdf((x - means + 1.0 / 255.0) * inv_std)
+    minus = cdf((x - means - 1.0 / 255.0) * inv_std)
+    log_plus = torch.log(torch.clamp(plus, min=1e-12))
+    log_one_minus = torch.log(torch.clamp(1.0 - minus, min=1e-12))
+    log_delta = torch.log(torch.clamp(plus - minus, min=1e-12))
+    return torch.where(x < -0.999, log_plus,
+                       torch.where(x > 0.999, log_one_minus, log_delta))
+
+
+def vlb_term_bits(schedule: NoiseSchedule, x0: torch.Tensor,
+                  x_t: torch.Tensor, t: torch.Tensor, eps_pred: torch.Tensor,
+                  log_var: torch.Tensor) -> torch.Tensor:
+    """[B] VLB term L_{t−1} in bits/dim: KL(q(x_{t−1}|x_t,x₀) ‖
+    p(x_{t−1}|x_t)) for t > 0, −log p(x₀|x₁) for t = 0; the model mean from
+    ``eps_pred`` with x̂₀ clipped to [−1, 1]."""
+    true_mean = q_posterior_mean(schedule, x0, x_t, t)
+    true_logvar = _bcast(posterior_log_variance_clipped(schedule), t)
+    a = _bcast(schedule.sqrt_alphas_cumprod, t)
+    s = _bcast(schedule.sqrt_one_minus_alphas_cumprod, t)
+    model_x0 = torch.clamp((x_t - s * eps_pred) / a, -1.0, 1.0)
+    model_mean = q_posterior_mean(schedule, model_x0, x_t, t)
+    kl = normal_kl(true_mean, true_logvar, model_mean, log_var)
+    kl = kl.reshape(kl.shape[0], -1).mean(dim=1) / math.log(2.0)
+    nll = -discretized_gaussian_log_likelihood(x0, model_mean, 0.5 * log_var)
+    nll = nll.reshape(nll.shape[0], -1).mean(dim=1) / math.log(2.0)
+    return torch.where(t == 0, nll, kl)
+
+
+def ddpm_posterior_step_learned(schedule: NoiseSchedule, x: torch.Tensor,
+                                t: torch.Tensor, eps_pred: torch.Tensor,
+                                log_var: torch.Tensor,
+                                noise: torch.Tensor) -> torch.Tensor:
+    """Ancestral reverse step with the model's learned log-variance: the
+    mean of :func:`ddpm_posterior_step`, σ = e^{log_var/2}."""
+    beta_t = _bcast(schedule.betas, t)
+    inv_sqrt_alpha_t = torch.rsqrt(_bcast(schedule.alphas, t))
+    sqrt_one_minus_ac = _bcast(schedule.sqrt_one_minus_alphas_cumprod, t)
+    mean = inv_sqrt_alpha_t * (x - beta_t / sqrt_one_minus_ac * eps_pred)
+    sigma = torch.exp(0.5 * log_var).to(x.dtype)
+    nonzero = (t > 0).to(x.dtype)[:, None, None, None]
+    return mean + nonzero * sigma * noise
+
+
+# -- the fast samplers' timestep tables ------------------------------------
+# The reference builds these tables in f32 before converting to integers,
+# so one ulp can move a timestep. _linspace_f32 does the f32 arithmetic of
+# jnp.linspace as XLA compiles it (the division by S−1 a multiply by its
+# f32 reciprocal, folded into the stop term); the Karras grid runs in f32
+# on the CPU (numpy's sqrt, torch's pow and log), which gives the
+# reference's table.
+
+def _linspace_f32(start: float, stop: float, num: int) -> np.ndarray:
+    """f32 ``jnp.linspace(start, stop, num)`` as XLA computes it:
+    start·(1 − i·r) + (stop·r)·i with r = 1/(num−1) in f32, the last entry
+    ``stop``."""
+    f = np.float32
+    s0, s1 = f(start), f(stop)
+    if num == 1:
+        return np.array([s0], f)
+    it = np.arange(num - 1, dtype=f)
+    r = f(1) / f(num - 1)
+    out = s0 * (f(1) - it * r) + (s1 * r) * it
+    return np.concatenate([out, [s1]]).astype(f)
+
+
+def ddim_timesteps(num_timesteps: int, num_sampling_steps: int,
+                   method: str = "uniform") -> torch.Tensor:
+    """The DDIM timestep subsequence (int64, CPU): ``uniform`` =
+    arange(0, T, T//S) (more than S entries when S does not divide T; the
+    sampler visits the first S), ``quad`` = linspace(0, √(0.8·T), S)²
+    truncated."""
+    if method == "uniform":
+        c = num_timesteps // num_sampling_steps
+        return torch.arange(0, num_timesteps, c, dtype=torch.long)
+    if method == "quad":
+        ts = _linspace_f32(0, (num_timesteps * 0.8) ** 0.5,
+                           num_sampling_steps)
+        return torch.from_numpy((ts * ts).astype(np.int32).astype(np.int64))
+    raise NotImplementedError(f"Unknown discretization method: {method}")
+
+
+@dataclasses.dataclass(frozen=True)
+class DDIMParams:
+    """DDIM sampling buffers, indexed by step position i (not by
+    timestep value): the timesteps, ᾱ and ᾱ_prev at them, the η-scaled σ
+    and √(1−ᾱ)."""
+
+    timesteps: torch.Tensor
+    alphas: torch.Tensor
+    alphas_prev: torch.Tensor
+    sigmas: torch.Tensor
+    sqrt_one_minus_alphas: torch.Tensor
+
+
+def make_ddim_params(schedule: NoiseSchedule, num_sampling_steps: int = 50,
+                     method: str = "uniform", eta: float = 0.0) -> DDIMParams:
+    """DDIM buffers with σ = η·√((1−ᾱ_prev)/(1−ᾱ)·(1−ᾱ/ᾱ_prev))."""
+    ac = schedule.alphas_cumprod
+    ts = ddim_timesteps(schedule.num_timesteps, num_sampling_steps,
+                        method).to(ac.device)
+    alphas = ac[ts]
+    alphas_prev = torch.cat([ac[0:1], ac[ts[:-1]]])
+    sigmas = eta * torch.sqrt(
+        (1 - alphas_prev) / (1 - alphas) * (1 - alphas / alphas_prev))
+    return DDIMParams(timesteps=ts, alphas=alphas, alphas_prev=alphas_prev,
+                      sigmas=sigmas,
+                      sqrt_one_minus_alphas=torch.sqrt(1.0 - alphas))
+
+
+def ddim_step(params: DDIMParams, x: torch.Tensor, i: int,
+              eps_pred: torch.Tensor, noise: Optional[torch.Tensor],
+              eta: float) -> torch.Tensor:
+    """One DDIM update at step position ``i``: x̂₀ clamped to [−1, 1], the
+    direction √(1−ᾱ_prev−σ²)·ε̂, and for η > 0 the noise clamped to
+    [−3, 3] times σ."""
+    alpha = params.alphas[i]
+    alpha_prev = params.alphas_prev[i]
+    sigma = params.sigmas[i]
+    pred_x0 = (x - params.sqrt_one_minus_alphas[i] * eps_pred) \
+        * torch.rsqrt(alpha)
+    pred_x0 = torch.clamp(pred_x0, -1.0, 1.0)
+    dir_xt = torch.sqrt(torch.clamp(1.0 - alpha_prev - sigma ** 2,
+                                    min=0.0)) * eps_pred
+    out = torch.sqrt(alpha_prev) * pred_x0 + dir_xt
+    if eta > 0:
+        out = out + sigma * torch.clamp(noise, -3.0, 3.0)
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class DPMSolverParams:
+    """DPM-Solver++(2M) buffers: S timesteps from T−1 down to 0, α = √ᾱ,
+    σ = √(1−ᾱ) and λ = log(α/σ) at them."""
+
+    timesteps: torch.Tensor
+    alpha: torch.Tensor
+    sigma: torch.Tensor
+    lam: torch.Tensor
+
+
+def make_dpm_solver_params(schedule: NoiseSchedule,
+                           num_sampling_steps: int = 20) -> DPMSolverParams:
+    """S timesteps uniform in t (linspace(T−1, 0, S) in f32, rounded half
+    to even) and the half-log-SNR grid."""
+    T = schedule.num_timesteps
+    ts = np.round(_linspace_f32(T - 1, 0, num_sampling_steps)).astype(
+        np.int64)
+    ac = schedule.alphas_cumprod
+    abar = ac[torch.from_numpy(ts).to(ac.device)]
+    alpha = torch.sqrt(abar)
+    sigma = torch.sqrt(1.0 - abar)
+    return DPMSolverParams(timesteps=torch.from_numpy(ts).to(ac.device),
+                           alpha=alpha, sigma=sigma,
+                           lam=torch.log(alpha / sigma))
+
+
+@dataclasses.dataclass(frozen=True)
+class KarrasHeunParams:
+    """Karras-spaced Heun buffers: the ρ-spaced σ̂ grid snapped to the
+    discrete schedule (decreasing timesteps), √ᾱ and σ̂ = √(1−ᾱ)/√ᾱ at
+    them."""
+
+    timesteps: torch.Tensor
+    alpha: torch.Tensor
+    sigma_hat: torch.Tensor
+
+
+def make_karras_heun_params(schedule: NoiseSchedule,
+                            num_sampling_steps: int = 18,
+                            rho: float = 7.0) -> KarrasHeunParams:
+    """σ̂ᵢ = (σ̂_max^{1/ρ} + i/(S−1)·(σ̂_min^{1/ρ} − σ̂_max^{1/ρ}))^ρ, each
+    snapped to argmin_t |log σ̂(t) − log σ̂ᵢ| (f32, on the CPU)."""
+    ac = schedule.alphas_cumprod
+    abar = ac.detach().cpu().float().numpy()
+    # numpy's f32 sqrt is correctly rounded, as XLA's; torch's vectorized
+    # one can differ by an ulp.
+    sig_hat_all = torch.from_numpy(np.sqrt((np.float32(1) - abar) / abar))
+    s_min, s_max = sig_hat_all[0], sig_hat_all[-1]
+    i = torch.from_numpy(_linspace_f32(0.0, 1.0, num_sampling_steps))
+    inv = 1.0 / rho
+    grid = (s_max ** inv + i * (s_min ** inv - s_max ** inv)) ** rho
+    ts = torch.argmin(torch.abs(torch.log(sig_hat_all)[None, :]
+                                - torch.log(grid)[:, None]), dim=1)
+    ts = ts.to(ac.device)
+    abar_s = ac[ts]
+    return KarrasHeunParams(timesteps=ts, alpha=torch.sqrt(abar_s),
+                            sigma_hat=torch.sqrt((1.0 - abar_s) / abar_s))

@@ -17,7 +17,13 @@ Counterpart of the reference's ``scripts/exp_boundary_kernel.py``:
   other bf16 shapes) and ``"f32"`` (the same kernel in f32). Each route
   has its own launch count. :func:`out_head_launch_plan` cuts a call for
   the sm90 route; the C entry checks the plan and computes none of its
-  own.
+  own. A launch of either kernel takes up to 7 output channels: wider
+  heads run in passes of at most 7 (each output depends only on its own
+  column of w, so the passes are exact), each pass a launch. The CUDA-core
+  kernel also takes a chunk of at most 2048 input channels on group
+  boundaries and walks each row in column tiles; :func:`out_head_simt_plan`
+  splits C where the chunk's f32 weight does not fit its block, and the
+  chunks' partial outputs are summed in f32 and cast once.
 * :func:`in_conv_plain` — the 27-column im2col matrix times w [27, Cout]
   in f32, the arithmetic of ``_kernel_in_conv``; the oracle of kernel K7
   (``csrc/boundary_conv.cu``), which runs bf16 on the tensor cores
@@ -32,7 +38,8 @@ Counterpart of the reference's ``scripts/exp_boundary_kernel.py``:
 
 :func:`out_head` and :func:`in_conv` route a CPU tensor to the plain
 version and a CUDA tensor to the kernel; there is no fallback between
-them. The out-head takes Cout from 1 to 7 on every route.
+them. The out-head takes any Cout ≥ 1 and any C a multiple of the groups
+whose groups are at most 2048 channels wide.
 """
 
 from __future__ import annotations
@@ -59,7 +66,9 @@ OUT_HEAD_ROUTES = ("sm90", "simt", "f32")
 _SIMT_ARGS = [
     _VOID, _VOID, _VOID, _VOID, _VOID,      # x, scale, bias, w, out
     _INT, _INT, _INT, _INT, _INT, _INT,     # B, H, W, C, G, Cout
-    ctypes.c_float, _INT, _VOID,            # eps, is_bf16, stream
+    ctypes.c_float, _INT,                   # eps, is_bf16
+    _INT, _INT, _INT, _INT,                 # ldx, ldo, tile_w, vec
+    _INT, _INT, _VOID,                      # out_f32, accumulate, stream
 ]
 _SM90_ARGS = [
     _VOID, _VOID, _VOID, _VOID, _VOID,      # x, scale, bias, packed w, out
@@ -92,9 +101,10 @@ IN_CONV_MMA_KERNEL = Kernel("boundary_conv", "dmu_in_conv_mma", [
 #: K7's bf16 K: the 27 im2col columns padded to two k16 steps.
 IN_CONV_K = 32
 
-#: The out-head's widest output: 9 taps × 7 fill the sm90 route's 64
-#: columns.
+#: The widest output of one K6 launch: 9 taps × 7 fill the sm90 route's
+#: 64 columns. Wider heads run in passes (:func:`out_head_passes`).
 MAX_COUT = 7
+#: The sm90 route's widest C, and the CUDA-core kernel's widest chunk of C.
 MAX_C = 2048
 #: The sm90 route: the block sizes its plan weighs (about 128 and 256
 #: threads) and the most it takes. Its kernel is bound by latency (each
@@ -115,13 +125,108 @@ SM90_C_STEP = 64
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def out_head_smem_bytes(w: int, c: int, g: int, cout: int) -> int:
+def out_head_smem_bytes(w: int, c: int, g: int, cout: int,
+                        tile_w: int = 0) -> int:
     """Shared memory of one block of the CUDA-core K6 (routes simt and
-    f32): the weight in f32 [C, 9·Cout], four [C] and two [G] vectors,
-    and the larger of the statistics' partial sums (2 × 256 × 8) and the
-    ring of 3 rows of 9·Cout partial products."""
+    f32) on a chunk of ``c`` channels in ``g`` groups and a pass of
+    ``cout`` outputs: the weight in f32 [C, 9·Cout], four [C] and two [G]
+    vectors (C padded to whole 8-channel vectors), and the larger of the
+    statistics' partial sums (2 × 256 × 8) and the ring of 3 rows of
+    9·Cout partial products, as wide as a tile of ``tile_w`` columns and
+    its two halo columns (the whole row by default, or where the tile
+    takes it)."""
     taps = 9 * cout
-    return 4 * (taps * c + 4 * c + 2 * g + max(2 * 256 * 8, 3 * w * taps))
+    cp = -(-c // 8) * 8
+    cols = w if not tile_w else min(w, tile_w + 2)
+    return 4 * (taps * cp + 4 * cp + 2 * g + max(2 * 256 * 8,
+                                                  3 * cols * taps))
+
+
+def out_head_passes(cout: int, n: int = 0) -> Tuple[Tuple[int, int], ...]:
+    """The output channels of each K6 launch, ``(k0, k1)``: ``n`` passes
+    (by default as few of at most :data:`MAX_COUT` as cover ``cout``),
+    their widths differing by at most one."""
+    if cout < 1:
+        raise ValueError(f"the out-head takes Cout ≥ 1, got {cout}")
+    n = n or -(-cout // MAX_COUT)
+    return tuple((i * cout // n, (i + 1) * cout // n) for i in range(n))
+
+
+@dataclass(frozen=True)
+class OutHeadSimtPlan:
+    """How the CUDA-core K6 cuts one call: each of ``passes`` (output
+    channels ``(k0, k1)``) over each of ``chunks`` (input channels
+    ``(c0, c1)`` on group boundaries, at most :data:`MAX_C` wide), one
+    launch each, every row walked in tiles of ``tile_w`` columns;
+    ``vec``: the chunks are whole 16-byte vectors of x; ``smem_bytes``:
+    the largest block's shared memory. With more than one chunk the
+    launches after a pass's first add to its output, in f32."""
+    passes: Tuple[Tuple[int, int], ...]
+    chunks: Tuple[Tuple[int, int], ...]
+    tile_w: int
+    vec: bool
+    smem_bytes: int
+
+    @property
+    def launches(self) -> int:
+        return len(self.passes) * len(self.chunks)
+
+    def describe(self) -> str:
+        return (f"{len(self.passes)} pass(es) of Cout "
+                f"{[k1 - k0 for k0, k1 in self.passes]} x "
+                f"{len(self.chunks)} chunk(s) of C "
+                f"{[c1 - c0 for c0, c1 in self.chunks]}, tiles of "
+                f"{self.tile_w} columns, vec {int(self.vec)}, smem "
+                f"{self.smem_bytes} B")
+
+
+def out_head_simt_plan(h: int, wd: int, c: int, g: int,
+                       cout: int) -> OutHeadSimtPlan:
+    """The CUDA-core K6's cut of x [B, H, W, C] in ``g`` groups into
+    Cout ``cout``: the fewest passes (:func:`out_head_passes`, narrower
+    ones only where a group does not fit otherwise), then the widest
+    chunks of whole groups (and whole 8-channel vectors where C allows)
+    whose block fits 227 KB, in as few chunks of near-equal width as
+    cover C, then whole rows where the ring fits, else the widest tile.
+    Raises ``ValueError`` for a group wider than 2048 channels, which no
+    block's statistics hold."""
+    if min(h, wd) <= 0 or g <= 0 or c <= 0 or c % g or cout < 1:
+        raise ValueError(f"bad out-head shape H={h} W={wd} C={c} G={g} "
+                         f"Cout={cout}")
+    gs = c // g
+    if gs > MAX_C:
+        raise ValueError(f"K6 takes groups of at most {MAX_C} channels, "
+                         f"got {gs} (C={c}, num_groups={g})")
+    unit = gs * 8 // math.gcd(gs, 8) if c % 8 == 0 else gs
+    if unit > MAX_C:
+        unit = gs
+    vec = c % 8 == 0 and unit % 8 == 0
+    units = c // unit
+    budget = MAX_SMEM_BYTES // 4
+
+    def spare(cc: int, kp: int) -> int:    # floats left for the ring
+        cp = -(-cc // 8) * 8
+        return budget - (9 * kp * cp + 4 * cp + 2 * (cc // gs))
+
+    n_min = -(-cout // MAX_COUT)
+    for n in range(n_min, cout + 1):
+        kp = -(-cout // n)
+        if n > n_min and kp == -(-cout // (n - 1)):
+            continue
+        fits = [u for u in range(min(units, MAX_C // unit), 0, -1)
+                if spare(u * unit, kp) >= max(2 * 256 * 8, 3 * 3 * 9 * kp)]
+        if not fits:
+            continue
+        n_chunks = -(-units // fits[0])
+        per = -(-units // n_chunks) * unit
+        chunks = tuple((c0, min(c0 + per, c)) for c0 in range(0, c, per))
+        cols = spare(per, kp) // (27 * kp)
+        tile = wd if cols >= wd else cols - 2
+        return OutHeadSimtPlan(out_head_passes(cout, n), chunks, tile, vec,
+                               out_head_smem_bytes(wd, per, per // gs, kp,
+                                                   tile))
+    raise ValueError(f"K6's CUDA-core kernel cannot hold a group of {gs} "
+                     f"channels at W={wd}")
 
 
 def in_conv_smem_bytes(cout: int) -> int:
@@ -150,7 +255,10 @@ class OutHeadPlan:
     product has ``columns`` columns, ``mtiles`` m16 tiles a warp at once,
     and its f32 result P is stored column-major with ``p_stride`` pixels a
     column; ``smem_bytes`` of dynamic shared memory a block. The C entry
-    launches as many clusters as the card holds at once, at most B."""
+    launches as many clusters as the card holds at once, at most B. A head
+    of more than 7 outputs runs in ``passes`` (output channels ``(k0,
+    k1)``, :func:`out_head_passes`), one launch each; the numbers above
+    are those of the widest pass."""
     cluster: int
     rows: int
     threads: int
@@ -158,15 +266,20 @@ class OutHeadPlan:
     columns: int
     p_stride: int
     smem_bytes: int
+    passes: Tuple[Tuple[int, int], ...]
 
     def launch_args(self) -> Tuple[int, ...]:
         return (self.cluster, self.rows, self.threads, self.mtiles,
                 self.p_stride, self.smem_bytes)
 
     def describe(self) -> str:
+        passes = (f", {len(self.passes)} passes of Cout "
+                  f"{[k1 - k0 for k0, k1 in self.passes]}"
+                  if len(self.passes) > 1 else "")
         return (f"clusters of {self.cluster} blocks x {self.rows} rows, "
-                f"{self.threads} threads, {self.columns} columns, {self.mtiles} m16 tile(s) a warp, "
-                f"P stride {self.p_stride}, smem {self.smem_bytes} B")
+                f"{self.threads} threads, {self.columns} columns, "
+                f"{self.mtiles} m16 tile(s) a warp, P stride "
+                f"{self.p_stride}, smem {self.smem_bytes} B{passes}")
 
 
 def out_head_sm90_threads(c: int) -> Tuple[int, ...]:
@@ -236,18 +349,19 @@ def out_head_launch_plan(b: int, h: int, wd: int, c: int, g: int,
     the one that keeps the most blocks on an SM
     (:func:`out_head_blocks_per_sm`), then more threads, then the smaller
     cluster; the cluster larger while the batch
-    alone does not cover the SMs. Raises ``ValueError`` for what the route
-    does not take: C not a multiple of 64 or over 2048, Cout outside 1–7,
-    or a band that no 8-block cluster fits into 227 KB."""
+    alone does not cover the SMs. Cout over 7 runs in passes
+    (:func:`out_head_passes`), planned for the widest. Raises
+    ``ValueError`` for what the route does not take: C not a multiple of
+    64 or over 2048, Cout under 1, or a band that no 8-block cluster fits
+    into 227 KB."""
     if min(b, h, wd) <= 0 or g <= 0 or c % g:
         raise ValueError(f"bad out-head shape B={b} H={h} W={wd} C={c} "
                          f"G={g}")
     if c % SM90_C_STEP or c > MAX_C:
         raise ValueError(f"the sm90 route takes C a multiple of "
                          f"{SM90_C_STEP} up to {MAX_C}, got C={c}")
-    if not 1 <= cout <= MAX_COUT:
-        raise ValueError(f"the out-head takes Cout from 1 to {MAX_COUT}, "
-                         f"got {cout}")
+    passes = out_head_passes(cout)
+    cout = max(k1 - k0 for k0, k1 in passes)
     sizes = out_head_sm90_threads(c)
     if not sizes:
         raise ValueError(f"C={c}: a block of whole warps and whole rows "
@@ -266,7 +380,8 @@ def out_head_launch_plan(b: int, h: int, wd: int, c: int, g: int,
                                             threads, cout)
             if smem > MAX_SMEM_BYTES:
                 continue
-            plan = OutHeadPlan(cl, rows, threads, mt, columns, stride, smem)
+            plan = OutHeadPlan(cl, rows, threads, mt, columns, stride, smem,
+                               passes)
             key = (out_head_blocks_per_sm(smem, threads), threads)
             if cl not in best or key > best[cl][0]:
                 best[cl] = (key, plan)
@@ -286,22 +401,22 @@ def out_head_route(x_shape, w_shape, num_groups: int,
     """Which kernel K6 runs for x [B, H, W, C] and w [3, 3, C, Cout] of
     ``dtype`` in ``num_groups`` groups: ``"sm90"`` for bf16 where
     :func:`out_head_launch_plan` takes the shape, else ``"simt"`` for
-    bf16 and ``"f32"`` for float32, where the CUDA-core kernel's block
-    fits (:func:`out_head_smem_bytes`). Raises ValueError for what no
-    route takes: C not a multiple of 8 and of the groups or over 2048,
-    Cout outside 1–7, another dtype, or a CUDA-core block over 227 KB."""
+    bf16 and ``"f32"`` for float32, cut by :func:`out_head_simt_plan`.
+    Raises ValueError for what no route takes, as the reference's
+    ``out_head_pallas`` refuses it or no block can hold it: C not a
+    multiple of the groups, Cout under 1, another dtype, or a group wider
+    than 2048 channels."""
     if len(x_shape) != 4 or len(w_shape) != 4 or \
             tuple(w_shape[:3]) != (3, 3, x_shape[-1]):
         raise ValueError(f"x must be [B, H, W, C] and w [3, 3, C, Cout], "
                          f"got {tuple(x_shape)} and {tuple(w_shape)}")
     b, h, wd, c = (int(v) for v in x_shape)
     cout = int(w_shape[-1])
-    if c % 8 or num_groups <= 0 or c % num_groups or c > MAX_C:
-        raise ValueError(f"K6 takes C a multiple of 8 and of num_groups, "
-                         f"at most {MAX_C}; got C={c}, "
+    if num_groups <= 0 or c % num_groups:
+        raise ValueError(f"K6 takes C a multiple of num_groups; got C={c}, "
                          f"num_groups={num_groups}")
-    if not 1 <= cout <= MAX_COUT:
-        raise ValueError(f"K6 takes Cout from 1 to {MAX_COUT}, got {cout}")
+    if cout < 1:
+        raise ValueError(f"K6 takes Cout ≥ 1, got {cout}")
     if dtype not in _KERNEL_DTYPES:
         raise ValueError(f"x must be float32 or bfloat16, got {dtype}")
     if dtype == torch.bfloat16:
@@ -310,10 +425,7 @@ def out_head_route(x_shape, w_shape, num_groups: int,
             return "sm90"
         except ValueError:
             pass
-    smem = out_head_smem_bytes(wd, c, num_groups, cout)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"K6's CUDA-core kernel would need {smem} bytes of "
-                         f"shared memory at W={wd}, C={c}, Cout={cout}")
+    out_head_simt_plan(max(h, 1), max(wd, 1), c, num_groups, cout)
     return "f32" if dtype == torch.float32 else "simt"
 
 
@@ -399,7 +511,8 @@ def out_head_cuda(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     and bias [C] are cast to f32 here. ``route="simt"`` runs a bf16 shape
     of the sm90 route on the CUDA-core kernel instead (to time it beside
     the sm90 route); any other choice than the router's raises
-    ValueError."""
+    ValueError. Each pass (and each chunk of C on the CUDA-core kernel) is
+    one launch of its route."""
     picked = out_head_route(x.shape, w.shape, num_groups, x.dtype)
     _check_dtype_device(x, w, "out_head_cuda")
     if route and route != picked and not (route, picked) == ("simt",
@@ -407,14 +520,10 @@ def out_head_cuda(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         raise ValueError(f"route {route!r} does not take this call (the "
                          f"router picks {picked!r})")
     route = route or picked
-    if route == "simt" and out_head_smem_bytes(
-            x.shape[2], x.shape[3], num_groups, w.shape[3]) > MAX_SMEM_BYTES:
-        raise ValueError("the CUDA-core kernel's block does not fit this "
-                         "shape")
     b, h, wd, c = x.shape
     cout = w.shape[-1]
     x = x.contiguous()
-    if x.data_ptr() % 16:   # the sm90 route copies 16-byte vectors
+    if x.data_ptr() % 16:   # both kernels read 16-byte vectors
         x = x.clone()
     scale = scale.to(x.device, torch.float32).contiguous()
     bias = bias.to(x.device, torch.float32).contiguous()
@@ -426,16 +535,35 @@ def out_head_cuda(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     stream = torch.cuda.current_stream(x.device).cuda_stream
     kernel = OUT_HEAD_KERNELS[route]
     if route == "sm90":
-        plan = out_head_launch_plan(b, h, wd, c, num_groups, cout)
-        wt = pack_out_head_weight(w)
-        kernel(x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-               wt.data_ptr(), out.data_ptr(), b, h, wd, c, num_groups, cout,
-               float(eps), *plan.launch_args(), stream)
-    else:
-        w = w.contiguous()
-        kernel(x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-               w.data_ptr(), out.data_ptr(), b, h, wd, c, num_groups, cout,
-               float(eps), int(x.dtype == torch.bfloat16), stream)
+        passes = out_head_passes(cout)
+        for k0, k1 in passes:
+            plan = out_head_launch_plan(b, h, wd, c, num_groups, k1 - k0)
+            wt = pack_out_head_weight(w[..., k0:k1])
+            dst = out if len(passes) == 1 else x.new_empty((b, h, wd,
+                                                           k1 - k0))
+            kernel(x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                   wt.data_ptr(), dst.data_ptr(), b, h, wd, c, num_groups,
+                   k1 - k0, float(eps), *plan.launch_args(), stream)
+            if dst is not out:
+                out[..., k0:k1] = dst
+        return out
+    plan = out_head_simt_plan(h, wd, c, num_groups, cout)
+    gs = c // num_groups
+    # Chunks of a bf16 x sum into an f32 output, cast once at the end.
+    acc = out if len(plan.chunks) == 1 or x.dtype == torch.float32 else \
+        torch.empty((b, h, wd, cout), device=x.device, dtype=torch.float32)
+    is_bf16 = int(x.dtype == torch.bfloat16)
+    for k0, k1 in plan.passes:
+        for i, (c0, c1) in enumerate(plan.chunks):
+            wk = w[:, :, c0:c1, k0:k1].contiguous()
+            kernel(x.data_ptr() + c0 * x.element_size(),
+                   scale.data_ptr() + 4 * c0, bias.data_ptr() + 4 * c0,
+                   wk.data_ptr(), acc.data_ptr() + k0 * acc.element_size(),
+                   b, h, wd, c1 - c0, (c1 - c0) // gs, k1 - k0, float(eps),
+                   is_bf16, c, cout, plan.tile_w, int(plan.vec),
+                   int(acc.dtype != x.dtype), int(i > 0), stream)
+    if acc is not out:
+        out.copy_(acc)
     return out
 
 

@@ -1,10 +1,13 @@
 """Sample-generation CLI of the port (counterpart of the reference's
-``scripts/generate.py``, the ancestral-sampler slice).
+``scripts/generate.py``).
 
     python -m diffusion_model_universal_torch.scripts.generate \
-        --config diffusion_model_universal_torch/configs/ddpm_config.yaml \
-        --model_type ddpm --checkpoint path/to/model.ckpt \
-        [--num_samples N] [--output_dir D] [--device cuda|cpu]
+        --config diffusion_model_universal_torch/configs/ddim_config.yaml \
+        --model_type ddpm|ddim --checkpoint path/to/model.ckpt \
+        [--num_samples N] [--output_dir D] [--device cuda|cpu] \
+        [--sampler default|dpm++|heun|strided --sampler_steps S] \
+        [--class_id K --guidance_scale G] \
+        [--inpaint_image IMG.npy --inpaint_mask MASK.npy]
 
 Runs on ``cuda`` unless ``--device cpu`` is given. Reads the model-only
 checkpoint that either package writes, or a trainer checkpoint directory
@@ -26,6 +29,11 @@ from pathlib import Path
 from .. import NOT_PORTED
 
 MODEL_TYPES = ("ddpm", "ddim", "score_based", "energy_based")
+#: The fast samplers, by the name a request or ``--sampler`` gives, and
+#: the model method that runs each.
+FAST_SAMPLERS = {"dpm++": "generate_samples_dpm",
+                 "heun": "generate_samples_heun",
+                 "strided": "generate_samples_strided"}
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -45,15 +53,64 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="cuda (default) or cpu")
     p.add_argument("--num_devices", type=int, default=None)
     p.add_argument("--sampler", type=str, default="default",
-                   choices=["default", "dpm++", "heun", "strided"])
-    p.add_argument("--sampler_steps", type=int, default=20)
-    p.add_argument("--class_id", type=int, default=None)
-    p.add_argument("--guidance_scale", type=float, default=3.0)
+                   choices=["default", *FAST_SAMPLERS],
+                   help="'default' = the model family's own sampler; "
+                        "'dpm++' = DPM-Solver++(2M) (one model eval a "
+                        "step); 'heun' = Karras-spaced Heun (two evals an "
+                        "update); 'strided' = respaced stochastic "
+                        "ancestral (the fast path for learn_sigma models)")
+    p.add_argument("--sampler_steps", type=int, default=20,
+                   help="Grid size for --sampler dpm++/heun/strided")
+    p.add_argument("--class_id", type=int, default=None,
+                   help="Class label for conditional checkpoints "
+                        "(model_config.num_classes > 0)")
+    p.add_argument("--guidance_scale", type=float, default=3.0,
+                   help="Classifier-free guidance scale for --class_id "
+                        "(1.0 = plain conditional)")
     p.add_argument("--grid_only", action="store_true",
                    help="Skip per-sample PNGs, save only the grid")
-    p.add_argument("--inpaint_image", type=str, default=None)
-    p.add_argument("--inpaint_mask", type=str, default=None)
+    p.add_argument("--inpaint_image", type=str, default=None,
+                   help=".npy conditioning image(s), [H,W,C] or [B,H,W,C] "
+                        "in [-1, 1]; regenerates the region where "
+                        "--inpaint_mask is 0 (ancestral sampler)")
+    p.add_argument("--inpaint_mask", type=str, default=None,
+                   help=".npy mask broadcastable to the image; 1 = keep, "
+                        "0 = generate (required with --inpaint_image)")
     return p
+
+
+def _load_inpaint_inputs(args, model):
+    """Load and check --inpaint_image/--inpaint_mask into [N,H,W,C] and a
+    mask that broadcasts to it (numpy f32)."""
+    import numpy as np
+    if args.inpaint_mask is None:
+        raise SystemExit("--inpaint_image requires --inpaint_mask")
+    if args.sampler != "default":
+        raise SystemExit("--inpaint_image uses the ancestral sampler; "
+                         "drop --sampler")
+    image = np.load(args.inpaint_image).astype(np.float32)
+    mask = np.load(args.inpaint_mask).astype(np.float32)
+    if image.ndim == 3:
+        image = image[None]
+    want = model.sample_shape(1)[1:]
+    if image.shape[1:] != tuple(want):
+        raise SystemExit(f"--inpaint_image shape {image.shape[1:]} != "
+                         f"model sample shape {tuple(want)}")
+    if image.shape[0] == 1 and args.num_samples > 1:
+        image = np.tile(image, (args.num_samples, 1, 1, 1))
+    if image.shape[0] != args.num_samples:
+        raise SystemExit(f"--inpaint_image batch {image.shape[0]} != "
+                         f"--num_samples {args.num_samples}")
+    if mask.ndim == 2:
+        mask = mask[None, :, :, None]
+    elif mask.ndim == 3:
+        mask = mask[None]
+    try:
+        np.broadcast_shapes(mask.shape, image.shape)
+    except ValueError:
+        raise SystemExit(f"--inpaint_mask shape {mask.shape} does not "
+                         f"broadcast to image shape {image.shape}")
+    return image, mask
 
 
 def resolve_model_config(config: dict, checkpoint: str) -> dict:
@@ -120,7 +177,7 @@ def plan_chunks(num_samples: int, model, model_cfg: dict):
 
 def check_ported(args) -> None:
     """Raise SystemExit for options this package does not run yet."""
-    if args.model_type != "ddpm":
+    if args.model_type not in ("ddpm", "ddim"):
         raise SystemExit(f"--model_type {args.model_type} is {NOT_PORTED}")
     if args.num_devices is not None and args.num_devices > 1:
         raise SystemExit(f"--num_devices > 1 is {NOT_PORTED}")
@@ -129,13 +186,6 @@ def check_ported(args) -> None:
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
     check_ported(args)
-    if args.sampler != "default":
-        raise SystemExit(f"--sampler {args.sampler} is {NOT_PORTED}")
-    if args.class_id is not None:
-        raise SystemExit(f"--class_id (classifier-free guidance) is "
-                         f"{NOT_PORTED}")
-    if args.inpaint_image is not None:
-        raise SystemExit(f"--inpaint_image is {NOT_PORTED}")
 
     import torch
 
@@ -148,11 +198,45 @@ def main(argv=None) -> int:
     model = MODEL_REGISTRY[args.model_type](model_cfg, device=args.device)
     load_params(model, args.checkpoint, args.ema)
 
+    conditional = args.class_id is not None
+    if conditional:
+        try:
+            model.make_class_labels(args.class_id, 1)
+        except ValueError as e:
+            raise SystemExit(f"--class_id: {e}")
+    inpaint = None
+    if args.inpaint_image is not None:
+        inpaint = _load_inpaint_inputs(args, model)
+    scale = args.guidance_scale if conditional else 1.0
+
+    def sample_chunk(start: int, n: int, gen: torch.Generator):
+        """One sampler call for samples [start, start + n), with this
+        chunk's labels and inpainting inputs."""
+        labels = (model.make_class_labels(args.class_id, n) if conditional
+                  else None)
+        if inpaint is not None:
+            image, mask = inpaint
+            mask = mask[start:start + n] if mask.shape[0] > 1 else mask
+            return model.generate_samples_inpaint(
+                torch.from_numpy(image[start:start + n]),
+                torch.from_numpy(mask), labels=labels, guidance_scale=scale,
+                generator=gen)
+        if args.sampler != "default":
+            try:
+                return getattr(model, FAST_SAMPLERS[args.sampler])(
+                    n, num_steps=args.sampler_steps, labels=labels,
+                    guidance_scale=scale, generator=gen)
+            except ValueError as e:  # --sampler_steps out of [2, T]
+                raise SystemExit(f"--sampler {args.sampler}: {e}")
+        if labels is not None:
+            return model.generate_samples_cfg(
+                n, labels, guidance_scale=args.guidance_scale, generator=gen)
+        return model.generate_samples(n, generator=gen)
+
     chunk, n_chunks = plan_chunks(args.num_samples, model, model_cfg)
     if n_chunks == 1:
         gen = torch.Generator(device=model.device).manual_seed(args.seed)
-        samples = model.generate_samples(args.num_samples,
-                                         generator=gen).cpu().numpy()
+        samples = sample_chunk(0, args.num_samples, gen).cpu().numpy()
     else:
         print(f"Memory preflight: {args.num_samples} samples split into "
               f"{n_chunks} chunks of {chunk} (estimated footprint exceeds "
@@ -160,10 +244,11 @@ def main(argv=None) -> int:
               flush=True)
         parts = []
         for ci in range(n_chunks):
-            n = min(chunk, args.num_samples - ci * chunk)
+            start = ci * chunk
+            n = min(chunk, args.num_samples - start)
             gen = torch.Generator(device=model.device).manual_seed(
                 chunk_seed(args.seed, ci))
-            parts.append(model.generate_samples(n, generator=gen).cpu())
+            parts.append(sample_chunk(start, n, gen).cpu())
         samples = torch.cat(parts).numpy()
     out = Path(args.output_dir)
     out.mkdir(parents=True, exist_ok=True)

@@ -14,15 +14,18 @@ Endpoints:
                                 devices, requests}
     POST /generate            → PNG grid (default) or raw .npy
          body: {"num_samples": int ≤ serve_batch, "seed": int,
-                "format": "png" | "npy"}
-    ``class_id``/``guidance_scale`` and the fast samplers
-    (``"sampler": "dpm++" | "heun" | "strided"``) are not ported yet and
-    answer 400.
+                "format": "png" | "npy",
+                "class_id": int (conditional checkpoints; CFG),
+                "guidance_scale": float (default 3.0),
+                "sampler": "default" | "dpm++" | "heun" | "strided",
+                "sampler_steps": int (default 20)}
+    ``default`` is the family's own sampler: DDPM's T ancestral steps,
+    DDIM's ``ddim_sampling_steps``.
 
 Usage:
     python -m diffusion_model_universal_torch.scripts.serve \
-        --config diffusion_model_universal_torch/configs/ddpm_config.yaml \
-        --model_type ddpm --checkpoint model.ckpt --port 8000 --device cuda
+        --config diffusion_model_universal_torch/configs/ddim_config.yaml \
+        --model_type ddim --checkpoint model.ckpt --port 8000 --device cuda
 """
 
 from __future__ import annotations
@@ -36,10 +39,7 @@ import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
-from .. import NOT_PORTED
-from .generate import MODEL_TYPES
-
-FAST_SAMPLERS = ("dpm++", "heun", "strided")
+from .generate import FAST_SAMPLERS, MODEL_TYPES
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -79,9 +79,13 @@ class SamplerService:
         return time.perf_counter() - t0
 
     def generate(self, num_samples: int, seed: int, class_id=None,
-                 sampler: str = "default"):
+                 guidance_scale: float = 3.0, sampler: str = "default",
+                 sampler_steps: int = 20):
         """Sample ``num_samples`` images (≤ serve_batch) as float32 NHWC
-        numpy in [-1, 1]."""
+        numpy in [-1, 1], always a whole serve_batch: ``sampler`` picks
+        the family's own sampler or a fast one of ``sampler_steps``
+        steps; ``class_id`` conditions on a class with classifier-free
+        guidance at ``guidance_scale`` (1.0 without labels)."""
         import numpy as np
         import torch
 
@@ -93,16 +97,27 @@ class SamplerService:
             raise ValueError(f"sampler must be one of "
                              f"{('default', *FAST_SAMPLERS)} "
                              f"(got {sampler!r})")
-        if sampler != "default":
-            raise ValueError(f"sampler {sampler!r} is {NOT_PORTED}")
+        labels = None
         if class_id is not None:
-            raise ValueError(f"class_id (classifier-free guidance) is "
-                             f"{NOT_PORTED}")
+            labels = self.model.make_class_labels(class_id,
+                                                  self.serve_batch)
         with self._lock:
             gen = torch.Generator(device=self.model.device)
             gen.manual_seed(seed)
-            batch = self.model.generate_samples(self.serve_batch,
-                                                generator=gen)
+            if sampler != "default":
+                batch = getattr(self.model, FAST_SAMPLERS[sampler])(
+                    self.serve_batch, num_steps=int(sampler_steps),
+                    labels=labels,
+                    guidance_scale=(float(guidance_scale)
+                                    if labels is not None else 1.0),
+                    generator=gen)
+            elif labels is not None:
+                batch = self.model.generate_samples_cfg(
+                    self.serve_batch, labels,
+                    guidance_scale=float(guidance_scale), generator=gen)
+            else:
+                batch = self.model.generate_samples(self.serve_batch,
+                                                    generator=gen)
             out = batch[:num_samples].cpu().numpy()
             self.requests += 1
         return np.asarray(out, dtype=np.float32)
@@ -151,10 +166,12 @@ def make_handler(service: SamplerService, model_type: str):
                         f"format must be 'png' or 'npy' (got {fmt!r})")
                 samples = service.generate(
                     num, seed, class_id=req.get("class_id"),
-                    sampler=req.get("sampler", "default"))
+                    guidance_scale=req.get("guidance_scale", 3.0),
+                    sampler=req.get("sampler", "default"),
+                    sampler_steps=req.get("sampler_steps", 20))
             except (ValueError, TypeError) as e:
                 # TypeError covers malformed field types (null num_samples,
-                # ...) — client errors, not 500s.
+                # string guidance_scale, ...) — client errors, not 500s.
                 return self._send_json(400, {"error": str(e)})
             except Exception as e:  # surface, don't kill the server
                 return self._send_json(500, {"error": repr(e)})

@@ -97,10 +97,11 @@ def test_gn_silu_conv3x3_plain_matches_pallas_and_xla():
         plain, _f32(jck.gn_silu_conv3x3_xla(jx, ja, jb, jw)), **F32_TOL)
 
 
-@pytest.mark.parametrize("cout", [1, 3])
+@pytest.mark.parametrize("cout", [1, 3, 8, 12])
 def test_out_head_plain_matches_pallas_and_xla(cout):
-    """Cout = 1 is MNIST's head, 3 the RGB datasets'; the dispatcher takes
-    both on the CPU."""
+    """Cout = 1 is MNIST's head, 3 the RGB datasets', 8 and 12 wider than
+    one K6 launch (which the card runs in passes); the dispatcher takes
+    each on the CPU."""
     (jx, tx), (jw, tw), (js, ts), (jb, tb) = _head_inputs(2, 4, 64,
                                                           cout=cout)
     plain = _f32(bc.out_head_plain(tx, ts, tb, tw, num_groups=32))
@@ -271,13 +272,19 @@ def test_wrappers_refuse_what_the_kernels_cannot_take():
                  lambda: bc.in_conv_cuda(x3, w3)):
         with pytest.raises(ValueError, match="CUDA"):
             call()
-    for call in (lambda: bc.out_head(hx, s, s, torch.zeros(3, 3, 64, 8)),
+    for call in (lambda: bc.out_head(hx, s, s, torch.zeros(3, 3, 64, 0)),
                  lambda: bc.out_head(hx, s, s, hw, num_groups=24),
-                 lambda: bc.out_head(torch.zeros(1, 4, 4000, 64), s, s, hw),
+                 lambda: bc.out_head(hx, s, s, torch.zeros(3, 3, 32, 3)),
                  lambda: bc.in_conv(x3, torch.zeros(3, 3, 3, 12)),
                  lambda: bc.in_conv(x, w)):
         with pytest.raises(ValueError):
             call()
+    # Cout 8 and a row wider than the CUDA-core block's ring now run (in
+    # passes, in column tiles); on the CPU the plain version.
+    for xx, ww in ((hx, torch.zeros(3, 3, 64, 8)),
+                   (torch.zeros(1, 4, 4000, 64), hw)):
+        assert torch.equal(bc.out_head(xx, s, s, ww),
+                           bc.out_head_plain(xx, s, s, ww))
     assert bc.out_head_smem_bytes(32, 128, 32, 3) < 48 * 1024
     assert bc.in_conv_smem_bytes(128) < 48 * 1024
 

@@ -293,8 +293,14 @@ def test_cuda_is_the_default_and_missing_cuda_raises(monkeypatch):
 
 
 def test_not_ported_options_raise():
+    """learn_sigma runs (its learned posterior step is held against JAX in
+    tests/test_torch_samplers.py); split_skip_convs: false does not."""
     tm = DDPM(dict(CFG, model_channels=8, learn_sigma=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tm.posterior_step_fn()
+    x = torch.zeros(1, 32, 32, 3)
+    with torch.no_grad():
+        out = tm.posterior_step_fn()(x, torch.ones(1).long(), x)
+    assert out.shape == x.shape and torch.isfinite(out).all()
+    with pytest.raises(ValueError, match="requires learn_sigma=true"):
+        DDPM(dict(CFG, model_channels=8), device="cpu").mean_var_fn()
     with pytest.raises(ValueError, match="not yet ported"):
         DDPM(dict(CFG, split_skip_convs=False), device="cpu")

@@ -59,6 +59,16 @@ PHASE10_CALLS = [
     (4, 64, 256, 32, 3, BF16, "simt"),      # no 8-block cluster holds it
     *[(2, 8, 96, 32, cout, dtype, route) for cout in range(1, 8)
       for dtype, route in ((BF16, "simt"), (F32, "f32"))],
+    (64, 32, 128, 32, 8, BF16, "sm90"),      # passes of at most 7
+    (64, 32, 128, 32, 16, BF16, "sm90"),
+    (16, 32, 128, 32, 12, F32, "f32"),
+    (2, 8, 96, 32, 9, BF16, "simt"),
+    (2, 4, 2048, 32, 3, F32, "f32"),        # chunks of C
+    (2, 4, 1760, 32, 3, F32, "f32"),
+    *[(2, 4, 2080, 32, cout, BF16, "simt") for cout in range(1, 8)],
+    (1, 700, 64, 32, 3, F32, "f32"),        # column tiles
+    (2, 8, 12, 4, 3, BF16, "simt"),         # element loads
+    (2, 8, 12, 4, 5, F32, "f32"),
 ]
 
 
@@ -73,7 +83,14 @@ def test_route_and_plan_of_each_phase10_call(call):
     assert bc.out_head_route((b, h, h, c), (3, 3, c, cout), g,
                              dtype) == route
     if route != "sm90":
-        assert bc.out_head_smem_bytes(h, c, g, cout) <= bc.MAX_SMEM_BYTES
+        plan = bc.out_head_simt_plan(h, h, c, g, cout)
+        assert plan.smem_bytes <= bc.MAX_SMEM_BYTES
+        assert [k for p in plan.passes for k in range(*p)] == list(
+            range(cout))
+        assert [i for p in plan.chunks for i in range(*p)] == list(range(c))
+        assert all((c1 - c0) % (c // g) == 0 and c1 - c0 <= bc.MAX_C
+                   for c0, c1 in plan.chunks)
+        assert all(k1 - k0 <= bc.MAX_COUT for k0, k1 in plan.passes)
         return
     plan = bc.out_head_launch_plan(b, h, h, c, g, cout)
     assert plan.cluster in (1, 2, 4, 8)
@@ -83,13 +100,15 @@ def test_route_and_plan_of_each_phase10_call(call):
     assert all(len(band) > 0 for band in bands)
     assert plan.threads % 32 == 0 and plan.threads % (c // 8) == 0
     assert plan.threads <= bc.SM90_MAX_THREADS
-    assert plan.columns == bc.out_head_columns(cout) >= 9 * cout
+    widest = max(k1 - k0 for k0, k1 in plan.passes)
+    assert plan.passes == bc.out_head_passes(cout)
+    assert plan.columns == bc.out_head_columns(widest) >= 9 * widest
     assert plan.mtiles in (1, 2) and (plan.mtiles == 1 or plan.columns <= 32)
     group = 16 * plan.mtiles
     assert plan.p_stride >= -(-plan.rows * h // group) * group
     assert plan.p_stride % 32 == 4
     assert plan.smem_bytes == bc.out_head_sm90_smem_bytes(
-        plan.rows, h, c, plan.columns, plan.p_stride, plan.threads, cout)
+        plan.rows, h, c, plan.columns, plan.p_stride, plan.threads, widest)
     assert plan.smem_bytes <= bc.MAX_SMEM_BYTES
     assert bc.out_head_blocks_per_sm(plan.smem_bytes, plan.threads) >= 1
 
@@ -121,7 +140,8 @@ def test_phase10_holds_every_kernel_instance():
     """chip_smoke.py's ``K6_HOLDS`` launch every template instance the two
     K6 sources build: the sm90 kernel's (n-tiles, m16 tiles a warp) pairs
     that ``pick`` returns, and the CUDA-core kernel's Cout cases in bf16
-    (simt) and in f32."""
+    (simt, one chunk of C), bf16 into an f32 output (simt, chunks of C)
+    and f32."""
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   REPO / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
@@ -130,30 +150,39 @@ def test_phase10_holds_every_kernel_instance():
         r"out_head_sm90_kernel<(\d+), (\d+)>",
         (CSRC / "out_head_sm90.cu").read_text())}
     simt = {int(m) for m in re.findall(
-        r"case (\d+): return launch_out_head<T, \1>",
+        r"case (\d+): return launch_out_head<T, TO, \1>",
         (CSRC / "boundary_conv.cu").read_text())}
+    pairs = set(re.findall(r"launch_out_head_cout<(\w+), (\w+)>",
+                           (CSRC / "boundary_conv.cu").read_text()))
     assert len(sm90) == 5 and simt == set(range(1, bc.MAX_COUT + 1))
-    held = {"sm90": set(), "simt": set(), "f32": set()}
+    assert pairs == {("bf16", "float"), ("bf16", "bf16"), ("float", "float")}
+    held = {"sm90": set(), "simt": set(), "simt_f32_out": set(),
+            "f32": set()}
     for b, h, c, g, cout, dname, route in smoke.K6_HOLDS:
         assert bc.out_head_route((b, h, h, c), (3, 3, c, cout), g,
                                  getattr(torch, dname)) == route
         if route == "sm90":
-            plan = bc.out_head_launch_plan(b, h, h, c, g, cout)
-            held[route].add((plan.columns // 8, plan.mtiles))
+            for k0, k1 in bc.out_head_passes(cout):
+                plan = bc.out_head_launch_plan(b, h, h, c, g, k1 - k0)
+                held[route].add((plan.columns // 8, plan.mtiles))
         else:
-            held[route].add(cout)
-    assert held == {"sm90": sm90, "simt": simt, "f32": simt}
+            plan = bc.out_head_simt_plan(h, h, c, g, cout)
+            key = "simt_f32_out" if route == "simt" and len(
+                plan.chunks) > 1 else route
+            held[key] |= {k1 - k0 for k0, k1 in plan.passes}
+    assert held == {"sm90": sm90, "simt": simt, "simt_f32_out": simt,
+                    "f32": simt}
 
 
 @pytest.mark.parametrize("x_shape,w_shape,g,dtype,match", [
-    ((2, 8, 8, 12), (3, 3, 12, 3), 4, BF16, "multiple of 8"),
+    ((2, 8, 8, 12), (3, 3, 12, 3), 8, BF16, "multiple of num_groups"),
     ((2, 8, 8, 64), (3, 3, 64, 3), 24, BF16, "num_groups"),
-    ((2, 8, 8, 4096), (3, 3, 4096, 3), 32, BF16, "at most 2048"),
-    ((2, 8, 8, 64), (3, 3, 64, 8), 32, BF16, "Cout from 1 to 7"),
-    ((2, 8, 8, 64), (3, 3, 64, 0), 32, F32, "Cout from 1 to 7"),
+    ((2, 8, 8, 4096), (3, 3, 4096, 3), 1, BF16, "at most 2048 channels"),
+    ((2, 8, 8, 64), (3, 3, 64, 0), 32, BF16, "Cout ≥ 1"),
+    ((2, 8, 8, 64), (3, 3, 64, 0), 32, F32, "Cout ≥ 1"),
     ((2, 8, 8, 64), (3, 3, 64, 3), 32, torch.float16, "float32 or bf"),
-    ((2, 4, 4, 2048), (3, 3, 2048, 3), 32, F32, "shared memory"),
-    ((1, 4, 4000, 64), (3, 3, 64, 3), 32, F32, "shared memory"),
+    ((2, 4, 4, 2048), (3, 3, 2048, 3), 0, F32, "num_groups"),
+    ((1, 4, 4000, 64), (3, 3, 64, 3), 3, F32, "multiple of num_groups"),
     ((2, 8, 8, 64), (3, 3, 32, 3), 32, F32, "w \\[3, 3, C, Cout\\]"),
 ])
 def test_route_refuses_what_no_kernel_takes(x_shape, w_shape, g, dtype,
@@ -165,7 +194,7 @@ def test_route_refuses_what_no_kernel_takes(x_shape, w_shape, g, dtype,
 @pytest.mark.parametrize("args,match", [
     ((2, 8, 8, 96, 32, 3), "multiple of 64"),
     ((2, 128, 128, 256, 32, 3), "cannot hold a band"),
-    ((2, 8, 8, 64, 32, 8), "Cout from 1 to 7"),
+    ((2, 8, 8, 64, 32, 0), "Cout ≥ 1"),
 ])
 def test_plan_refuses_what_the_sm90_route_does_not_take(args, match):
     with pytest.raises(ValueError, match=match):
@@ -313,7 +342,7 @@ def test_emulated_partition_matches_plain(b, h, wd, c, g, cout, cluster):
     np.testing.assert_allclose(got, want, atol=1e-10, rtol=1e-10)
 
 
-@pytest.mark.parametrize("cout", [1, 3])
+@pytest.mark.parametrize("cout", [1, 3, 8, 16])
 def test_dispatcher_takes_narrow_heads_on_the_cpu(cout):
     rng = np.random.default_rng(cout)
     x = torch.from_numpy(rng.normal(size=(2, 5, 5, 64))).float()
@@ -324,3 +353,100 @@ def test_dispatcher_takes_narrow_heads_on_the_cpu(cout):
     assert got.shape == (2, 5, 5, cout)
     assert torch.equal(got, bc.out_head_plain(x, s, bias, w))
     assert {r: k.launches for r, k in bc.OUT_HEAD_KERNELS.items()} == before
+
+
+# -- the CUDA-core kernel's passes, chunks and column tiles ----------------
+
+def _emulate_simt(x, scale, bias, w, g):
+    """``csrc/boundary_conv.cu``'s out_head_kernel in f64 over the launches
+    of :func:`out_head_simt_plan`: each pass of output channels over each
+    chunk of C (its own group statistics, channels padded to whole 8-vectors
+    with a zero weight and affine), every row walked in tiles of
+    ``tile_w`` columns with the ring of 3 rows × (tile + halo) columns of
+    9·Cout partial products, chunks after the first adding to the
+    output."""
+    b, h, wd, c = x.shape
+    cout = w.shape[-1]
+    plan = bc.out_head_simt_plan(h, wd, c, g, cout)
+    gs = c // g
+    out = np.zeros((b, h, wd, cout))
+    silu = lambda z: z / (1.0 + np.exp(-z))   # noqa: E731
+    for k0, k1 in plan.passes:
+        kp = k1 - k0
+        for i, (c0, c1) in enumerate(plan.chunks):
+            cc = c1 - c0
+            cp = -(-cc // 8) * 8
+            xc = np.zeros((b, h, wd, cp))
+            xc[..., :cc] = x[..., c0:c1]
+            wc = np.zeros((cp, 9 * kp))
+            wc[:cc] = w[:, :, c0:c1, k0:k1].reshape(9, cc, kp).transpose(
+                1, 0, 2).reshape(cc, 9 * kp)
+            assert bc.out_head_smem_bytes(wd, cc, cc // gs, kp,
+                                          plan.tile_w) <= plan.smem_bytes
+            ring_cols = min(wd, plan.tile_w + 2)
+            for s in range(b):
+                xs = xc[s].reshape(-1, cp)
+                colsum, colsq = xs.sum(0)[:cc], (xs * xs).sum(0)[:cc]
+                n = h * wd * gs
+                mean = colsum.reshape(-1, gs).sum(1) / n
+                var = np.maximum(colsq.reshape(-1, gs).sum(1) / n
+                                 - mean ** 2, 0)
+                rstd = 1 / np.sqrt(var + 1e-5)
+                a = np.zeros(cp)
+                bb = np.zeros(cp)
+                a[:cc] = np.repeat(rstd, gs) * scale[c0:c1]
+                bb[:cc] = bias[c0:c1] - np.repeat(mean, gs) * a[:cc]
+                for x0 in range(0, wd, plan.tile_w):
+                    x1 = min(x0 + plan.tile_w, wd)
+                    lo, hi = max(x0 - 1, 0), min(x1 + 1, wd)
+                    assert hi - lo <= ring_cols
+                    ring = np.full((3, ring_cols, 9 * kp), np.nan)
+                    for r in range(h + 1):
+                        if r < h:
+                            y = silu(xc[s, r, lo:hi] * a + bb)
+                            ring[r % 3, :hi - lo] = y @ wc
+                        if r == 0:
+                            continue
+                        orow = r - 1
+                        for col in range(x0, x1):
+                            for k in range(kp):
+                                tot = 0.0
+                                for dy in (-1, 0, 1):
+                                    rr = orow + dy
+                                    if not 0 <= rr < h:
+                                        continue
+                                    for dx in (-1, 0, 1):
+                                        cx = col + dx
+                                        if not 0 <= cx < wd:
+                                            continue
+                                        tap = (dy + 1) * 3 + dx + 1
+                                        tot += ring[rr % 3, cx - lo,
+                                                    tap * kp + k]
+                                if i:
+                                    tot += out[s, orow, col, k0 + k]
+                                out[s, orow, col, k0 + k] = tot
+    return out, plan
+
+
+@pytest.mark.parametrize("b,h,wd,c,g,cout,n_passes,n_chunks,tiled", [
+    (2, 5, 6, 64, 32, 12, 2, 1, False),     # Cout 12: passes of 6
+    (1, 3, 4, 2048, 32, 3, 1, 2, False),    # the f32 C the block refused
+    (1, 2, 3, 2080, 32, 9, 2, 2, False),    # passes and chunks
+    (1, 3, 900, 16, 8, 3, 1, 1, True),      # a row wider than the ring
+    (2, 4, 5, 12, 4, 2, 1, 1, False),       # C not whole 8-vectors
+])
+def test_emulated_simt_cut_matches_plain(b, h, wd, c, g, cout, n_passes,
+                                         n_chunks, tiled):
+    rng = np.random.default_rng(c + cout)
+    x = rng.normal(size=(b, h, wd, c)) * 0.5 + 0.3
+    scale = rng.normal(size=c) * 0.2 + 1.0
+    bias = rng.normal(size=c) * 0.1
+    w = rng.normal(size=(3, 3, c, cout)) * (1 / (9 * c)) ** 0.5
+    got, plan = _emulate_simt(x, scale, bias, w, g)
+    assert (len(plan.passes), len(plan.chunks)) == (n_passes, n_chunks)
+    assert (plan.tile_w < wd) == tiled
+    assert plan.smem_bytes <= bc.MAX_SMEM_BYTES
+    assert plan.vec == (c % 8 == 0)
+    want = bc.out_head_plain(*(torch.from_numpy(v) for v in
+                               (x, scale, bias, w)), num_groups=g).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-10, rtol=1e-10)

@@ -8,6 +8,7 @@ urllib.
 
 import io
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -120,12 +121,13 @@ def test_generate_png_decodes(server):
     ({"num_samples": 2, "format": "jpeg"}, "format"),
     ({"num_samples": None}, ""),
     ({"num_samples": 2, "sampler": "euler"}, "sampler must be one of"),
-    ({"num_samples": 2, "sampler": "dpm++"}, "not yet ported"),
-    ({"num_samples": 2, "sampler": "strided", "sampler_steps": 4},
-     "not yet ported"),
-    ({"num_samples": 2, "class_id": 3}, "not yet ported"),
+    # T = 4: DPM++'s default 20 steps and 5 strided steps exceed it.
+    ({"num_samples": 2, "sampler": "dpm++"}, "num_steps must be in [2, 4]"),
+    ({"num_samples": 2, "sampler": "strided", "sampler_steps": 5},
+     "num_steps must be in [2, 4] (got 5)"),
+    ({"num_samples": 2, "class_id": 3}, "model is unconditional"),
     ({"num_samples": 2, "class_id": 0, "guidance_scale": "x"},
-     "not yet ported"),
+     "model is unconditional"),
 ])
 def test_generate_rejects_bad_or_unported_requests(server, body, fragment):
     code, error = _post_error(server, body)
@@ -140,7 +142,7 @@ def test_unknown_path_404(server):
 
 @pytest.mark.parametrize("extra,fragment", [
     (("--device", "cpu", "--num_devices", "2"), "--num_devices"),
-    (("--device", "cpu", "--model_type", "ddim"), "ddim"),
+    (("--device", "cpu", "--model_type", "score_based"), "score_based"),
 ])
 def test_make_server_refuses_unported_options(files, extra, fragment):
     with pytest.raises(SystemExit, match=fragment):
@@ -163,9 +165,14 @@ def test_generate_cli_on_cpu(files, tmp_path):
     assert grid.shape == (34 + 2, 2 * 34 + 2, 3)
     assert images.decode_png(
         (tmp_path / "sample_0001.png").read_bytes()).shape == (32, 32, 3)
-    for extra in (["--sampler", "dpm++"], ["--class_id", "1"],
-                  ["--inpaint_image", "x.npy"]):
-        with pytest.raises(SystemExit, match="not yet ported"):
+    assert gen_cli.main(base + ["--sampler", "dpm++", "--sampler_steps",
+                                "3"]) == 0
+    for extra, fragment in (
+            (["--sampler", "dpm++"], "--sampler dpm++: num_steps must be"),
+            (["--class_id", "1"], "--class_id: model is unconditional"),
+            (["--inpaint_image", "x.npy"],
+             "--inpaint_image requires --inpaint_mask")):
+        with pytest.raises(SystemExit, match=re.escape(fragment)):
             gen_cli.main(base + extra)
     # A directory that is not one of the port's trainer checkpoints (a
     # JAX Orbax directory, say) is refused with a clear error.
