@@ -87,7 +87,8 @@ Then the samplers, through the entry points a user calls:
 
 11. a. holds each new sampler on the card against the same sampler on
        the CPU (f32, B=2, full width, the same x_T and injected draws,
-       within 1e-3 + 1e-3·|ref|): DDIM S=4 at η=0 and 0.5, DPM++ S=4,
+       within 1e-3 + 1e-3·|ref|: each network call at the card's input,
+       then the samples on the same network outputs): DDIM S=4 at η=0 and 0.5, DPM++ S=4,
        Heun S=3, strided S=4, CFG 3.0 through DDIM S=4 and DPM++ S=4 on
        the conditional model, inpainting at ``num_timesteps: 10`` (a cut),
        and on the learned-variance model 3 ancestral steps, strided S=4,
@@ -106,6 +107,30 @@ Then the samplers, through the entry points a user calls:
        checkpoint, ``generate --class_id 3`` and ``--inpaint_image/
        --inpaint_mask`` on a saved conditional model, and ``train`` with
        ``learn_sigma: true``.
+
+Then the score-based and energy-based families, at the published widths
+of ``score_based_config.yaml`` (the same C=128 UNet with a σ embedding)
+and ``energy_based_config.yaml`` (the EnergyNet, C=128 on 3+128 input
+channels):
+
+12. a. holds each family on the card against the CPU (f32, B=2, the same
+       weights and injected draws, within 1e-3 + 1e-3·|ref|): the σ-UNet
+       at σ 0.01, 1 and 50; 2 levels × 2 Langevin steps (each score, then
+       the iterate relative to its size); the DSM loss and every gradient;
+       the EnergyNet's E and ∇ₓE; CD + GP and the energy DSM with their
+       second-order gradients; 2 levels of each energy sampler;
+    b. serves each family over HTTP in bf16 at the serve batch with one
+       cut, 50 levels × 10 Langevin steps (``FAMILIES``): a warm-up and
+       three timed requests, the seconds, images/s, host ms a network
+       evaluation, the published ladder's forecast and the device busy
+       share of 5 of a request's levels (``torch.profiler``); the score
+       request must launch K1 and K3 exactly 53× and 5× its 500
+       forwards, the energy request no K1, K2 or K3 (its GroupNorm is the
+       plain version, as the reference's is XLA's);
+    c. runs ``train`` for 3 steps at each config's batch of 64 on the
+       synthetic set (the score training must launch K1, K2 and K3, the
+       energy training none) and ``generate --ema`` from its checkpoint,
+       the YAML copies cut to 5 levels (``FAMILY_CLI_CUTS``).
 
 The last three lines of standard output are the ``kernels`` JSON line
 (all seven kernels),
@@ -813,10 +838,10 @@ def time_dispatch(model, steps: int = 50, reps: int = 10):
     return out
 
 
-def profile_run(run_step, steps: int, what: str):
+def profile_run(run_step, steps: int, what: str, warmup: int = 3):
     """Device busy share, kernel launches, our kernels' device ms and the
     top kernels per call of ``run_step`` over ``steps`` calls
-    (torch.profiler, after 3 warm-up calls); 'not measured' when it
+    (torch.profiler, after ``warmup`` warm-up calls); 'not measured' when it
     records no device time. Only device-side events (the kernels and
     copies themselves) are summed: a CPU op's entry repeats the device
     time of the kernels it launched. The top CPU ops by the device time
@@ -824,7 +849,7 @@ def profile_run(run_step, steps: int, what: str):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
+    for _ in range(warmup):
         run_step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2056,7 +2081,8 @@ def card_and_cpu(variant: str, **extra):
 def hold_samplers():
     """Phase 11a: each new sampler on the card against the same sampler on
     the CPU (the plain versions there), f32, B=2, full width, the same x_T
-    and injected draws; within UNET_TOL."""
+    and injected draws: each network call at the card's input, then the
+    samples on the same network outputs; within UNET_TOL."""
     import torch
     from diffusion_model_universal_torch.models import DDPM
     gen = torch.Generator().manual_seed(SEED + 21)
@@ -2071,14 +2097,51 @@ def hold_samplers():
     errs = {}
 
     def pair(name, run, card, cpu, noise, **kw):
-        """run(model, noise=..., **kw) on both; kw tensors moved."""
-        with torch.inference_mode():
-            want = run(cpu, noise=noise, **kw)
-            got = run(card, noise=on(DEVICE, noise),
-                      **{k: v.to(DEVICE) if torch.is_tensor(v) else v
-                         for k, v in kw.items()})
-        torch.cuda.synchronize()
-        errs[name] = hold(f"{name}, card vs CPU", got.cpu(), want, UNET_TOL)
+        """run(model, noise=..., **kw) on the card (kw tensors moved),
+        then on the CPU with each network call evaluated at the card's
+        input, held against the card's output within UNET_TOL, and the
+        card's output passed on; then the two samples within UNET_TOL.
+
+        Two independent trajectories are not compared: a 3- or 4-step
+        sampler from t = 999 divides ε̂ by √ᾱ ≈ 0.006 in x̂₀, which lifts
+        the network's f32 rounding, card against CPU, to the order of the
+        bound (CFG 3.0 through DPM++ S=4 read 1.17e-3 to 1.58e-3 over four
+        runs of the same code)."""
+        calls = []
+        net_card, net_cpu = card.apply, cpu.apply
+
+        def recorded(x, t, y=None, train=False):
+            out = net_card(x, t, y, train)
+            calls.append((x.cpu(), t.cpu(), None if y is None else y.cpu(),
+                          out.cpu()))
+            return out
+
+        replay, worst = iter(calls), []
+
+        def replayed(x, t, y=None, train=False):
+            xc, tc, yc, out = next(replay)
+            check(torch.equal(t, tc) and (y is None) == (yc is None),
+                  f"{name}: the CPU run called the network at another step")
+            worst.append(hold_quiet(out, net_cpu(xc, tc, yc, train)))
+            return out
+
+        card.apply, cpu.apply = recorded, replayed
+        try:
+            with torch.inference_mode():
+                got = run(card, noise=on(DEVICE, noise),
+                          **{k: v.to(DEVICE) if torch.is_tensor(v) else v
+                             for k, v in kw.items()})
+                torch.cuda.synchronize()
+                want = run(cpu, noise=noise, **kw)
+        finally:
+            del card.apply, cpu.apply
+        check(calls and next(replay, None) is None,
+              f"{name}: the two runs called the network unequally")
+        log(f"  {name}: {len(calls)} network calls at the card's inputs, "
+            f"card vs CPU: max abs err {max(worst):.3e} ok")
+        errs[name] = {"network": max(worst), "samples": hold(
+            f"{name}, card vs CPU on the card's network outputs", got.cpu(),
+            want, UNET_TOL)}
 
     for eta in (0.0, 0.5):
         card, cpu = card_and_cpu("ddim", ddim_sampling_steps=4, eta=eta)
@@ -2370,6 +2433,420 @@ def samplers(per_forward):
             "profile_ddim50": profile, "cli": cli, "seconds": secs}
 
 
+# -- the score-based and energy-based families (phase 12) -------------------
+
+SCORE_CONFIG = (REPO / "diffusion_model_universal_torch" / "configs"
+                / "score_based_config.yaml")
+ENERGY_CONFIG = (REPO / "diffusion_model_universal_torch" / "configs"
+                 / "energy_based_config.yaml")
+#: Each family's config, the cut of its request in phase 12b (the only
+#: change to the published config), and the network evaluations of a
+#: request at that cut and on the published ladder: the score family's
+#: UNet forwards (num_scales × langevin_steps), the energy family's ∇ₓE
+#: (levels × langevin_steps).
+FAMILIES = {
+    "score_based": (SCORE_CONFIG, {"num_scales": 50, "langevin_steps": 10},
+                    500, 1000 * 10),
+    "energy_based": (ENERGY_CONFIG,
+                     {"num_timesteps": 50, "langevin_steps": 10}, 500,
+                     1000 * 10),
+}
+#: Phase 12c's cut of the CLIs' YAML copies: the sample grid and
+#: ``generate`` draw 5 levels, not the published 1000.
+FAMILY_CLI_CUTS = {"score_based": {"num_scales": 5},
+                   "energy_based": {"num_timesteps": 5}}
+FAMILY_TRAIN_BATCH = 64     # both configs' training.batch_size
+
+
+def family_config(family: str, **extra):
+    from diffusion_model_universal_torch.utils.config import (
+        canonicalize_model_config, load_config, resolve_interpolations)
+    cfg = canonicalize_model_config(resolve_interpolations(load_config(
+        str(FAMILIES[family][0])))["model_config"])
+    return dict(cfg, **extra)
+
+
+def family_model(family: str, device, state=None, trainable=False,
+                 **extra):
+    """The family's model at its published width on ``device`` from seeded
+    weights (the zero-initialized leaves given small seeded values), or
+    holding ``state``; ``extra`` overrides config keys."""
+    import torch
+    from diffusion_model_universal_torch.models import MODEL_REGISTRY
+    model = MODEL_REGISTRY[family](family_config(family, **extra),
+                                   device=device, seed=SEED,
+                                   trainable=trainable)
+    with torch.no_grad():
+        if state is not None:
+            model.net.load_state_dict(state)
+        else:
+            gen = torch.Generator().manual_seed(SEED + 1)
+            for p in model.net.parameters():
+                if not p.any():
+                    p.copy_(0.02 * torch.randn(p.shape, generator=gen))
+    return model
+
+
+def family_pair(family: str, trainable=False, **extra):
+    """The family in f32 (dropout off) on the card and the same weights
+    on the CPU."""
+    extra = dict(compute_dtype="float32", dropout=0.0, **extra)
+    card = family_model(family, DEVICE, trainable=trainable, **extra)
+    state = {k: v.cpu() for k, v in card.net.state_dict().items()}
+    return card, family_model(family, "cpu", state, trainable=trainable,
+                              **extra)
+
+
+def loss_and_grads(model, x, **draws):
+    """Loss and every parameter gradient of ``model.loss_function``
+    (zeros for a parameter the loss does not reach)."""
+    import torch
+    loss = model.loss_function(x, **draws)
+    grads = torch.autograd.grad(loss, list(model.net.parameters()),
+                                allow_unused=True, materialize_grads=True)
+    return loss.detach().cpu(), [g.cpu() for g in grads]
+
+
+def hold_loss_and_grads(name, card, cpu, x, **draws):
+    """``loss_and_grads`` on the card against the CPU within UNET_TOL."""
+    want_loss, want = loss_and_grads(cpu, x, **draws)
+    got_loss, got = loss_and_grads(
+        card, x.to(DEVICE), **{k: [t.to(DEVICE) for t in v]
+                               if isinstance(v, list) else v.to(DEVICE)
+                               for k, v in draws.items()})
+    err = hold(f"{name}, card vs CPU", got_loss, want_loss, UNET_TOL)
+    worst = max(hold_quiet(g, w) for g, w in zip(got, want))
+    log(f"  {name} gradients, card vs CPU: {len(want)} tensors, max abs "
+        f"err {worst:.3e} ok")
+    return {"loss": err, "gradients": worst}
+
+
+def hold_families():
+    """Phase 12a: both families on the card against the CPU (the plain
+    versions there), f32, B=2, published widths, the same weights and
+    injected draws, within UNET_TOL: the σ-UNet at σ 0.01, 1 and 50,
+    2 levels × 2 Langevin steps (each score, then the iterate relative to
+    its size: the top of the ladder multiplies a score's error by
+    (σβ)²·2 = 5000), the DSM loss and its gradients, the EnergyNet's E and
+    ∇ₓE, CD + GP and the energy DSM with their (second-order) gradients,
+    and 2 levels of each energy sampler."""
+    import torch
+    gen = torch.Generator().manual_seed(SEED + 31)
+    shape = (2, 32, 32, 3)
+
+    def draws(n):
+        return [torch.randn(shape, generator=gen) for _ in range(n)]
+
+    def on(tensors):
+        return [t.to(DEVICE) for t in tensors]
+
+    errs = {}
+    x = torch.rand(shape, generator=gen) * 2 - 1
+    card, cpu = family_pair("score_based", trainable=True)
+    log(f"[model] score_based_config.yaml: C={card.config['model_channels']}"
+        f", {card.num_scales} levels x {card.langevin_steps} steps, "
+        f"{sum(p.numel() for p in card.net.parameters())} parameters")
+    for sigma in (0.01, 1.0, 50.0):
+        s = torch.full((2,), sigma)
+        with torch.no_grad():
+            want = cpu.apply(x, s)
+            got = card.apply(x.to(DEVICE), s.to(DEVICE))
+        torch.cuda.synchronize()
+        errs[f"score UNet sigma={sigma}"] = hold(
+            f"score UNet at sigma {sigma}, card vs CPU", got.cpu(), want,
+            UNET_TOL)
+    sigma = torch.tensor([0.05, 20.0])
+    errs["DSM loss"] = hold_loss_and_grads(
+        "DSM loss (sigma 0.05, 20)", card, cpu, x, sigma=sigma,
+        noise=draws(1)[0])
+    del card, cpu
+    # The same seeded weights (a family's weights depend on its seed and
+    # widths only).
+    card, cpu = family_pair("score_based", num_scales=2, langevin_steps=2)
+    noise = draws(5)
+    scores = {"card": [], "cpu": []}
+
+    def recorded(model, out):
+        def score_fn(z, s):
+            value = model.apply(z, s)
+            out.append(value.cpu())
+            return value
+        return score_fn
+
+    want = cpu.generate_samples(2, noise=noise,
+                                score_fn=recorded(cpu, scores["cpu"]))
+    got = card.generate_samples(2, noise=on(noise),
+                                score_fn=recorded(card, scores["card"]))
+    torch.cuda.synchronize()
+    for i, (g, w) in enumerate(zip(scores["card"], scores["cpu"])):
+        errs[f"Langevin score {i}"] = hold(
+            f"Langevin step {i} (sigma {card.sigmas[i // 2]:.3g}) score, "
+            "card vs CPU", g, w, UNET_TOL)
+    scale = float(want.abs().max())
+    errs["Langevin 2x2 iterate"] = hold(
+        f"annealed Langevin 2 levels x 2 steps, card vs CPU (abs tol "
+        f"{UNET_TOL:g} x max|x| = {UNET_TOL * scale:.3g})", got.cpu(), want,
+        UNET_TOL * scale, UNET_TOL)
+    del card, cpu
+
+    card, cpu = family_pair("energy_based", trainable=True)
+    log(f"[model] energy_based_config.yaml: C={card.net.model_channels}, "
+        f"T={card.num_timesteps}, {card.langevin_steps} Langevin steps, "
+        f"{sum(p.numel() for p in card.net.parameters())} parameters")
+    c = card.net.model_channels
+    check(card.net.conv1.weight.shape[1] == 3 + c,
+          f"EnergyNet's input is not 3 + {c} channels")
+    t = torch.tensor([17, 803])
+    with torch.no_grad():
+        want, got = cpu.apply(x, t), card.apply(x.to(DEVICE), t.to(DEVICE))
+    want_g = cpu.energy_grad(x, t)
+    got_g = card.energy_grad(x.to(DEVICE), t.to(DEVICE))
+    torch.cuda.synchronize()
+    errs["energy"] = hold("EnergyNet E(x, t), card vs CPU", got.cpu(), want,
+                          UNET_TOL)
+    errs["energy grad"] = hold("EnergyNet grad_x E, card vs CPU",
+                               got_g.cpu(), want_g, UNET_TOL)
+    steps = card.langevin_steps
+    errs["CD+GP loss"] = hold_loss_and_grads(
+        f"CD + GP loss ({steps} Langevin steps, second order)", card, cpu,
+        x, t=t, noise=draws(1)[0], langevin_noise=draws(steps),
+        alpha=torch.rand((2, 1, 1, 1), generator=gen))
+    del card, cpu
+    card, cpu = family_pair("energy_based", trainable=True,
+                            training_objective="dsm")
+    errs["energy DSM loss"] = hold_loss_and_grads(
+        "energy DSM loss (second order)", card, cpu, x, t=t,
+        noise=draws(1)[0])
+    del card, cpu
+    for objective, per_level in (("cd", steps + 1), ("dsm", 1)):
+        card, cpu = family_pair("energy_based", num_timesteps=2,
+                                training_objective=objective)
+        noise = draws(1 + 2 * per_level)
+        want = cpu.generate_samples(2, noise=noise)
+        got = card.generate_samples(2, noise=on(noise))
+        torch.cuda.synchronize()
+        scale = float(want.abs().max())
+        errs[f"energy sampler {objective}"] = hold(
+            f"energy sampler ({objective}) 2 levels, card vs CPU (abs tol "
+            f"{UNET_TOL:g} x max|x|)", got.cpu(), want, UNET_TOL * scale,
+            UNET_TOL)
+        del card, cpu
+    return errs
+
+
+#: Levels of a served model's sampler that phase 12b traces: 50 network
+#: evaluations, as the traced DDIM-50 request. Tracing a whole request
+#: of 500 (130,000 kernels) costs minutes of the profiler's own
+#: processing; a request's levels all do the same work.
+PROFILE_LEVELS = 5
+
+
+def profile_levels(model, levels: int):
+    """``profile_run`` over the first ``levels`` levels of ``model``'s
+    sampler at the serve batch (the score family's σ ladder, the energy
+    family's sweep), with the request's own draws and grad modes."""
+    import torch
+    gen = torch.Generator(device=DEVICE).manual_seed(9)
+    shape = model.sample_shape(SERVE_BATCH)
+    x = torch.randn(shape, generator=gen, device=DEVICE)
+    draw = model._drawer(shape, gen, None)
+    if hasattr(model, "sigmas"):          # the score family
+        levels = min(levels, model.num_scales)
+
+        def run():
+            with torch.inference_mode():
+                model._run_levels(x, 0, levels, draw, model.apply)
+        n = levels * model.langevin_steps
+    else:
+        levels = min(levels, model.num_timesteps)
+
+        def run():
+            with torch.no_grad():
+                t = model.num_timesteps
+                model._sweep(x, t, t - levels, draw)
+        n = levels * (model.langevin_steps
+                      if model.training_objective == "cd" else 1)
+    return profile_run(run, 1, f"{type(model).__name__} {levels} levels "
+                       f"of a request, B={SERVE_BATCH} ({n} evaluations)",
+                       warmup=0)
+
+
+def serve_families(per_forward):
+    """Phase 12b: serve each family over HTTP in bf16 at the serve batch,
+    at its published width with one cut (FAMILIES): a warm-up request and
+    three timed ones; the score request must launch K1 and K3 exactly 53×
+    and 5× its UNet forwards, the energy request no K1, K2 or K3. Then
+    PROFILE_LEVELS levels of the served model's sampler traced with
+    torch.profiler."""
+    import numpy as np
+    import torch
+    from diffusion_model_universal_torch.ops import attention as attn_ops
+    from diffusion_model_universal_torch.ops import group_norm as gn_ops
+    from diffusion_model_universal_torch.scripts.serve import (
+        build_argparser, make_server)
+    kernels = {"gn": gn_ops.GN_KERNEL, "gn_bwd": gn_ops.GN_BWD_KERNEL,
+               "mha": attn_ops.MHA_KERNEL}
+    tmp = Path(tempfile.mkdtemp(prefix="dmu_families_"))
+    rows = []
+    try:
+        for family, (path, cut, evals, full) in FAMILIES.items():
+            model = family_model(family, DEVICE, **cut)
+            ckpt = str(tmp / f"{family}.ckpt")
+            model.save(ckpt)
+            del model
+            srv = make_server(build_argparser().parse_args([
+                "--config", str(path), "--model_type", family,
+                "--checkpoint", ckpt, "--port", "0", "--serve_batch",
+                str(SERVE_BATCH), "--device", DEVICE]))
+            thread = threading.Thread(target=srv.serve_forever, daemon=True)
+            thread.start()
+            host, port = srv.server_address[:2]
+            per = per_forward if family == "score_based" else {}
+            want = {n: evals * per.get(n, 0) for n in kernels}
+            times = []
+            try:
+                for seed in range(4):      # a warm-up, then three
+                    for k in kernels.values():
+                        k.launches = 0
+                    req = urllib.request.Request(
+                        f"http://{host}:{port}/generate",
+                        data=json.dumps({"num_samples": SERVE_BATCH,
+                                         "seed": seed,
+                                         "format": "npy"}).encode(),
+                        headers={"Content-Type": "application/json"})
+                    t0 = time.perf_counter()
+                    with urllib.request.urlopen(req, timeout=900) as r:
+                        arr = np.load(io.BytesIO(r.read()))
+                    secs = time.perf_counter() - t0
+                    got = {n: k.launches for n, k in kernels.items()}
+                    check(got == want, f"{family}: launches {got} != {want}")
+                    check(arr.shape == (SERVE_BATCH, 32, 32, 3)
+                          and bool(np.isfinite(arr).all()),
+                          f"{family}: samples {arr.shape}")
+                    if seed:
+                        times.append(secs)
+                profile = profile_levels(srv.service.model,
+                                         PROFILE_LEVELS)
+
+            finally:
+                srv.shutdown()
+                srv.server_close()
+                thread.join(timeout=60)
+            check(not thread.is_alive(), "server thread did not stop")
+            mean = statistics.mean(times)
+            ms_per_eval = mean / evals * 1e3
+            row = {"family": family, "cut": cut, "evaluations": evals,
+                   "launches": want, "seconds": times,
+                   "images_per_s": [SERVE_BATCH / t for t in times],
+                   "host_ms_per_evaluation": ms_per_eval,
+                   "full_ladder_evaluations": full,
+                   "full_ladder_forecast_s": full * ms_per_eval / 1e3,
+                   "device_busy_share": (profile or {}).get(
+                       "device_busy_share"),
+                   "profile": profile}
+            rows.append(row)
+            log(f"[serve] {family} {cut}: {', '.join(f'{t:.3f}' for t in times)}"
+                f" s a request ({SERVE_BATCH / mean:.2f} img/s), "
+                f"{ms_per_eval:.3f} ms a network evaluation, full ladder "
+                f"({full} evaluations) forecast {row['full_ladder_forecast_s']:.1f}"
+                f" s a request; device busy "
+                f"{row['device_busy_share'] if profile else 'not measured'}; "
+                f"launches {want} each")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return rows
+
+
+def family_clis():
+    """Phase 12c: ``train`` for 3 steps at the config's batch of 64 on the
+    synthetic set, then ``generate --ema`` from its checkpoint, for each
+    family; the YAML copies cut the ladder (FAMILY_CLI_CUTS). The score
+    training must launch K1, K2 and K3; the energy training none of
+    them."""
+    import yaml
+    from diffusion_model_universal_torch.utils.config import load_config
+    tmp = Path(tempfile.mkdtemp(prefix="dmu_family_cli_"))
+    out = {}
+    try:
+        for family, cut in FAMILY_CLI_CUTS.items():
+            cfg = load_config(str(FAMILIES[family][0]))
+            cfg["model_config"] = dict(cfg["model_config"], **cut)
+            cfg["data"] = dict(cfg["data"], dataset="synthetic",
+                               num_samples=256)   # 204 train: 3 steps
+            cfg["training"] = dict(cfg["training"], num_epochs=1,
+                                   sample_interval=1, val_interval=1000,
+                                   checkpoint_interval=10)
+            cfg["output"] = dict(cfg["output"], output_dir=str(tmp / family))
+            check(cfg["training"]["batch_size"] == FAMILY_TRAIN_BATCH,
+                  f"{family}: training.batch_size")
+            path = tmp / f"{family}.yaml"
+            path.write_text(yaml.safe_dump(cfg))
+            stdout = run_cli("train", ["--config", str(path), "--model_type",
+                                       family, "--seed", str(SEED)],
+                             f"train --model_type {family} (3 steps, B=64, "
+                             f"cut {cut})")
+            launches = json.loads(stdout.split("Kernel launches: ")[1]
+                                  .splitlines()[0])
+            ours = {s: launches.get(s, 0) for s in (
+                "dmu_group_norm_silu_fwd", "dmu_group_norm_silu_bwd",
+                "dmu_mha_fwd")}
+            if family == "score_based":
+                check(all(v > 0 for v in ours.values()),
+                      f"score training launched {ours}")
+            else:
+                check(not any(ours.values()),
+                      f"energy training launched {ours}")
+            logged = [json.loads(line) for line in
+                      (tmp / family / "metrics.jsonl").read_text()
+                      .splitlines()]
+            losses = [d["train/loss"] for d in logged if "train/loss" in d]
+            check(len(losses) == 1 and all(math.isfinite(v) for v in losses),
+                  f"{family}: losses {losses}")
+            prefix = "score/" if family == "score_based" else "energy/"
+            check(any(any(k.startswith(prefix) for k in d) for d in logged),
+                  f"{family}: no step-0 {prefix} log")
+            check((tmp / family / "samples" / "epoch_0.png").is_file(),
+                  f"{family}: no sample grid")
+            gen_dir = tmp / f"gen_{family}"
+            run_cli("generate", ["--config", str(path), "--model_type",
+                                 family, "--checkpoint",
+                                 str(tmp / family / "checkpoints"
+                                     / "final_model"), "--ema",
+                                 "--num_samples", "4", "--output_dir",
+                                 str(gen_dir)],
+                    f"generate --model_type {family} --ema")
+            check((gen_dir / "samples_grid.png").is_file(),
+                  f"{family}: no generated grid")
+            out[family] = {"launches": ours, "loss": losses[0], "cut": cut}
+        log(f"[cli] score-based and energy-based train and generate: "
+            f"{json.dumps(out)}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def families(per_forward):
+    """Phase 12: the score-based and energy-based families through their
+    entry points."""
+    t0 = time.perf_counter()
+    log("[hold] phase 12a: the score and energy families on the card "
+        "against the CPU:")
+    errs = hold_families()
+    t1 = time.perf_counter()
+    log("[serve] phase 12b: the score and energy families over HTTP, "
+        f"bf16, batch {SERVE_BATCH}:")
+    rows = serve_families(per_forward)
+    t2 = time.perf_counter()
+    cli = family_clis()
+    t3 = time.perf_counter()
+    secs = {"12a": t1 - t0, "12b": t2 - t1, "12c": t3 - t2,
+            "total": t3 - t0}
+    log(f"[phase 12] families: {secs['total']:.1f} s (12a {secs['12a']:.1f}"
+        f", 12b {secs['12b']:.1f}, 12c {secs['12c']:.1f})")
+    return {"card_vs_cpu_max_abs_err": errs, "serve": rows, "cli": cli,
+            "seconds": secs}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2448,18 +2925,30 @@ def main() -> int:
 
     exp_entries, exp_summary = experiment_kernels()
     sampler_summary = samplers(per_forward)
+    family_summary = families(per_forward)
 
     symbols = {"gn": "dmu_group_norm_silu_fwd",
                "gn_bwd": "dmu_group_norm_silu_bwd", "mha": "dmu_mha_fwd"}
 
     def by_sampler(kind):
-        return {f"{r['model']} {json.dumps(r['request'])}": r["launches"][kind]
-                for r in sampler_summary["serve"]}
+        return {**{f"{r['model']} {json.dumps(r['request'])}":
+                   r["launches"].get(kind, 0)
+                   for r in sampler_summary["serve"]},
+                **{f"{r['family']} {json.dumps(r['cut'])}":
+                   r["launches"][kind] for r in family_summary["serve"]}}
 
     def by_path(kind):
+        fam = {r["family"]: r["launches"][kind]
+               for r in family_summary["serve"]}
         return {"serve": launches.get(kind),
                 "train_cli": cli["launches"][symbols[kind]],
-                "train_steps_in_process": train_time["launches"][kind]}
+                "train_steps_in_process": train_time["launches"][kind],
+                "score_serve_request": fam["score_based"],
+                "score_train_cli": family_summary["cli"]["score_based"][
+                    "launches"][symbols[kind]],
+                "energy_serve_request": fam["energy_based"],
+                "energy_train_cli": family_summary["cli"]["energy_based"][
+                    "launches"][symbols[kind]]}
 
     train_work = (f"one training step at B={TRAIN_BATCH}, bf16 autocast, "
                   "remat on: every shape times its calls per step")
@@ -2483,6 +2972,7 @@ def main() -> int:
                      cli["launches"][symbols["gn_bwd"]], bwd_errs,
                      train_work, launches_per_train_step=per_step["gn_bwd"],
                      launches_by_path=by_path("gn_bwd"),
+                     launches_per_request_by_sampler=by_sampler("gn_bwd"),
                      tol_reductions="dγ, dβ, dtb: red_tol(n) = 1e-4·max(1, "
                                     "sqrt(n/1024)) abs + 1e-4 rel"),
         kernel_entry("mha_fwd",
@@ -2506,6 +2996,7 @@ def main() -> int:
                "train_profile": train_profile,
                "experiment_kernels": exp_summary,
                "samplers": sampler_summary,
+               "families": family_summary,
                "seconds": time.perf_counter() - t_start}
     log(f"[summary] {json.dumps(summary)}")
     print(json.dumps({"kernels": entries}))

@@ -13,12 +13,15 @@ from __future__ import annotations
 
 import pickle
 from pathlib import Path
-from typing import Dict, Optional, Tuple, Union
+from typing import Callable, Dict, Iterable, Optional, Tuple, Union
 
 import torch
 
 from ..utils.config import canonicalize_model_config
 from .convert import unet_params_to_jax, unet_state_dict_from_jax
+
+Draw = Callable[[], torch.Tensor]
+Noise = Optional[Iterable[torch.Tensor]]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -63,6 +66,58 @@ class BaseDiffusionModel:
         """NHWC sample shape."""
         return (batch_size, self.image_size, self.image_size,
                 self.image_channels)
+
+    def _install_net(self, net: torch.nn.Module,
+                     init: Callable[[torch.nn.Module, torch.Generator],
+                                    torch.nn.Module],
+                     seed: int, trainable: bool,
+                     cast: Callable[[torch.nn.Module, torch.dtype],
+                                    torch.nn.Module]) -> None:
+        """Initialize ``net`` from a CPU generator seeded by ``seed``, move
+        it to the device (conv weights in the activations' channels_last
+        layout, so a conv does not copy its weight on every call) and set
+        it as ``self.net`` in ``eval()``. Serving (``trainable`` false)
+        casts the matmul weights to the compute dtype with ``cast``;
+        training keeps f32 master weights and computes under autocast in
+        a bf16 compute dtype."""
+        init(net, torch.Generator().manual_seed(seed))
+        net = net.to(self.device, memory_format=torch.channels_last)
+        self.trainable = trainable
+        self.autocast = trainable and self.compute_dtype != torch.float32
+        if not trainable:
+            net = cast(net, self.compute_dtype)
+        self.net = net.eval()
+
+    def _run_net(self, train: bool, *args) -> torch.Tensor:
+        """``net(*args)`` with dropout on when ``train``, under autocast
+        for a trainable bf16 model."""
+        if self.net.training != train:
+            self.net.train(train)
+        with torch.autocast(self.device.type, dtype=self.compute_dtype,
+                            enabled=self.autocast):
+            return self.net(*args)
+
+    # -- sampler draws ----------------------------------------------------
+    def _drawer(self, shape, generator: Optional[torch.Generator],
+                noise: Noise) -> Draw:
+        """The sampler's source of N(0, I) draws of ``shape``: the next
+        tensor of ``noise`` when given, else ``generator``."""
+        if noise is not None:
+            it = iter(noise)
+            return lambda: next(it).to(self.device, torch.float32)
+        return lambda: torch.randn(shape, generator=generator,
+                                   device=self.device, dtype=torch.float32)
+
+    def _t(self, b: int, t: int) -> torch.Tensor:
+        """[b] integer timesteps ``t`` on the device."""
+        return torch.full((b,), int(t), dtype=torch.long, device=self.device)
+
+    def _init_noise(self, batch_size: int, draw: Draw) -> torch.Tensor:
+        x = draw()
+        if tuple(x.shape) != self.sample_shape(batch_size):
+            raise ValueError(f"initial noise has shape {tuple(x.shape)}, "
+                             f"expected {self.sample_shape(batch_size)}")
+        return x
 
     # -- checkpointing ----------------------------------------------------
     def load_params(self, params: Dict) -> None:

@@ -1,16 +1,19 @@
-"""The weight bridge between the reference's flax UNet parameter tree and
-the port's :class:`..unet.UNet` ``state_dict``.
+"""The weight bridge between the reference's flax parameter trees (the
+UNet, with either time embedding, and the EnergyNet) and the port's
+``state_dict``s.
 
 The port names its submodules after the flax tree (``down0.res0.norm1``,
-``mid_attn.query``, ...), so the mapping is per leaf:
+``mid_attn.query``, ``time_embedding.dense1``, ...), so the mapping is per
+leaf:
 
 * conv ``kernel`` ``[kh, kw, I, O]`` ↔ ``weight`` ``[O, I, kh, kw]``
 * transposed-conv ``kernel`` ``[kh, kw, I, O]`` ↔ spatially flipped
   ``weight`` ``[I, O, kh, kw]`` (the up stages' ``up.conv``)
 * Dense ``kernel`` ``[I, O]`` ↔ Linear ``weight`` ``[O, I]``
 * GroupNorm ``scale`` ↔ ``weight``; ``embedding`` ↔ ``weight``
-* every other leaf (``bias``, ``norm_scale``, ``norm_bias``) keeps its
-  name and layout.
+* every other leaf (``bias``, ``norm_scale``, ``norm_bias``, and the
+  EnergyNet's top-level ``norm1_scale``/``norm1_bias``/...) keeps its name
+  and layout.
 
 The flax tree is nested dicts of numpy arrays, as the reference's
 model-only checkpoint pickles it, so this module needs no JAX.
@@ -73,7 +76,7 @@ def state_dict_to_jax(module: nn.Module,
     rules above; ``module`` names the owner of each key."""
     tree: Tree = {}
     for key, value in tensors.items():
-        prefix, name = key.rsplit(".", 1)
+        prefix, _, name = key.rpartition(".")
         owner = module.get_submodule(prefix)
         a = value.detach().to("cpu", torch.float32).numpy()
         if name == "weight":
@@ -90,7 +93,7 @@ def state_dict_to_jax(module: nn.Module,
             else:
                 raise ValueError(f"no flax counterpart for {key}")
         node = tree
-        for part in prefix.split("."):
+        for part in filter(None, prefix.split(".")):
             node = node.setdefault(part, {})
         node[name] = np.array(a, dtype=np.float32, order="C")
     return tree

@@ -17,7 +17,8 @@ from typing import Dict, List, Optional, Union
 
 import torch
 
-from .ddpm import DDPM, Draw, Noise
+from .base import Draw, Noise
+from .ddpm import DDPM
 from .schedules import ddim_step, make_ddim_params
 
 

@@ -27,13 +27,12 @@ Two constructions of one model:
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Iterable, List, Optional, Tuple, Union
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 
-from .. import NOT_PORTED
 from ..utils.losses import DiffusionLoss
-from .base import BaseDiffusionModel
+from .base import BaseDiffusionModel, Draw, Noise
 from .schedules import (PREDICTION_TYPES, ddpm_posterior_step,
                         ddpm_posterior_step_learned,
                         learned_range_log_variance, make_dpm_solver_params,
@@ -41,10 +40,7 @@ from .schedules import (PREDICTION_TYPES, ddpm_posterior_step,
                         normal_kl, posterior_log_variance_clipped,
                         prediction_target, prediction_to_eps, q_sample,
                         respace_timesteps, respaced_schedule, vlb_term_bits)
-from .unet import UNet, cast_compute_dtype_, init_unet_
-
-Draw = Callable[[], torch.Tensor]
-Noise = Optional[Iterable[torch.Tensor]]
+from .unet import UNet, cast_compute_dtype_, init_unet_, remat_from_config
 
 
 class DDPM(BaseDiffusionModel):
@@ -54,8 +50,8 @@ class DDPM(BaseDiffusionModel):
     beta_start, beta_end, num_timesteps (alias time_steps), schedule_type,
     in_channels (alias image_channels), model_channels (alias
     hidden_channels), image_size, dropout, prediction_type, num_classes,
-    conv_bias, compute_dtype, remat, loss_type, loss_config,
-    cfg_drop_prob, learn_sigma, vlb_weight.
+    conv_bias, compute_dtype, remat, split_skip_convs, loss_type,
+    loss_config, cfg_drop_prob, learn_sigma, vlb_weight.
 
     Args:
         config: the model config.
@@ -71,11 +67,6 @@ class DDPM(BaseDiffusionModel):
                  seed: int = 0, trainable: bool = False):
         super().__init__(config, device)
         cfg = self.config
-        if cfg.get("split_skip_convs", True) is False:
-            raise ValueError(f"split_skip_convs: false is {NOT_PORTED}")
-        remat_policy = cfg.get("remat_policy")
-        if remat_policy not in (None, "full"):
-            raise ValueError(f"remat_policy: {remat_policy} is {NOT_PORTED}")
         self.num_timesteps = int(cfg.get("num_timesteps", 1000))
         self.schedule = make_noise_schedule(
             cfg.get("beta_start", 1e-4), cfg.get("beta_end", 2e-2),
@@ -97,17 +88,10 @@ class DDPM(BaseDiffusionModel):
                    dropout=cfg.get("dropout", 0.0),
                    num_classes=self.num_classes,
                    conv_bias=cfg.get("conv_bias", False),
-                   remat=bool(cfg.get("remat", True))
-                   or remat_policy is not None)
-        init_unet_(net, torch.Generator().manual_seed(seed))
-        # Conv weights in the activations' channels_last layout, so a conv
-        # does not copy its weight into that layout on every call.
-        net = net.to(self.device, memory_format=torch.channels_last)
-        self.trainable = trainable
-        self.autocast = trainable and self.compute_dtype != torch.float32
-        if not trainable:
-            net = cast_compute_dtype_(net, self.compute_dtype)
-        self.net = net.eval()
+                   remat=remat_from_config(cfg),
+                   split_skip_convs=bool(cfg.get("split_skip_convs", True)))
+        self._install_net(net, init_unet_, seed, trainable,
+                          cast_compute_dtype_)
         self.loss_fn = DiffusionLoss(
             loss_type=cfg.get("loss_type", "mse"),
             loss_config=cfg.get("loss_config", {}),
@@ -120,11 +104,7 @@ class DDPM(BaseDiffusionModel):
               train: bool = False) -> torch.Tensor:
         """The network's raw prediction for noisy NHWC ``x`` at [B]
         timesteps ``t`` (f32, NHWC); ``train`` turns dropout on."""
-        if self.net.training != train:
-            self.net.train(train)
-        with torch.autocast(self.device.type, dtype=self.compute_dtype,
-                            enabled=self.autocast):
-            return self.net(x, t, y)
+        return self._run_net(train, x, t, y)
 
     def loss_function(self, x: torch.Tensor,
                       t: Optional[torch.Tensor] = None,
@@ -274,26 +254,6 @@ class DDPM(BaseDiffusionModel):
             self.schedule, x, t_b, eps(x, t_b), noise)
 
     # -- sampling ---------------------------------------------------------
-    def _drawer(self, shape, generator: Optional[torch.Generator],
-                noise: Noise) -> Draw:
-        """The sampler's source of N(0, I) draws of ``shape``: the next
-        tensor of ``noise`` when given, else ``generator``."""
-        if noise is not None:
-            it = iter(noise)
-            return lambda: next(it).to(self.device, torch.float32)
-        return lambda: torch.randn(shape, generator=generator,
-                                   device=self.device, dtype=torch.float32)
-
-    def _init_noise(self, batch_size: int, draw: Draw) -> torch.Tensor:
-        x = draw()
-        if tuple(x.shape) != self.sample_shape(batch_size):
-            raise ValueError(f"initial noise has shape {tuple(x.shape)}, "
-                             f"expected {self.sample_shape(batch_size)}")
-        return x
-
-    def _t(self, b: int, t: int) -> torch.Tensor:
-        return torch.full((b,), int(t), dtype=torch.long, device=self.device)
-
     def _check_steps(self, num_steps: int) -> None:
         if not 2 <= num_steps <= self.num_timesteps:
             raise ValueError(

@@ -1,7 +1,7 @@
 """UNet building blocks of the port."""
 
 from .attention import SelfAttentionBlock
-from .embeddings import TimeEmbedding, sinusoidal_embedding
+from .embeddings import SigmaEmbedding, TimeEmbedding, sinusoidal_embedding
 from .resnet import (AttentionDownBlock, AttentionUpBlock, ConvDownBlock,
                      ConvUpBlock, Downsample, GroupNormSiLU, ResidualBlock,
                      SplitConv, Upsample)
@@ -9,5 +9,6 @@ from .resnet import (AttentionDownBlock, AttentionUpBlock, ConvDownBlock,
 __all__ = [
     "AttentionDownBlock", "AttentionUpBlock", "ConvDownBlock", "ConvUpBlock",
     "Downsample", "GroupNormSiLU", "ResidualBlock", "SelfAttentionBlock",
-    "SplitConv", "TimeEmbedding", "Upsample", "sinusoidal_embedding",
+    "SigmaEmbedding", "SplitConv", "TimeEmbedding", "Upsample",
+    "sinusoidal_embedding",
 ]

@@ -103,19 +103,20 @@ class ResidualBlock(nn.Module):
     1×1 shortcut when the channel count changes.
 
     ``skip_channels``: a second input, concatenated after x (the UNet's
-    skip connection), is consumed through split GN/convs when no group
-    straddles the boundary, and through a real concat otherwise.
+    skip connection), is consumed through split GN/convs when
+    ``split_skip`` is set and no group straddles the boundary, and through
+    a real concat otherwise. The parameters are the same either way.
     """
 
     def __init__(self, in_channels: int, out_channels: int,
                  temb_channels: int, num_groups: int = 32,
                  dropout: float = 0.0, conv_bias: bool = False,
-                 skip_channels: int = 0):
+                 skip_channels: int = 0, split_skip: bool = True):
         super().__init__()
         ctot = in_channels + skip_channels
         gs = ctot // gn_ops.resolve_num_groups(ctot, num_groups)
-        self.split = (skip_channels > 0 and in_channels % gs == 0
-                      and ctot != out_channels)
+        self.split = (split_skip and skip_channels > 0
+                      and in_channels % gs == 0 and ctot != out_channels)
         self.norm1 = GroupNormSiLU(ctot, num_groups)
         self.conv1 = SplitConv(ctot, out_channels, 3, conv_bias)
         self.time_proj = nn.Linear(temb_channels, out_channels)
@@ -175,14 +176,16 @@ class _Stage(nn.Module):
     """``num_layers`` ResidualBlocks (each followed by self-attention when
     ``num_att_heads`` is set), then an optional down- or upsample.
 
-    Only the first block takes the skip connection.
+    Only the first block takes the skip connection (``split_skip`` as in
+    :class:`ResidualBlock`).
     """
 
     def __init__(self, in_channels: int, out_channels: int,
                  temb_channels: int, resample: Optional[str],
                  num_layers: int = 2, num_groups: int = 32,
                  num_att_heads: Optional[int] = None, dropout: float = 0.0,
-                 conv_bias: bool = False, skip_channels: int = 0):
+                 conv_bias: bool = False, skip_channels: int = 0,
+                 split_skip: bool = True):
         super().__init__()
         self.num_layers = num_layers
         self.has_attention = num_att_heads is not None
@@ -190,7 +193,7 @@ class _Stage(nn.Module):
             self.add_module(f"res{i}", ResidualBlock(
                 in_channels if i == 0 else out_channels, out_channels,
                 temb_channels, num_groups, dropout, conv_bias,
-                skip_channels if i == 0 else 0))
+                skip_channels if i == 0 else 0, split_skip))
             if self.has_attention:
                 self.add_module(f"attn{i}", SelfAttentionBlock(
                     out_channels, num_att_heads, num_groups))

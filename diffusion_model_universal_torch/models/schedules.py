@@ -1,7 +1,7 @@
 """Noise schedules and the core diffusion math (counterpart of the
 reference's ``models/schedules.py``): the DDPM schedule and steps, the
-learned-variance (VLB) terms, and the tables of the DDIM, DPM-Solver++,
-Karras-Heun and strided samplers.
+learned-variance (VLB) terms, the tables of the DDIM, DPM-Solver++,
+Karras-Heun and strided samplers, and the score family's σ ladder.
 
 Schedules are f32 tensors on the model's device; per-step math gathers
 them with [B] integer timesteps and broadcasts to NHWC image rank.
@@ -427,3 +427,20 @@ def make_karras_heun_params(schedule: NoiseSchedule,
     abar_s = ac[ts]
     return KarrasHeunParams(timesteps=ts, alpha=torch.sqrt(abar_s),
                             sigma_hat=torch.sqrt((1.0 - abar_s) / abar_s))
+
+
+def sigma_ladder(sigma_min: float, sigma_max: float,
+                 num_scales: int) -> np.ndarray:
+    """Geometric σ ladder from σ_max down to σ_min, f32 numpy:
+    exp(linspace(ln σ_max, ln σ_min, num_scales)), the linspace as XLA
+    computes it."""
+    f = np.float32
+    logs = _linspace_f32(np.log(f(sigma_max)), np.log(f(sigma_min)),
+                         num_scales)
+    return np.exp(logs).astype(f)
+
+
+def continuous_sigma(sigma_min: float, sigma_max: float,
+                     u: torch.Tensor) -> torch.Tensor:
+    """u ∈ [0, 1] → σ = σ_min·(σ_max/σ_min)^u (geometric interpolation)."""
+    return sigma_min * (sigma_max / sigma_min) ** u

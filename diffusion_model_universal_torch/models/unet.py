@@ -21,9 +21,12 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from .. import NOT_PORTED
+
 from .layers import (AttentionDownBlock, AttentionUpBlock, ConvDownBlock,
                      ConvUpBlock, GroupNormSiLU, ResidualBlock,
-                     SelfAttentionBlock, SplitConv, TimeEmbedding)
+                     SelfAttentionBlock, SigmaEmbedding, SplitConv,
+                     TimeEmbedding)
 
 # flax's truncated-normal variance scaling divides the std by the std of a
 # unit normal truncated to [-2, 2].
@@ -43,6 +46,13 @@ class UNet(nn.Module):
             the NULL token.
         conv_bias: give the bias-free convs a bias (imported reference
             checkpoints).
+        continuous_sigma: condition on a continuous noise level σ through
+            :class:`SigmaEmbedding` (the score network) instead of an
+            integer timestep.
+        split_skip_convs: consume each up stage's skip through split
+            GroupNorm/convs where no group straddles the boundary (the
+            default); false concatenates it first, as the reference's
+            ``split_skip_convs: false``. Same parameters either way.
         remat: when gradients are recorded, checkpoint each down and up
             stage (recompute its forward in the backward), as the
             reference's ``nn.remat`` on ``down0…down4``/``up0…up4``; the
@@ -52,12 +62,16 @@ class UNet(nn.Module):
     def __init__(self, in_channels: int = 3, model_channels: int = 64,
                  out_channels: int = 3, num_heads: int = 4,
                  dropout: float = 0.0, num_classes: int = 0,
-                 conv_bias: bool = False, remat: bool = False):
+                 conv_bias: bool = False, remat: bool = False,
+                 continuous_sigma: bool = False,
+                 split_skip_convs: bool = True):
         super().__init__()
         c, temb = model_channels, model_channels * 4
         self.num_classes = num_classes
         self.remat = remat
-        self.time_embedding = TimeEmbedding(c, temb)
+        self.continuous_sigma = continuous_sigma
+        self.time_embedding = (SigmaEmbedding(c, temb) if continuous_sigma
+                               else TimeEmbedding(c, temb))
         if num_classes > 0:
             self.label_embedding = nn.Embedding(num_classes + 1, temb)
         self.initial_conv = nn.Conv2d(in_channels, c, 3, padding=1,
@@ -73,6 +87,7 @@ class UNet(nn.Module):
         self.mid_attn = SelfAttentionBlock(4 * c, num_heads)
         self.mid_res2 = ResidualBlock(4 * c, 4 * c, temb, **kw)
         # Skips are the down stages' outputs, consumed in reverse order.
+        kw["split_skip"] = split_skip_convs
         self.up0 = ConvUpBlock(4 * c, 4 * c, temb, skip_channels=4 * c, **kw)
         self.up1 = AttentionUpBlock(4 * c, 2 * c, temb,
                                     num_att_heads=num_heads,
@@ -89,8 +104,9 @@ class UNet(nn.Module):
 
     def forward(self, x: torch.Tensor, t: torch.Tensor,
                 y: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """x: [B, H, W, C_in] images; t: [B] integer timesteps; y: optional
-        [B] class labels. Returns the [B, H, W, C_out] f32 prediction."""
+        """x: [B, H, W, C_in] images; t: [B] integer timesteps (f32 noise
+        levels σ with ``continuous_sigma``); y: optional [B] class labels.
+        Returns the [B, H, W, C_out] f32 prediction."""
         if x.shape[1] < 32 or x.shape[2] < 32:
             raise ValueError(
                 f"UNet needs spatial dims ≥ 32 (got {tuple(x.shape[1:3])}): "
@@ -130,6 +146,16 @@ class UNet(nn.Module):
         return block(*args)
 
 
+def remat_from_config(cfg) -> bool:
+    """The UNet's ``remat`` from a model config: ``remat`` (default on),
+    or any ``remat_policy``; only the policy that recomputes everything
+    (``full``, or none given) is ported."""
+    remat_policy = cfg.get("remat_policy")
+    if remat_policy not in (None, "full"):
+        raise ValueError(f"remat_policy: {remat_policy} is {NOT_PORTED}")
+    return bool(cfg.get("remat", True)) or remat_policy is not None
+
+
 def _trunc_normal_(w: torch.Tensor, fan_in: int, scale: float,
                    generator: torch.Generator) -> None:
     std = math.sqrt(scale / fan_in) / _TRUNC_STD
@@ -141,8 +167,10 @@ def _trunc_normal_(w: torch.Tensor, fan_in: int, scale: float,
 def init_unet_(net: UNet, generator: torch.Generator) -> UNet:
     """Initialize ``net`` in place as the reference's flax initializers do:
     LeCun-normal convs and Linears, He-normal ``initial_conv``,
-    Xavier-uniform time MLP, zero ``conv2``, ``time_proj`` and label
-    embedding, zero biases, GroupNorm γ=1 and β=0."""
+    Xavier-uniform time MLP (LeCun-normal σ MLP), zero ``conv2``,
+    ``time_proj`` and label embedding, zero biases, GroupNorm γ=1 and
+    β=0."""
+    xavier_mlp = not net.continuous_sigma
     for name, m in net.named_modules():
         leaf = name.rsplit(".", 1)[-1]
         if isinstance(m, (SplitConv, nn.Conv2d, nn.ConvTranspose2d)):
@@ -162,7 +190,7 @@ def init_unet_(net: UNet, generator: torch.Generator) -> UNet:
         elif isinstance(m, nn.Linear):
             if leaf == "time_proj":
                 m.weight.zero_()
-            elif leaf in ("dense1", "dense2"):
+            elif leaf in ("dense1", "dense2") and xavier_mlp:
                 nn.init.xavier_uniform_(m.weight, generator=generator)
             else:
                 _trunc_normal_(m.weight, m.weight.shape[1], 1.0, generator)
@@ -186,4 +214,4 @@ def cast_compute_dtype_(net: nn.Module, dtype: torch.dtype) -> nn.Module:
     return net
 
 
-__all__ = ["UNet", "init_unet_", "cast_compute_dtype_"]
+__all__ = ["UNet", "init_unet_", "cast_compute_dtype_", "remat_from_config"]

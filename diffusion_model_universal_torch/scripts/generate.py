@@ -3,13 +3,17 @@
 
     python -m diffusion_model_universal_torch.scripts.generate \
         --config diffusion_model_universal_torch/configs/ddim_config.yaml \
-        --model_type ddpm|ddim --checkpoint path/to/model.ckpt \
+        --model_type ddpm|ddim|score_based|energy_based \
+        --checkpoint path/to/model.ckpt \
         [--num_samples N] [--output_dir D] [--device cuda|cpu] \
         [--sampler default|dpm++|heun|strided --sampler_steps S] \
         [--class_id K --guidance_scale G] \
         [--inpaint_image IMG.npy --inpaint_mask MASK.npy]
 
-Runs on ``cuda`` unless ``--device cpu`` is given. Reads the model-only
+Runs on ``cuda`` unless ``--device cpu`` is given. The score-based and
+energy-based families sample with their own sampler only: ``--class_id``,
+``--inpaint_image`` and the fast samplers (which need an ε-prediction
+model) are refused for them, as the reference refuses them. Reads the model-only
 checkpoint that either package writes, or a trainer checkpoint directory
 of the port (``--ema`` picks its EMA weights). A request whose estimated
 footprint exceeds the card's budget is drawn in equal chunks, each from
@@ -177,8 +181,6 @@ def plan_chunks(num_samples: int, model, model_cfg: dict):
 
 def check_ported(args) -> None:
     """Raise SystemExit for options this package does not run yet."""
-    if args.model_type not in ("ddpm", "ddim"):
-        raise SystemExit(f"--model_type {args.model_type} is {NOT_PORTED}")
     if args.num_devices is not None and args.num_devices > 1:
         raise SystemExit(f"--num_devices > 1 is {NOT_PORTED}")
 
@@ -200,13 +202,23 @@ def main(argv=None) -> int:
 
     conditional = args.class_id is not None
     if conditional:
+        if not hasattr(model, "make_class_labels"):
+            raise SystemExit(f"--class_id unsupported for "
+                             f"{args.model_type} models")
         try:
             model.make_class_labels(args.class_id, 1)
         except ValueError as e:
             raise SystemExit(f"--class_id: {e}")
     inpaint = None
     if args.inpaint_image is not None:
+        if not hasattr(model, "generate_samples_inpaint"):
+            raise SystemExit(f"--inpaint_image unsupported for "
+                             f"{args.model_type} models (ddpm/ddim only)")
         inpaint = _load_inpaint_inputs(args, model)
+    if args.sampler != "default" and not hasattr(
+            model, FAST_SAMPLERS[args.sampler]):
+        raise SystemExit(f"--sampler {args.sampler} needs an ε-prediction "
+                         f"model (ddpm/ddim), got {args.model_type}")
     scale = args.guidance_scale if conditional else 1.0
 
     def sample_chunk(start: int, n: int, gen: torch.Generator):

@@ -20,12 +20,16 @@ Endpoints:
                 "sampler": "default" | "dpm++" | "heun" | "strided",
                 "sampler_steps": int (default 20)}
     ``default`` is the family's own sampler: DDPM's T ancestral steps,
-    DDIM's ``ddim_sampling_steps``.
+    DDIM's ``ddim_sampling_steps``, the score family's annealed Langevin
+    ladder, the energy family's reverse sweep. ``class_id`` and the fast
+    samplers are refused (400) for the score and energy families.
 
 Usage:
     python -m diffusion_model_universal_torch.scripts.serve \
         --config diffusion_model_universal_torch/configs/ddim_config.yaml \
         --model_type ddim --checkpoint model.ckpt --port 8000 --device cuda
+
+(``--model_type`` is any of ddpm, ddim, score_based, energy_based.)
 """
 
 from __future__ import annotations
@@ -97,8 +101,15 @@ class SamplerService:
             raise ValueError(f"sampler must be one of "
                              f"{('default', *FAST_SAMPLERS)} "
                              f"(got {sampler!r})")
+        if sampler != "default" and not hasattr(self.model,
+                                                FAST_SAMPLERS[sampler]):
+            raise ValueError(f"sampler {sampler!r} needs an ε-prediction "
+                             "model (ddpm/ddim)")
         labels = None
         if class_id is not None:
+            if not hasattr(self.model, "make_class_labels"):
+                raise ValueError(
+                    "class_id unsupported for this model family")
             labels = self.model.make_class_labels(class_id,
                                                   self.serve_batch)
         with self._lock:

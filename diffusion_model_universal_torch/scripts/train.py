@@ -3,7 +3,8 @@
 
     python -m diffusion_model_universal_torch.scripts.train \
         --config diffusion_model_universal_torch/configs/ddpm_config.yaml \
-        --model_type ddpm|ddim [--resume latest|NAME] [--eval_only] [--seed N] \
+        --model_type ddpm|ddim|score_based|energy_based \
+        [--resume latest|NAME] [--eval_only] [--seed N] \
         [--device cuda|cpu]
 
 Runs on ``cuda`` unless ``--device cpu`` is given, and raises without
@@ -53,8 +54,6 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def check_ported(args) -> None:
     """Raise SystemExit for options this package does not run yet."""
-    if args.model_type not in ("ddpm", "ddim"):
-        raise SystemExit(f"--model_type {args.model_type} is {NOT_PORTED}")
     for flag, on in (("--benchmark", args.benchmark),
                      ("--multihost", args.multihost),
                      ("--profile", args.profile is not None),

@@ -1,9 +1,9 @@
 """The training engine of the port (counterpart of the reference's
 ``trainers/trainer.py``).
 
-One training step is: the loss of a batch (t and ε drawn from a generator
-seeded by (seed, step), so a resumed run draws what an unbroken one
-would), its gradients by autograd (through the GroupNorm and attention
+One training step is: the loss of a batch (its draws, such as t and ε,
+from a generator seeded by (seed, step), so a resumed run draws what an
+unbroken one would), its gradients by autograd (through the GroupNorm and attention
 Functions, so kernels K1/K2/K3 on the card), the global and per-layer
 gradient norms, one Adam update (``trainers/optim.py``), and the EMA
 update with warmup, d = min(decay, (1+t)/(10+t)). The step stays on the
@@ -42,7 +42,7 @@ _SEED_STRIDE = 1_000_003
 
 
 class DiffusionTrainer:
-    """Engine shared by the model families (only DDPM is ported).
+    """Engine shared by the model families.
 
     Args:
         model: a model built with ``trainable=True``.
@@ -117,7 +117,9 @@ class DiffusionTrainer:
             "batch_size": tcfg.get("batch_size", 0),
             "num_epochs": self.num_epochs,
             "param_count": sum(p.numel() for p in self.params)})
-        self.logger.log(self.logger.diffusion_metrics(model.schedule), 0)
+        if hasattr(model, "schedule"):   # the score family has none
+            self.logger.log(self.logger.diffusion_metrics(model.schedule),
+                            0)
 
     # ------------------------------------------------------------------
     def _generator(self, step: int, salt: int = 0) -> torch.Generator:
@@ -135,15 +137,21 @@ class DiffusionTrainer:
     def _batch_count(batch) -> int:
         return DiffusionTrainer._split_batch(batch)[0].shape[0]
 
-    def step(self, batch, t: Optional[torch.Tensor] = None,
-             noise: Optional[torch.Tensor] = None) -> Dict[str, Any]:
-        """One training step; ``t``/``noise`` may be injected (tests).
-        Returns device tensors: ``loss``, ``grad_norm`` and
-        ``layer_grad_norms`` (name → norm), all of the raw gradients."""
+    def step(self, batch, **draws) -> Dict[str, Any]:
+        """One training step; the loss's draws may be injected as keywords
+        of the family's ``loss_function`` (tests): ``t``/``noise``
+        (DDPM, DDIM), ``sigma``/``noise`` (score), ``t``/``noise``/
+        ``langevin_noise``/``alpha`` (energy). Returns device tensors:
+        ``loss``, ``grad_norm`` and ``layer_grad_norms`` (name → norm),
+        all of the raw gradients."""
         x, y = self._split_batch(batch)
         loss = self.model.loss_function(
-            x, t, noise, self._generator(self.step_count), y)
-        grads = list(torch.autograd.grad(loss, self.params))
+            x, generator=self._generator(self.step_count), y=y, **draws)
+        # A parameter the loss does not reach (the energy DSM objective
+        # differentiates ∇ₓE, to which the last bias adds nothing) gets a
+        # zero gradient, as the reference's does.
+        grads = list(torch.autograd.grad(loss, self.params, allow_unused=True,
+                                         materialize_grads=True))
         norms = torch._foreach_norm(grads)
         grad_norm = torch.linalg.vector_norm(torch.stack(norms))
         self.optimizer.step(grads, grad_norm)

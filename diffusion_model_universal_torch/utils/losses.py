@@ -1,5 +1,6 @@
-"""The config-driven diffusion training loss (counterpart of the
-reference's ``utils/losses.py::DiffusionLoss``).
+"""The training losses (counterpart of the reference's
+``utils/losses.py``): the config-driven ``DiffusionLoss``, denoising
+score matching and contrastive divergence with a gradient penalty.
 
 Loss types mse / l1 / huber / hybrid with their per-type weights,
 ``huber_delta`` and ``hybrid_weights``; per-sample time weights snr /
@@ -11,7 +12,7 @@ features) is not ported yet.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -175,3 +176,54 @@ class DiffusionLoss:
             w = self.time_weights(timesteps)
             loss = loss * w.reshape(w.shape[:1] + (1,) * (loss.dim() - 1))
         return loss.mean()
+
+
+def score_matching_loss(score: torch.Tensor, noise: torch.Tensor,
+                        sigma: torch.Tensor, weighting: str = "none",
+                        per_sample: bool = False) -> torch.Tensor:
+    """Denoising score matching of a predicted ``score`` at noise levels
+    ``sigma`` [B], whose target is −ε/σ for the ``noise`` ε that made the
+    perturbation. ``weighting`` "none" is the plain MSE against −ε/σ;
+    "sigma2" weights it by σ², i.e. ‖σ·s + ε‖² (unit-scale targets at
+    every level). ``per_sample``: [B] means instead of the batch mean."""
+    s = sigma[:, None, None, None]
+    if weighting == "sigma2":
+        err = (s * score + noise) ** 2
+    elif weighting == "none":
+        err = (score - (-noise / s)) ** 2
+    else:
+        raise ValueError(f"unknown DSM weighting: {weighting!r}")
+    return err.reshape(err.shape[0], -1).mean(dim=1) if per_sample \
+        else err.mean()
+
+
+def energy_based_loss(energy_fn: Callable[[torch.Tensor], torch.Tensor],
+                      x_real: torch.Tensor, x_fake: torch.Tensor,
+                      alpha: torch.Tensor,
+                      regularization_weight: float = 0.1,
+                      per_sample: bool = False) -> torch.Tensor:
+    """Contrastive divergence plus a gradient penalty:
+    mean E(real) − mean E(fake) + w·mean (‖∇ₓE(x̂)‖₂ − 1)², the norm over
+    all non-batch dims (+1e-12 under the root) at the interpolates
+    x̂ = α·real + (1 − α)·fake, ``alpha`` [B, 1, 1, 1].
+
+    The penalty's gradient is taken with ``create_graph`` whenever
+    gradients are recorded, so the loss differentiates to second order
+    in the parameters; under ``no_grad`` it is still computed (with
+    autograd on locally) and carries no graph. ``per_sample``: [B]
+    terms, each sample's loss as a batch of one."""
+    create_graph = torch.is_grad_enabled()
+    energy_real = energy_fn(x_real)
+    energy_fake = energy_fn(x_fake)
+    interp = alpha * x_real + (1 - alpha) * x_fake
+    with torch.enable_grad():
+        if not interp.requires_grad:
+            interp = interp.detach().requires_grad_()
+        grads, = torch.autograd.grad(energy_fn(interp).sum(), interp,
+                                     create_graph=create_graph)
+    grad_norm = torch.sqrt(grads.square().sum(dim=(1, 2, 3)) + 1e-12)
+    penalty = (grad_norm - 1.0) ** 2
+    if per_sample:
+        return energy_real - energy_fake + regularization_weight * penalty
+    return (energy_real.mean() - energy_fake.mean()
+            + regularization_weight * penalty.mean())

@@ -141,6 +141,32 @@ def test_ddpm_apply_matches_jax(models):
     np.testing.assert_allclose(out.numpy(), ref, atol=1e-4, rtol=1e-4)
 
 
+def test_split_skip_convs_false_matches_jax(models):
+    """``split_skip_convs: false``: every up stage takes the real concat
+    of its skip into one GroupNorm and conv, against the reference's UNet
+    with the same flag, on the same parameter tree: 1e-4 + 1e-4·|ref|.
+    A forward then calls the GroupNorm op 50 times (no split halves)."""
+    _, params, _ = models
+    cfg = dict(CFG, split_skip_convs=False)
+    jm = JaxDDPM(cfg)
+    x, t = _inputs(7)
+    ref = np.asarray(jax.jit(jm.apply)(params, jnp.asarray(x),
+                                       jnp.asarray(t)))
+    tm = DDPM(cfg, device="cpu")
+    tm.load_params(params)
+    assert not any(getattr(m, "split", False) for m in tm.net.modules())
+    calls = []
+    gn = gn_ops.group_norm_silu
+    gn_ops.group_norm_silu = lambda *a, **k: calls.append(1) or gn(*a, **k)
+    try:
+        with torch.no_grad():
+            out = tm.apply(torch.from_numpy(x), torch.from_numpy(t).long())
+    finally:
+        gn_ops.group_norm_silu = gn
+    assert len(calls) == 50
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-4, rtol=1e-4)
+
+
 @pytest.mark.parametrize("prediction_type", ["epsilon", "v", "x0"])
 def test_eps_fn_matches_jax_for_each_prediction_type(models,
                                                      prediction_type):
@@ -294,7 +320,7 @@ def test_cuda_is_the_default_and_missing_cuda_raises(monkeypatch):
 
 def test_not_ported_options_raise():
     """learn_sigma runs (its learned posterior step is held against JAX in
-    tests/test_torch_samplers.py); split_skip_convs: false does not."""
+    tests/test_torch_samplers.py); remat_policy: save_convout does not."""
     tm = DDPM(dict(CFG, model_channels=8, learn_sigma=True), device="cpu")
     x = torch.zeros(1, 32, 32, 3)
     with torch.no_grad():
@@ -303,4 +329,4 @@ def test_not_ported_options_raise():
     with pytest.raises(ValueError, match="requires learn_sigma=true"):
         DDPM(dict(CFG, model_channels=8), device="cpu").mean_var_fn()
     with pytest.raises(ValueError, match="not yet ported"):
-        DDPM(dict(CFG, split_skip_convs=False), device="cpu")
+        DDPM(dict(CFG, remat_policy="save_convout"), device="cpu")

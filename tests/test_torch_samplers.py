@@ -551,7 +551,7 @@ def test_ddim_generate_cli_samplers_cfg_and_inpainting(ddim_files, capsys):
             (["--class_id", "0"], "--class_id: model is unconditional"),
             (["--sampler", "dpm++", "--sampler_steps", "1"],
              "--sampler dpm++: num_steps must be in [2, 10]"),
-            (["--model_type", "score_based"], "not yet ported")]:
+            (["--num_devices", "2"], "--num_devices > 1 is not yet ported")]:
         with pytest.raises(SystemExit) as e:
             gen_cli.main(base + ["--checkpoint", uncond] + extra)
         assert fragment in str(e.value)

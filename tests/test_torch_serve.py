@@ -142,7 +142,8 @@ def test_unknown_path_404(server):
 
 @pytest.mark.parametrize("extra,fragment", [
     (("--device", "cpu", "--num_devices", "2"), "--num_devices"),
-    (("--device", "cpu", "--model_type", "score_based"), "score_based"),
+    (("--device", "cpu", "--num_devices", "4"),
+     "--num_devices > 1 is not yet ported"),
 ])
 def test_make_server_refuses_unported_options(files, extra, fragment):
     with pytest.raises(SystemExit, match=fragment):
