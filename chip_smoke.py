@@ -132,6 +132,26 @@ channels):
        energy training none) and ``generate --ema`` from its checkpoint,
        the YAML copies cut to 5 levels (``FAMILY_CLI_CUTS``).
 
+Then the sample-quality harness (``utils/benchmarks.py``,
+``utils/inception.py``, ``utils/vgg.py``), with InceptionV3 weights drawn
+from a seed and written as the reference's ``.npz``:
+
+13. a. holds the seeded extractor (B=4, 32² and 128²), InceptionV3 (B=2,
+       a 32² input resized to 299²), the VGG16 taps (B=2, 32²) and one
+       DDPM training loss with ``perceptual_weight: 0.1`` and its
+       gradients (B=2) on the card against the CPU in f32, within
+       1e-3 + 1e-3·|ref|;
+    b. runs ``train --eval_only --benchmark`` on ``ddpm_config.yaml`` at
+       full width as a subprocess, the synthetic set as the test set,
+       ``HARNESS_BENCH`` (64 samples in batches of 16 by DPM++-20) and
+       ``DMU_INCEPTION_WEIGHTS`` at the seeded file: finite metrics in the
+       results file, no fallback, four sample grids, and K1 and K3
+       launched exactly 53× and 5× the 76 UNet forwards of the benchmark;
+    c. times one in-process ``--benchmark`` run of two batches of 16,
+       split into sampling and extraction, and InceptionV3 in f32 at 299²
+       at B=64 and 128 (CUDA events), the network alone and from 32²
+       images.
+
 The last three lines of standard output are the ``kernels`` JSON line
 (all seven kernels),
 the card's name and power limit from ``nvidia-smi``, and the result
@@ -145,6 +165,7 @@ import copy
 import io
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -1156,14 +1177,15 @@ def hold_double_backward():
     return errs
 
 
-def run_cli(module: str, args, what: str, timeout: int = 900) -> str:
-    """Run one of the port's CLIs as a subprocess; fails on a non-zero
-    exit. Returns its standard output."""
+def run_cli(module: str, args, what: str, timeout: int = 900,
+            env=None) -> str:
+    """Run one of the port's CLIs as a subprocess (in ``env`` when
+    given); fails on a non-zero exit. Returns its standard output."""
     cmd = [sys.executable, "-m", f"diffusion_model_universal_torch.scripts."
            f"{module}", *args]
     t0 = time.perf_counter()
     out = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
-                         timeout=timeout)
+                         timeout=timeout, env=env)
     secs = time.perf_counter() - t0
     log(f"[cli] {what}: exit {out.returncode} in {secs:.1f} s")
     if out.returncode != 0:
@@ -2847,6 +2869,255 @@ def families(per_forward):
             "seconds": secs}
 
 
+# -- phase 13: the sample-quality harness --------------------------------
+
+#: Phase 13b's cut of ddpm_config.yaml's benchmark section: 64 of its
+#: 10,000 samples, in batches of 16, by DPM++-20 (19 UNet forwards a
+#: batch) for the family's own 1000-step sampler.
+HARNESS_BENCH = {"n_samples": 64, "batch_size": 16, "sampler": "dpm++",
+                 "sampler_steps": 20}
+HARNESS_FORWARDS = 4 * 19           # batches × UNet forwards a batch
+INCEPTION_TIME_BATCHES = (64, 128)
+
+
+def harness_inputs(b, size, gen):
+    import torch
+    return torch.rand((b, size, size, 3), generator=gen) * 2.0 - 1.0
+
+
+def hold_harness(inception_state):
+    """Phase 13a: the harness's networks on the card against the CPU in
+    f32 within UNET_TOL: the seeded extractor at B=4, 32² and 128²,
+    InceptionV3 (from a 32² input, so through the 299² resize) at B=2,
+    the VGG16 taps at B=2, 32², and one DDPM training loss with
+    ``perceptual_weight: 0.1`` and its gradients at B=2."""
+    import torch
+    from diffusion_model_universal_torch.models import DDPM
+    from diffusion_model_universal_torch.utils.benchmarks import (
+        FeatureExtractor)
+    from diffusion_model_universal_torch.utils.inception import (
+        InceptionExtractor, imagenet_normalize)
+    from diffusion_model_universal_torch.utils.vgg import (VGG16Features,
+                                                           init_vgg16_)
+    gen = torch.Generator().manual_seed(SEED + 13)
+    errs = {}
+    card, cpu = (FeatureExtractor(seed=SEED, device=d)
+                 for d in (DEVICE, "cpu"))
+    for size in (32, 128):
+        x = harness_inputs(4, size, gen)
+        got, want = card(x.to(DEVICE)), cpu(x)
+        errs[f"extractor {size}²"] = max(
+            hold(f"seeded extractor B=4 {size}² {name}, card vs CPU",
+                 g.cpu(), w, UNET_TOL)
+            for name, g, w in zip(("features", "logits"), got, want))
+    card, cpu = (InceptionExtractor(state_dict=inception_state, device=d)
+                 for d in (DEVICE, "cpu"))
+    x = harness_inputs(2, 32, gen)
+    got, want = card(x.to(DEVICE)), cpu(x)
+    errs["inception 299²"] = max(
+        hold(f"InceptionV3 B=2 299² {name}, card vs CPU", g.cpu(), w,
+             UNET_TOL)
+        for name, g, w in zip(("features", "logits"), got, want))
+    cpu = init_vgg16_(VGG16Features(), torch.Generator().manual_seed(SEED))
+    card = VGG16Features().to(DEVICE)
+    card.load_state_dict(cpu.state_dict())
+    x = imagenet_normalize(
+        (harness_inputs(2, 32, gen).permute(0, 3, 1, 2) + 1.0) / 2.0)
+    with torch.no_grad():
+        got, want = card(x.to(DEVICE)), cpu(x)
+    errs["vgg taps"] = max(
+        hold(f"VGG16 tap {i} B=2 32², card vs CPU", g.cpu(), w, UNET_TOL)
+        for i, (g, w) in enumerate(zip(got, want)))
+    cfg = model_config()
+    f32_cfg = dict(cfg, compute_dtype="float32", dropout=0.0,
+                   loss_config=dict(cfg.get("loss_config", {}),
+                                    perceptual_weight=0.1))
+    card = DDPM(f32_cfg, device=DEVICE, seed=SEED, trainable=True)
+    cpu = DDPM(f32_cfg, device="cpu", seed=SEED, trainable=True)
+    cpu.net.load_state_dict(card.net.state_dict())
+    check(card.loss_fn.perceptual_weight == 0.1
+          and not card.loss_fn._perceptual.pretrained,
+          "perceptual term missing from the DDPM loss")
+    x = harness_inputs(2, 32, gen)
+    t = torch.tensor([17, 803])
+    noise = torch.randn(x.shape, generator=gen)
+    errs["perceptual training loss"] = hold_loss_and_grads(
+        "DDPM loss + 0.1·perceptual (B=2)", card, cpu, x, t=t, noise=noise)
+    with torch.no_grad():
+        term = float(card.loss_fn._perceptual(x.to(DEVICE),
+                                              noise.to(DEVICE)))
+    check(math.isfinite(term) and term > 0.0, f"perceptual term {term}")
+    log(f"  VGG distance of x and the noise on the card: {term:.6f}")
+    return errs
+
+
+def time_inception(inception_state):
+    """Phase 13c: InceptionV3 images/s in f32 (TF32 off) at 299², by CUDA
+    events: the network alone, and the extractor from 32² images (resize
+    and normalization included)."""
+    import torch
+    from diffusion_model_universal_torch.utils.inception import (
+        InceptionExtractor)
+    ext = InceptionExtractor(state_dict=inception_state, device=DEVICE)
+    gen = torch.Generator().manual_seed(SEED + 14)
+    rows = []
+    for b in INCEPTION_TIME_BATCHES:
+        x299 = torch.randn((b, 3, 299, 299), generator=gen).to(DEVICE)
+        x32 = harness_inputs(b, 32, gen).to(DEVICE)
+        with torch.no_grad():
+            net_ms = cuda_ms(lambda: ext.net(x299), iters=3, reps=3)
+            ext_ms = cuda_ms(lambda: ext(x32), iters=3, reps=3)
+        rows.append({"batch": b, "net_ms": net_ms,
+                     "net_images_per_s": b / net_ms * 1e3,
+                     "extractor_from_32_ms": ext_ms,
+                     "extractor_images_per_s": b / ext_ms * 1e3})
+        log(f"[time] InceptionV3 f32 B={b}: network at 299² {net_ms:.2f} ms "
+            f"({b / net_ms * 1e3:.0f} img/s); extractor from 32² "
+            f"{ext_ms:.2f} ms ({b / ext_ms * 1e3:.0f} img/s)")
+    return rows
+
+
+def time_benchmark_batch():
+    """Phase 13c: one in-process ``--benchmark`` run as the CLI makes it
+    (the config's trainable model, bf16 autocast, the synthetic test set,
+    InceptionV3 from ``$DMU_INCEPTION_WEIGHTS``), two batches of 16, each
+    sampling call and each extractor call timed on the host clock between
+    synchronizes."""
+    import torch
+    from diffusion_model_universal_torch.datasets import get_dataset
+    from diffusion_model_universal_torch.models import DDPM
+    from diffusion_model_universal_torch.utils.benchmarks import (
+        DiffusionBenchmark)
+    cfg = train_config(tempfile.gettempdir())
+    model = DDPM(cfg["model_config"], device=DEVICE, seed=SEED,
+                 trainable=True)
+    test_loader = get_dataset(cfg, device=model.device)[2]
+    bench = DiffusionBenchmark(
+        n_samples=2 * HARNESS_BENCH["batch_size"],
+        batch_size=HARNESS_BENCH["batch_size"], use_inception=True,
+        sampler=HARNESS_BENCH["sampler"],
+        sampler_steps=HARNESS_BENCH["sampler_steps"], device=DEVICE)
+    spans = {"sampling": [], "extraction": []}
+
+    def timed(kind, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spans[kind].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    model.generate_samples_dpm = timed("sampling", model.generate_samples_dpm)
+    bench.extractor = timed("extraction", bench.extractor)
+    with torch.no_grad():   # a warm-up batch: cuDNN picks its algorithms
+        model.generate_samples_dpm(2, num_steps=3)
+        bench.extractor(torch.zeros((16, 32, 32, 3), device=DEVICE))
+    spans = {"sampling": [], "extraction": []}
+    t0 = time.perf_counter()
+    results = bench.evaluate(model, test_loader)
+    total = time.perf_counter() - t0
+    n_real = len(test_loader)
+    real_s = sum(spans["extraction"][:n_real])
+    fake_s = spans["extraction"][n_real:]
+    sample_s = spans["sampling"]
+    extract_share = (real_s + sum(fake_s)) / total
+    check(all(math.isfinite(results[k]) for k in
+              ("fid", "is_mean", "is_std", "ssim", "psnr")),
+          f"in-process benchmark results {results}")
+    log(f"[time] --benchmark batch of {HARNESS_BENCH['batch_size']} "
+        f"(DPM++-20, bf16 autocast): sampling "
+        f"{', '.join(f'{v:.3f}' for v in sample_s)} s, extraction "
+        f"{', '.join(f'{v:.3f}' for v in fake_s)} s; the real set's "
+        f"{n_real} batches {real_s:.3f} s; the run {total:.3f} s, "
+        f"extraction {extract_share:.3f} of it")
+    return {"sampling_s": sample_s, "fake_extraction_s": fake_s,
+            "real_extraction_s": real_s, "real_batches": n_real,
+            "total_s": total, "extraction_share": extract_share,
+            "results": results}
+
+
+def benchmark_cli(weights: str):
+    """Phase 13b: ``train --eval_only --benchmark`` on ddpm_config.yaml at
+    full width (the synthetic set, HARNESS_BENCH, InceptionV3 from the
+    seeded ``.npz``): finite metrics in the results file, no fallback,
+    and exactly HARNESS_FORWARDS × 53 K1 and × 5 K3 launches in the
+    benchmark."""
+    import yaml
+    tmp = Path(tempfile.mkdtemp(prefix="dmu_benchmark_cli_"))
+    try:
+        cfg = train_config(str(tmp))
+        cfg["benchmark"] = dict(cfg["benchmark"], **HARNESS_BENCH)
+        path = tmp / "bench.yaml"
+        path.write_text(yaml.safe_dump(cfg))
+        t0 = time.perf_counter()
+        out = run_cli("train", ["--config", str(path), "--model_type",
+                                "ddpm", "--seed", str(SEED), "--eval_only",
+                                "--benchmark"],
+                      f"train --eval_only --benchmark {HARNESS_BENCH}",
+                      env={**os.environ, "DMU_INCEPTION_WEIGHTS": weights})
+        secs = time.perf_counter() - t0
+        check("Falling back" not in out, "the benchmark fell back to the "
+              "seeded extractor")
+        out_dir = Path(cfg["output"]["output_dir"])
+        results = json.loads((out_dir / cfg["benchmark"]["results_file"])
+                             .read_text())
+        check(all(math.isfinite(results.get(k, math.nan)) for k in
+                  ("fid", "is_mean", "is_std", "ssim", "psnr")),
+              f"benchmark results {results}")
+        grids = sorted(p.name for p in
+                       (out_dir / cfg["benchmark"]["sample_dir"]).iterdir())
+        check(len(grids) == 4, f"sample grids {grids}")
+        launches = json.loads(out.split("Benchmark kernel launches: ")[1]
+                              .splitlines()[0])
+        want = {"dmu_group_norm_silu_fwd": 53 * HARNESS_FORWARDS,
+                "dmu_group_norm_silu_bwd": 0,
+                "dmu_mha_fwd": 5 * HARNESS_FORWARDS}
+        got = {k: launches.get(k, 0) for k in want}
+        check(got == want, f"benchmark launches {got} != {want}")
+        log(f"[cli] --benchmark results {json.dumps(results)}; launches "
+            f"{got}")
+        return {"results": results, "launches": launches, "seconds": secs}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def harness():
+    """Phase 13: the sample-quality harness."""
+    import torch
+    from diffusion_model_universal_torch.utils.inception import (
+        InceptionV3, init_inception_, save_inception_npz)
+    t0 = time.perf_counter()
+    net = init_inception_(InceptionV3(), torch.Generator().manual_seed(SEED))
+    tmp = Path(tempfile.mkdtemp(prefix="dmu_inception_"))
+    try:
+        weights = str(tmp / "inception_seeded.npz")
+        save_inception_npz(net, weights)
+        log("[hold] phase 13a: the harness's networks on the card against "
+            "the CPU, f32:")
+        errs = hold_harness(net.state_dict())
+        t1 = time.perf_counter()
+        cli = benchmark_cli(weights)
+        t2 = time.perf_counter()
+        os.environ["DMU_INCEPTION_WEIGHTS"] = weights
+        try:
+            batch = time_benchmark_batch()
+        finally:
+            del os.environ["DMU_INCEPTION_WEIGHTS"]
+        inception = time_inception(net.state_dict())
+        t3 = time.perf_counter()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    secs = {"13a": t1 - t0, "13b": t2 - t1, "13c": t3 - t2,
+            "total": t3 - t0}
+    log(f"[phase 13] harness: {secs['total']:.1f} s (13a {secs['13a']:.1f}, "
+        f"13b {secs['13b']:.1f}, 13c {secs['13c']:.1f})")
+    return {"card_vs_cpu_max_abs_err": errs, "cli": cli,
+            "benchmark_batch": batch, "inception": inception,
+            "seconds": secs}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2926,6 +3197,7 @@ def main() -> int:
     exp_entries, exp_summary = experiment_kernels()
     sampler_summary = samplers(per_forward)
     family_summary = families(per_forward)
+    harness_summary = harness()
 
     symbols = {"gn": "dmu_group_norm_silu_fwd",
                "gn_bwd": "dmu_group_norm_silu_bwd", "mha": "dmu_mha_fwd"}
@@ -2948,7 +3220,9 @@ def main() -> int:
                     "launches"][symbols[kind]],
                 "energy_serve_request": fam["energy_based"],
                 "energy_train_cli": family_summary["cli"]["energy_based"][
-                    "launches"][symbols[kind]]}
+                    "launches"][symbols[kind]],
+                "benchmark_cli": harness_summary["cli"]["launches"][
+                    symbols[kind]]}
 
     train_work = (f"one training step at B={TRAIN_BATCH}, bf16 autocast, "
                   "remat on: every shape times its calls per step")
@@ -2997,6 +3271,7 @@ def main() -> int:
                "experiment_kernels": exp_summary,
                "samplers": sampler_summary,
                "families": family_summary,
+               "harness": harness_summary,
                "seconds": time.perf_counter() - t_start}
     log(f"[summary] {json.dumps(summary)}")
     print(json.dumps({"kernels": entries}))

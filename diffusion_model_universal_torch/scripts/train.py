@@ -4,24 +4,40 @@
     python -m diffusion_model_universal_torch.scripts.train \
         --config diffusion_model_universal_torch/configs/ddpm_config.yaml \
         --model_type ddpm|ddim|score_based|energy_based \
-        [--resume latest|NAME] [--eval_only] [--seed N] \
+        [--resume latest|NAME] [--eval_only] [--benchmark] [--seed N] \
         [--device cuda|cpu]
 
 Runs on ``cuda`` unless ``--device cpu`` is given, and raises without
 CUDA otherwise. Trains, then reports the test loss and saves
-``final_model``; ``--eval_only`` reports the test loss only. On the card
-it ends by printing each kernel's launches in the run. A SIGTERM
-saves a resumable checkpoint and exits with 143. ``--benchmark``,
-``--profile``, ``--multihost`` and ``--num_devices > 1`` are not ported
-yet and exit.
+``final_model``; ``--eval_only`` reports the test loss only. A SIGTERM
+saves a resumable checkpoint and exits with 143.
+
+``--benchmark`` then runs the sample-quality protocol
+(``utils/benchmarks.py``) on the EMA weights (``benchmark.use_ema:
+false``: the raw ones) with the config's ``benchmark`` section:
+``n_samples`` (default 50,000 with ``--eval_only``, 2,000 after
+training), ``batch_size`` (default the training batch),
+``use_inception`` (default true: InceptionV3 with the weights in
+``$DMU_INCEPTION_WEIGHTS``, else the seeded extractor with a warning),
+``metrics``, ``pairing``, ``sampler``/``sampler_steps``,
+``save_samples``/``sample_dir`` and ``results_file`` (default
+``benchmark_results.json``), the files under ``output.output_dir``. It
+prints ``Benchmark: {json}``.
+
+On the card the run ends by printing each kernel's launches in the run
+(``Kernel launches``), after those of the benchmark alone
+(``Benchmark kernel launches``). ``--profile``, ``--multihost`` and
+``--num_devices > 1`` are not ported yet and exit.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import json
 import sys
+from pathlib import Path
 
 from .. import NOT_PORTED
 from ..ops._build import launch_counts
@@ -54,8 +70,7 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def check_ported(args) -> None:
     """Raise SystemExit for options this package does not run yet."""
-    for flag, on in (("--benchmark", args.benchmark),
-                     ("--multihost", args.multihost),
+    for flag, on in (("--multihost", args.multihost),
                      ("--profile", args.profile is not None),
                      ("--num_devices > 1",
                       args.num_devices is not None and args.num_devices > 1)):
@@ -71,6 +86,44 @@ def params_digest(tensors) -> str:
     for p in tensors:
         h.update(p.detach().cpu().contiguous().numpy().tobytes())
     return h.hexdigest()
+
+
+def run_benchmark(trainer, config, test_loader, eval_only: bool) -> dict:
+    """The ``--benchmark`` protocol on the trainer's model; writes and
+    prints the results."""
+    from ..utils import benchmarks
+    bench_cfg = config.get("benchmark", {}) or {}
+    model = trainer.model
+    bench = benchmarks.DiffusionBenchmark(
+        n_samples=bench_cfg.get("n_samples", 50000 if eval_only else 2000),
+        batch_size=bench_cfg.get(
+            "batch_size", config.get("training", {}).get("batch_size", 128)),
+        use_inception=bench_cfg.get("use_inception", True),
+        metrics=bench_cfg.get("metrics"),
+        pairing=bench_cfg.get("pairing", "unpaired"),
+        sampler=bench_cfg.get("sampler", "default"),
+        sampler_steps=bench_cfg.get("sampler_steps"),
+        device=model.device)
+    out_dir = Path(config.get("output", {}).get("output_dir", "outputs"))
+    out_dir.mkdir(parents=True, exist_ok=True)
+    sample_dir = None
+    if bench_cfg.get("save_samples", False):
+        sample_dir = str(out_dir / bench_cfg.get("sample_dir",
+                                                 "benchmark_samples"))
+    before = launch_counts()
+    with trainer.ema_weights() if bench_cfg.get("use_ema", True) \
+            else contextlib.nullcontext():
+        results = bench.evaluate(model, test_loader, sample_dir=sample_dir)
+    with open(out_dir / bench_cfg.get("results_file",
+                                      "benchmark_results.json"), "w") as f:
+        json.dump(results, f, indent=2)
+    print("Benchmark:", json.dumps(results, indent=2))
+    if model.device.type == "cuda":
+        after = launch_counts()
+        print(f"Benchmark kernel launches: "
+              f"{json.dumps({k: after[k] - before.get(k, 0) for k in after})}",
+              flush=True)
+    return results
 
 
 def main(argv=None) -> int:
@@ -112,6 +165,8 @@ def main(argv=None) -> int:
                 return 143
             print(f"Final test loss: {trainer.test():.6f}")
             trainer.save_checkpoint("final_model", num_epochs - 1)
+        if args.benchmark:
+            run_benchmark(trainer, config, test_loader, args.eval_only)
     finally:
         trainer.cleanup()
     if model.device.type == "cuda":

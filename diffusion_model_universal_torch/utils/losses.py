@@ -6,17 +6,16 @@ Loss types mse / l1 / huber / hybrid with their per-type weights,
 ``huber_delta`` and ``hybrid_weights``; per-sample time weights snr /
 linear / inverse (affinely rescaled over the batch to [min_weight,
 max_weight], as in the reference) and min_snr (absolute). The SNR weights
-come from the model's own ᾱ schedule. ``perceptual_weight > 0`` (VGG
-features) is not ported yet.
+come from the model's own ᾱ schedule. ``perceptual_weight > 0`` adds that
+weight times the VGG16 feature distance (:class:`PerceptualLoss`).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Callable, Dict, Optional
 
 import torch
-
-from .. import NOT_PORTED
 
 
 def mse(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -112,10 +111,10 @@ class DiffusionLoss:
         self.num_timesteps = num_timesteps
         self.alphas_cumprod = alphas_cumprod
         self.prediction_type = prediction_type
-        if cfg.get("perceptual_weight", 0.0) > 0:
-            raise NotImplementedError(
-                f"loss_config.perceptual_weight > 0 (VGG perceptual loss) "
-                f"is {NOT_PORTED}")
+        self.perceptual_weight = cfg.get("perceptual_weight", 0.0)
+        self._perceptual: Optional[PerceptualLoss] = None
+        if self.perceptual_weight > 0:
+            self._perceptual = PerceptualLoss()
 
     def _base_loss(self, pred: torch.Tensor,
                    target: torch.Tensor) -> torch.Tensor:
@@ -167,7 +166,11 @@ class DiffusionLoss:
         if self.use_time_weighting and t is not None:
             w = self.time_weights(t[:, None])[:, 0]
             loss = loss * w.reshape(w.shape[:1] + (1,) * (loss.dim() - 1))
-        return loss.reshape(loss.shape[0], -1).mean(dim=1)
+        loss = loss.reshape(loss.shape[0], -1).mean(dim=1)
+        if self._perceptual is not None:
+            loss = loss + self.perceptual_weight * \
+                self._perceptual.per_sample(pred, target)
+        return loss
 
     def __call__(self, pred: torch.Tensor, target: torch.Tensor,
                  timesteps: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -175,7 +178,59 @@ class DiffusionLoss:
         if self.use_time_weighting and timesteps is not None:
             w = self.time_weights(timesteps)
             loss = loss * w.reshape(w.shape[:1] + (1,) * (loss.dim() - 1))
-        return loss.mean()
+        loss = loss.mean()
+        if self._perceptual is not None:
+            loss = loss + self.perceptual_weight * self._perceptual(pred,
+                                                                    target)
+        return loss
+
+
+class PerceptualLoss:
+    """VGG16 feature distance: the sum over the relu1_2, relu2_2 and
+    relu3_3 taps of the mean squared difference, on images mapped from
+    [−1, 1] to [0, 1] and ImageNet-normalized. Differentiable.
+
+    Weights come from ``weights_path`` or ``$DMU_VGG16_WEIGHTS`` (a
+    reference ``.npz`` or a torchvision ``.pth``, ``utils/vgg.py``);
+    without a file they are seeded He-normal draws, a proxy that orders
+    models. The network follows its inputs' device, in f32.
+    """
+
+    def __init__(self, seed: int = 0, weights_path: Optional[str] = None):
+        from .vgg import VGG16Features, init_vgg16_, load_vgg16_params
+        path = weights_path or os.environ.get("DMU_VGG16_WEIGHTS", "")
+        self.net = VGG16Features()
+        if path and os.path.exists(path):
+            self.net.load_state_dict(load_vgg16_params(path), strict=True)
+            self.pretrained = True
+        else:
+            init_vgg16_(self.net, torch.Generator().manual_seed(seed))
+            self.pretrained = False
+        self.net.eval().requires_grad_(False)
+
+    def features(self, x: torch.Tensor):
+        """NHWC images in [−1, 1] → the three taps (NCHW)."""
+        from .inception import imagenet_normalize
+        if self.net.features["0"].weight.device != x.device:
+            self.net.to(x.device)
+        h = (x.float().permute(0, 3, 1, 2) + 1.0) * 0.5
+        return self.net(imagenet_normalize(h))
+
+    def _tap_errors(self, pred: torch.Tensor, target: torch.Tensor):
+        # One pass over both, so the net runs once a call.
+        taps = self.features(torch.cat([pred, target]))
+        b = pred.shape[0]
+        return [(f[:b] - f[b:]) ** 2 for f in taps]
+
+    def __call__(self, pred: torch.Tensor,
+                 target: torch.Tensor) -> torch.Tensor:
+        return sum(e.mean() for e in self._tap_errors(pred, target))
+
+    def per_sample(self, pred: torch.Tensor,
+                   target: torch.Tensor) -> torch.Tensor:
+        """[B] distances, each sample's as a batch of one."""
+        return sum(e.reshape(e.shape[0], -1).mean(dim=1)
+                   for e in self._tap_errors(pred, target))
 
 
 def score_matching_loss(score: torch.Tensor, noise: torch.Tensor,

@@ -88,8 +88,16 @@ def test_diffusion_loss_matches_jax(loss_type, weight, prediction_type):
 
 
 def test_perceptual_loss_is_not_ported():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        DiffusionLoss("mse", {"perceptual_weight": 0.1})
+    """The name is from when ``perceptual_weight > 0`` was refused; the
+    term is ported now (``tests/test_torch_extractors.py`` holds it
+    against JAX), so the loss adds weight × the VGG distance."""
+    loss = DiffusionLoss("mse", {"perceptual_weight": 0.1,
+                                 "use_time_weighting": False})
+    gen = torch.Generator().manual_seed(0)
+    x, y = (torch.rand((2, 16, 16, 3), generator=gen) * 2 - 1
+            for _ in range(2))
+    want = ((x - y) ** 2).mean() + 0.1 * loss._perceptual(x, y)
+    torch.testing.assert_close(loss(x, y), want)
 
 
 @pytest.mark.parametrize("prediction_type", ["epsilon", "v", "x0"])

@@ -275,7 +275,7 @@ def test_checkpoint_names_latest_and_pruning(tmp_path):
 # -- what is not ported, and the device default ---------------------------------
 
 @pytest.mark.parametrize("extra,fragment", [
-    (["--benchmark"], "--benchmark"), (["--profile"], "--profile"),
+    (["--profile", "trace_dir"], "--profile"), (["--profile"], "--profile"),
     (["--multihost"], "--multihost"), (["--num_devices", "2"],
                                        "--num_devices"),
     (["--num_gpus", "4"], "--num_devices > 1 is not yet ported")])
