@@ -151,9 +151,43 @@ from a seed and written as the reference's ``.npz``:
        split into sampling and extraction, and InceptionV3 in f32 at 299²
        at B=64 and 128 (CUDA events), the network alone and from 32²
        images.
+    13a also runs InceptionV3 under PyTorch's default TF32 setting (the
+    ``train`` CLI's): as it is, and through the harness's
+    ``f32_extraction``, which must hold 1e-4 of the largest output.
+
+Then MNIST and CelebA, the transforms and the trainer's remaining
+options (``grad_accum_steps``, ``ema_dtype``, ``adam_mu_dtype``,
+``remat_policy: save_convout``, ``track_histograms``, ``--profile``):
+
+14. a. holds on the card against the CPU in f32: the resize's arithmetic
+       (28→32, 128→64), rotation (nearest: at most 0.1% of the pixels at
+       a rounding tie; bilinear), the crop and the colour jitter on the
+       same draws; K1, K2 and K3 at every call shape of a 64² training
+       step (B=2 f32, B=64 bf16 autocast: attention at S=4, 16 and 64),
+       each in bf16 and f32 against its plain version, and 100/53/9
+       dispatches a step; one f32 step with ``remat_policy:
+       save_convout`` and one accumulated update of 2 × B=2 (loss and
+       every gradient within 1e-3 + 1e-3·|ref|); three steps with the
+       bf16 EMA and μ, each within one bf16 ulp of the CPU's plus the
+       steps' own error;
+    b. runs ``train`` at full width on MNIST IDX files written from the
+       seed (``MNIST_SIZES``) with every option on and ``--profile 3``:
+       the trace names K1's, K2's and K3's kernels, histograms are logged
+       at the counted steps, the final checkpoint keeps bf16 EMA and μ,
+       and K1–K3 launch exactly as counted;
+    c. trains CelebA at 64² in-process from a ``celeba_128.npz`` written
+       from the seed (B=64, ``CELEBA_TRANSFORMS``: rotation, crop and
+       jitter in the loader on the card): ``CELEBA_STEPS`` timed steps
+       with exact launches, a profiled window, and the loader's device ms
+       for rotation + crop + jitter at B=128;
+    d. times an update at B=128 with A=1 and A=2, in turns; ms a step
+       and peak ``max_memory_allocated`` with no remat, full remat and
+       ``save_convout``; and K1, K2 and K3 at the 64² training shapes
+       beside their plain versions, the library call and the bound.
 
 The last three lines of standard output are the ``kernels`` JSON line
-(all seven kernels),
+(all seven kernels; K1–K3 with their 64² training rows and the launches
+of each path),
 the card's name and power limit from ``nvidia-smi``, and the result
 line ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
 before the result line. Needs a CUDA card; exits non-zero without one.
@@ -2918,6 +2952,7 @@ def hold_harness(inception_state):
         hold(f"InceptionV3 B=2 299² {name}, card vs CPU", g.cpu(), w,
              UNET_TOL)
         for name, g, w in zip(("features", "logits"), got, want))
+    errs.update(hold_tf32(card, x, want))
     cpu = init_vgg16_(VGG16Features(), torch.Generator().manual_seed(SEED))
     card = VGG16Features().to(DEVICE)
     card.load_state_dict(cpu.state_dict())
@@ -2949,6 +2984,45 @@ def hold_harness(inception_state):
     check(math.isfinite(term) and term > 0.0, f"perceptual term {term}")
     log(f"  VGG distance of x and the noise on the card: {term:.6f}")
     return errs
+
+
+def hold_tf32(card, x, want):
+    """Phase 13a: InceptionV3 (B=2, 299²) under PyTorch's default TF32
+    setting, which the ``train`` CLI keeps (cuDNN convs in TF32, cuBLAS
+    matmuls not), against the CPU's f32: the network as it is, and
+    through the harness's ``f32_extraction``, which must hold the
+    harness's bound, 1e-4 of each output's largest magnitude."""
+    import torch
+    from diffusion_model_universal_torch.utils.benchmarks import (
+        f32_extraction)
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        raw = card(x.to(DEVICE))
+        with f32_extraction():
+            guarded = card(x.to(DEVICE))
+        flags_back = (torch.backends.cudnn.allow_tf32,
+                      torch.backends.cuda.matmul.allow_tf32) == (True, False)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+    check(flags_back, "f32_extraction did not restore the TF32 flags")
+
+    def rel(outs):
+        return max(float((g.cpu() - w).abs().max()) / float(w.abs().max())
+                   for g, w in zip(outs, want))
+
+    out = {"inception tf32 default rel": rel(raw),
+           "inception tf32 default, f32_extraction rel": rel(guarded)}
+    log(f"  InceptionV3 B=2 299² under the default TF32 setting, card vs CPU "
+        f"f32: {out['inception tf32 default rel']:.3e} of the largest "
+        f"output as it is ({'over' if rel(raw) > 1e-4 else 'within'} the "
+        f"harness's 1e-4), {out['inception tf32 default, f32_extraction rel']:.3e}"
+        f" through f32_extraction")
+    check(rel(guarded) <= 1e-4, "f32_extraction misses the harness's bound")
+    return out
 
 
 def time_inception(inception_state):
@@ -3118,6 +3192,620 @@ def harness():
             "seconds": secs}
 
 
+# -- phase 14: MNIST and CelebA, the transforms, the trainer's options ----
+
+#: MNIST as the smoke writes it: train and test images (28², gzipped IDX).
+MNIST_SIZES = (2048, 512)
+#: The trainer options phase 14 turns on, beside remat_policy: save_convout
+#: and logging.track_histograms.
+OPTION_TRAINING = {"grad_accum_steps": 2, "ema_dtype": "bfloat16",
+                   "adam_mu_dtype": "bfloat16"}
+MNIST_HISTOGRAM_FREQ = 4    # logging.gradient_logging_freq of the CLI run
+MNIST_PROFILE_STEPS = 3
+#: CelebA as the smoke writes it: a celeba_128.npz of this many images
+#: with splits, shrunk to 64² on load; data_config.yaml's batch of 64.
+CELEBA_IMAGES = 1024
+CELEBA_BATCH = 64
+CELEBA_STEPS = 8            # timed steps; the train split has 12 batches
+#: data_config.yaml's CelebA transforms with rotation, crop and jitter.
+CELEBA_TRANSFORMS = [
+    {"name": "center_crop", "size": 178}, {"name": "resize", "size": 64},
+    {"name": "random_rotation", "degrees": 10},
+    {"name": "random_crop", "size": 64, "padding": 4},
+    {"name": "color_jitter", "brightness": 0.2, "contrast": 0.2,
+     "saturation": 0.2, "hue": 0.05},
+    {"name": "random_horizontal_flip"}, {"name": "normalize"}]
+LOADER_TIME_BATCH = 128
+
+
+def hold_transforms():
+    """Phase 14a: the resize's arithmetic (``resize_bilinear``, which
+    ``host_resize`` runs: 28→32 and 128→64), rotation (nearest and
+    bilinear), crop and colour jitter on the card against the CPU in f32,
+    on the same inputs and draws."""
+    import torch
+    from diffusion_model_universal_torch.datasets import pipeline as tp
+    from diffusion_model_universal_torch.utils.inception import (
+        resize_bilinear)
+    gen = torch.Generator().manual_seed(SEED + 20)
+    errs = {}
+    for b, size, c, out in ((16, 28, 1, 32), (8, 128, 3, 64)):
+        x = torch.rand((b, c, size, size), generator=gen) * 255.0
+        errs[f"resize {size}->{out}"] = hold(
+            f"resize {size}²→{out}² B={b} (uint8 scale), card vs CPU",
+            resize_bilinear(x.to(DEVICE), out).cpu(),
+            resize_bilinear(x, out), 1e-3, 0.0)
+    b = 8
+    x = torch.rand((b, 64, 64, 3), generator=gen)
+    angles = torch.rand(b, generator=gen) * 60.0 - 30.0
+    got = tp.rotate_batch(x.to(DEVICE), angles.to(DEVICE), "bilinear")
+    errs["rotation bilinear"] = hold(
+        "rotation bilinear B=8 64², card vs CPU", got.cpu(),
+        tp.rotate_batch(x, angles, "bilinear"), 1e-5, 0.0)
+    got = tp.rotate_batch(x.to(DEVICE), angles.to(DEVICE), "nearest").cpu()
+    off = int((got != tp.rotate_batch(x, angles, "nearest")).any(-1).sum())
+    log(f"  rotation nearest B=8 64², card vs CPU: {off} of {b * 64 * 64} "
+        f"pixels differ (a source coordinate at a rounding tie) "
+        f"{'ok' if off <= b * 64 * 64 // 1000 else 'FAIL'}")
+    check(off <= b * 64 * 64 // 1000, "nearest rotation differs")
+    errs["rotation nearest pixels differing"] = off
+    offs = torch.randint(0, 9, (b, 2), generator=gen)
+    got = tp.random_crop_batch(x.to(DEVICE), offs.to(DEVICE), 64, 4).cpu()
+    check(torch.equal(got, tp.random_crop_batch(x, offs, 64, 4)),
+          "random crop differs between the card and the CPU")
+    log("  random crop (padding 4) B=8 64², card vs CPU: equal")
+    factors = torch.stack([torch.rand(b, generator=gen) * 0.4 + 0.8
+                           for _ in range(3)]
+                          + [torch.rand(b, generator=gen) * 0.1 - 0.05], -1)
+    stages = list(tp.JITTER_STAGES)
+    perms = torch.argsort(torch.rand((b, 4), generator=gen), dim=1)
+    got = tp.color_jitter_batch(x.to(DEVICE), factors.to(DEVICE),
+                                perms.to(DEVICE), stages)
+    errs["color jitter"] = hold(
+        "colour jitter (4 stages, per-image order) B=8 64², card vs CPU",
+        got.cpu(), tp.color_jitter_batch(x, factors, perms, stages), 1e-5,
+        0.0)
+    return errs
+
+
+def celeba_model(cfg, dtype: str, device):
+    """The config's UNet at image_size 64 for training (dropout off and
+    the zero leaves given small seeded values in f32, for holds)."""
+    import torch
+    from diffusion_model_universal_torch.models import DDPM
+    model = DDPM(dict(cfg, image_size=64, compute_dtype=dtype, dropout=0.0),
+                 device=device, seed=SEED, trainable=True)
+    gen = torch.Generator().manual_seed(SEED + 1)
+    with torch.no_grad():
+        for p in model.net.parameters():
+            if not p.any():
+                p.copy_(0.02 * torch.randn(p.shape, generator=gen))
+    return model
+
+
+def step_inputs(b: int, size: int, seed: int, num_timesteps: int):
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((b, size, size, 3), generator=gen).clamp(-1, 1)
+    t = torch.randint(0, num_timesteps, (b,), generator=gen)
+    return x, t, torch.randn(x.shape, generator=gen)
+
+
+def hold_celeba_kernels(cfg):
+    """Phase 14a: K1, K2 and K3 at every call shape of one 64² training
+    step, B=2 in f32 and B=64 in bf16 autocast (the CelebA batch), each
+    in bf16 and f32 against its plain version; the step's dispatches must
+    be LAUNCHES_PER_STEP. Returns the B=64 step's calls, which phase 14d
+    times."""
+    import torch
+    steps = {}
+    for b, dtype in ((2, "float32"), (CELEBA_BATCH, "bfloat16")):
+        model = celeba_model(cfg, dtype, DEVICE)
+        x, t, noise = (v.to(DEVICE) for v in step_inputs(
+            b, 64, SEED + 21, model.num_timesteps))
+        calls = record_train_step(lambda: grads_of_step(model, x, t, noise))
+        per_step = {k: sum(calls[k].values()) for k in LAUNCHES_PER_STEP}
+        log(f"[shapes] one 64² training step at B={b} {dtype}: {per_step} "
+            f"dispatches over {len(calls['gn'])} K1, {len(calls['gn_bwd'])} "
+            f"K2 and {len(calls['mha'])} K3 shapes; attention at "
+            f"{sorted({s[2] for s in calls['mha']})}")
+        check(per_step == LAUNCHES_PER_STEP,
+              f"64² dispatches per step {per_step} != {LAUNCHES_PER_STEP}")
+        steps[b] = calls
+        del model
+    gn = {**steps[2]["gn"], **steps[CELEBA_BATCH]["gn"]}
+    mha = {**steps[2]["mha"], **steps[CELEBA_BATCH]["mha"]}
+    log("[hold] K1 and K3 at the 64² training shapes (B=2 and 64):")
+    errs = hold_kernels(gn, mha)
+    log("[hold] K2 at the 64² training shapes (B=2 and 64):")
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 22)
+    errs["gn_bwd"] = {}
+    for dname in ("bfloat16", "float32"):
+        for key in sorted({**steps[2]["gn_bwd"],
+                           **steps[CELEBA_BATCH]["gn_bwd"]}):
+            errs["gn_bwd"][(key, dname)] = hold_gn_bwd_one(key, dname, gen)
+    return steps[CELEBA_BATCH], errs
+
+
+def hold_grads(name, got_loss, want_loss, got, want, names) -> float:
+    """Loss and every gradient within UNET_TOL abs + rel; returns the
+    largest gradient error."""
+    hold(f"{name} loss, card vs CPU", got_loss, want_loss, UNET_TOL)
+    worst, bad = 0.0, []
+    for n, g, w in zip(names, got, want):
+        d = (g.cpu() - w).abs()
+        worst = max(worst, float(d.max()))
+        if not bool((d <= UNET_TOL + UNET_TOL * w.abs()).all()):
+            bad.append(n)
+    log(f"  {name} gradients, card vs CPU: {len(names)} tensors, max abs "
+        f"err {worst:.3e} (tol {UNET_TOL:g} abs + {UNET_TOL:g} rel) "
+        f"{'ok' if not bad else 'FAIL ' + ', '.join(bad[:5])}")
+    check(not bad, f"{name}: gradients disagree with the CPU: {bad[:5]}")
+    return worst
+
+
+def option_pair(cfg, tmp: Path, training=None, **model_extra):
+    """The same f32 full-width model (32², dropout off, seeded zero
+    leaves) in a DDPMTrainer on the card and on the CPU."""
+    import torch
+    from diffusion_model_universal_torch.models import DDPM
+    from diffusion_model_universal_torch.trainers import DDPMTrainer
+    mcfg = dict(cfg, compute_dtype="float32", dropout=0.0, **model_extra)
+    card = DDPM(mcfg, device=DEVICE, seed=SEED, trainable=True)
+    gen = torch.Generator().manual_seed(SEED + 1)
+    with torch.no_grad():
+        for p in card.net.parameters():
+            if not p.any():
+                p.copy_(0.02 * torch.randn(p.shape, generator=gen))
+    cpu = DDPM(mcfg, device="cpu", seed=SEED, trainable=True)
+    cpu.net.load_state_dict(card.net.state_dict())
+    out = []
+    for model, where in ((card, "card"), (cpu, "cpu")):
+        run_cfg = train_config(str(tmp / where), **(training or {}))
+        out.append(DDPMTrainer(model, [None] * 5, None, None, run_cfg,
+                               seed=SEED))
+    return out
+
+
+def bf16_close(name, got, want, slack) -> float:
+    """Each bf16 tensor of ``got`` within one bf16 ulp of
+    max(|got|, |want|) + its ``slack`` tensor of ``want``'s: the f32 values
+    they round from differ by the step's own error, which can flip a
+    rounding. Returns the largest distance in ulps beyond the slack."""
+    import torch
+    worst = 0.0
+    for g, w, sl in zip(got, want, slack):
+        g, w = g.detach().float().cpu(), w.detach().float()
+        mag = torch.maximum(g.abs(), w.abs()).clamp_min(1e-30)
+        ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+        d = ((g - w).abs() - sl).clamp_min(0.0) / ulp
+        worst = max(worst, float(d.max()))
+    log(f"  {name}: at most {worst:.2f} bf16 ulp apart beyond the slack "
+        f"{'ok' if worst <= 1 else 'FAIL'}")
+    check(all(g.dtype == w.dtype for g, w in zip(got, want))
+          and worst <= 1, f"{name} differs by more than a bf16 ulp")
+    return worst
+
+
+def hold_option_steps(cfg):
+    """Phase 14a: one f32 training step card vs CPU at B=2 with
+    ``remat_policy: save_convout``; one accumulated update of two
+    micro-batches of 2 (``grad_accum_steps: 2``); then three steps with
+    ``ema_dtype`` and ``adam_mu_dtype: bfloat16``, each from the CPU's
+    state (weights, μ, ν, EMA copied to the card first: Adam's ±lr step
+    on a near-zero gradient sends two trajectories apart), after each of
+    which the bf16 μ and EMA must be within one bf16 ulp of the CPU's,
+    beyond a slack for the f32 step's own error: for μ 1e-3·|μ| +
+    (1 − b1)·1e-6 (the step's gradients agree within 1e-6 abs: measured
+    ≤ 8.2e-8); for the EMA 1e-6, or 2·lr where the CPU's |μ| < 1e-6."""
+    import torch
+    tmp = Path(tempfile.mkdtemp(prefix="dmu_options_"))
+    out = {}
+    try:
+        card, cpu = option_pair(cfg, tmp, remat_policy="save_convout")
+        x, t, noise = step_inputs(2, 32, SEED + 23, card.model.num_timesteps)
+        want_loss, want = grads_of_step(cpu.model, x, t, noise)
+        got_loss, got = grads_of_step(card.model, x.to(DEVICE), t.to(DEVICE),
+                                      noise.to(DEVICE))
+        out["save_convout_grad_err"] = hold_grads(
+            "save_convout f32 step", got_loss, want_loss, got, want,
+            card.param_names)
+        card.cleanup()
+        cpu.cleanup()
+        card, cpu = option_pair(cfg, tmp, {"grad_accum_steps": 2},
+                                remat=False)
+        mbs = [step_inputs(2, 32, SEED + 24 + i, card.model.num_timesteps)
+               for i in range(2)]
+        results = []
+        for tr, dev in ((cpu, "cpu"), (card, DEVICE)):
+            loss, grads = tr._loss_and_grads(
+                [x.to(dev) for x, _, _ in mbs], 0,
+                [{"t": t.to(dev), "noise": n.to(dev)} for _, t, n in mbs])
+            results.append((loss.detach().cpu(), [g.cpu() for g in grads]))
+        out["accum_grad_err"] = hold_grads(
+            "grad_accum_steps 2 (2 × B=2) f32 update", results[1][0],
+            results[0][0], results[1][1], results[0][1], card.param_names)
+        card.cleanup()
+        cpu.cleanup()
+        card, cpu = option_pair(cfg, tmp, {"ema_dtype": "bfloat16",
+                                           "adam_mu_dtype": "bfloat16"},
+                                remat=False)
+        lr = float(card.training_cfg["learning_rate"])
+        check(all(v.dtype == torch.bfloat16
+                  for v in card.ema + card.optimizer.mu),
+              "the EMA or μ is not bf16")
+        out["mu_ulps"], out["ema_ulps"] = [], []
+        for k in range(1, 4):
+            x, t, noise = step_inputs(2, 32, SEED + 25 + k,
+                                      card.model.num_timesteps)
+            with torch.no_grad():
+                for dst, src in zip(
+                        card.params + card.optimizer.mu + card.optimizer.nu
+                        + card.ema, cpu.params + cpu.optimizer.mu
+                        + cpu.optimizer.nu + cpu.ema):
+                    dst.copy_(src)
+            cpu.step(x, t=t, noise=noise)
+            card.step(x.to(DEVICE), t=t.to(DEVICE), noise=noise.to(DEVICE))
+            mu = [m.float() for m in cpu.optimizer.mu]
+            out["mu_ulps"].append(bf16_close(
+                f"bf16 μ after step {k}, card vs CPU", card.optimizer.mu,
+                cpu.optimizer.mu,
+                [1e-3 * m.abs() + (1 - card.optimizer.b1) * 1e-6
+                 for m in mu]))
+            out["ema_ulps"].append(bf16_close(
+                f"bf16 EMA after step {k}, card vs CPU", card.ema, cpu.ema,
+                [torch.where(m.abs() < 1e-6, 2 * lr, 1e-6) for m in mu]))
+        card.cleanup()
+        cpu.cleanup()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def write_mnist(root: Path, n_train: int, n_test: int) -> None:
+    """MNIST's four gzipped IDX files, images and labels from the seed."""
+    import gzip
+    import struct
+    import numpy as np
+    rng = np.random.default_rng(SEED + 30)
+    root.mkdir(parents=True, exist_ok=True)
+    yy, xx = np.mgrid[0:28, 0:28]
+    for split, n in (("train", n_train), ("t10k", n_test)):
+        cy, cx = rng.uniform(8, 20, (2, n, 1, 1))
+        r = rng.uniform(3, 8, (n, 1, 1))
+        ring = np.abs(np.hypot(yy - cy, xx - cx) - r) < 1.5
+        images = (ring * rng.integers(128, 256, (n, 1, 1))).astype(np.uint8)
+        for kind, head, data in (
+                ("images-idx3", struct.pack(">IIII", 2051, n, 28, 28),
+                 images),
+                ("labels-idx1", struct.pack(">II", 2049, n),
+                 rng.integers(0, 10, n).astype(np.uint8))):
+            with gzip.open(root / f"{split}-{kind}-ubyte.gz", "wb") as f:
+                f.write(head + data.tobytes())
+
+
+def mnist_cli():
+    """Phase 14b: ``train`` at full width on MNIST IDX files written from
+    the seed, with grad_accum_steps 2, bf16 EMA and μ, remat_policy
+    save_convout, track_histograms and ``--profile`` (3 updates): the
+    trace names K1, K2 and K3, histograms are logged, the checkpoint keeps
+    bf16 state, and K1–K3 launch exactly as counted."""
+    import torch
+    import yaml
+    from diffusion_model_universal_torch.utils.checkpoint import read_state
+    tmp = Path(tempfile.mkdtemp(prefix="dmu_mnist_"))
+    n_train, n_test = MNIST_SIZES
+    pool = n_train * 9 // 10              # data_config: train 0.9, val 0.1
+    micro = pool // TRAIN_BATCH            # micro-batches an epoch
+    a = OPTION_TRAINING["grad_accum_steps"]
+    updates = -(-micro // a)
+    warm = 1 + MNIST_PROFILE_STEPS         # updates --profile takes
+    val_interval = warm + updates          # once, at the epoch's end
+    hist_steps = [s for s in range(warm, warm + updates)
+                  if s % MNIST_HISTOGRAM_FREQ == 0]
+    evals = (-(-(n_train - pool) // TRAIN_BATCH)
+             + -(-n_test // TRAIN_BATCH))  # val and test forwards
+    train_micro = warm * a + micro + len(hist_steps) * a
+    want = {"dmu_group_norm_silu_fwd": LAUNCHES_PER_STEP["gn"] * train_micro
+            + 53 * evals,
+            "dmu_group_norm_silu_bwd": LAUNCHES_PER_STEP["gn_bwd"]
+            * train_micro,
+            "dmu_mha_fwd": LAUNCHES_PER_STEP["mha"] * train_micro + 5 * evals}
+    try:
+        write_mnist(tmp / "mnist", n_train, n_test)
+        cfg = train_config(str(tmp), **OPTION_TRAINING, num_epochs=1,
+                           val_interval=val_interval, sample_interval=0,
+                           checkpoint_interval=1)
+        cfg["data"] = dict(cfg["data"], dataset="MNIST",
+                           data_dir=str(tmp / "mnist"))
+        cfg["model_config"] = dict(cfg["model_config"],
+                                   remat_policy="save_convout")
+        cfg["logging"] = dict(cfg["logging"], track_histograms=True,
+                              log_interval=1,
+                              gradient_logging_freq=MNIST_HISTOGRAM_FREQ)
+        path = tmp / "mnist.yaml"
+        path.write_text(yaml.safe_dump(cfg))
+        log(f"[cli] MNIST {n_train}+{n_test} images: {micro} micro-batches of "
+            f"{TRAIN_BATCH} an epoch, {updates} updates of A={a}; --profile "
+            f"{MNIST_PROFILE_STEPS} (+1 warm-up); histograms at steps "
+            f"{hist_steps}; {evals} eval forwards")
+        t0 = time.perf_counter()
+        out = run_cli("train", ["--config", str(path), "--model_type", "ddpm",
+                                "--seed", str(SEED), "--profile",
+                                str(tmp / "trace"), "--profile_steps",
+                                str(MNIST_PROFILE_STEPS)],
+                      "train MNIST with every option, --profile")
+        secs = time.perf_counter() - t0
+        launches = json.loads(out.split("Kernel launches: ")[1]
+                              .splitlines()[0])
+        got = {k: launches.get(k, 0) for k in want}
+        log(f"[cli] MNIST launches {got}, counted {want}")
+        check(got == want, f"MNIST launches {got} != {want}")
+        traces = list((tmp / "trace").glob("*.pt.trace.json"))
+        check(len(traces) == 1, f"profiler traces {traces}")
+        text = traces[0].read_text()
+        named = {tag: text.count(tag) for tag in
+                 ("gn_fwd_kernel", "gn_bwd_kernel", "mha_fwd")}
+        check(all(named.values()), f"the trace misses a kernel: {named}")
+        rows = [json.loads(line) for line in
+                (tmp / "out" / "metrics.jsonl").read_text().splitlines()]
+        hist = sorted(r["step"] for r in rows
+                      if any(k.endswith("_hist/mean") for k in r))
+        check(hist == hist_steps, f"histograms at steps {hist}")
+        losses = [r["train/loss"] for r in rows if "train/loss" in r]
+        check(len(losses) == updates
+              and all(math.isfinite(v) for v in losses),
+              f"logged losses {losses}")
+        final = read_state(str(tmp / "out" / "checkpoints" / "final_model"))
+        check(final["step"] == warm + updates
+              and {v.dtype for v in final["ema_params"].values()}
+              == {m.dtype for m in final["opt_state"]["mu"]}
+              == {torch.bfloat16},
+              f"final_model step {final['step']} or its state's dtypes")
+        log(f"[cli] MNIST trace {traces[0].stat().st_size / 1e6:.1f} MB names "
+            f"{named}; histograms at {hist}; {len(losses)} losses, first "
+            f"{losses[0]:.4f} last {losses[-1]:.4f}; final_model at step "
+            f"{final['step']} with bf16 EMA and μ")
+        return {"launches": launches, "counted": want, "seconds": secs,
+                "trace_names": named, "histogram_steps": hist,
+                "losses": [losses[0], losses[-1]]}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def write_celeba(root: Path, n: int) -> None:
+    """A celeba_128.npz of ``n`` smooth seeded 128² images with the
+    official split ids (80/10/10)."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 31)
+    yy, xx = np.mgrid[0:128, 0:128].astype(np.float32) / 128.0
+    f = rng.uniform(2.0, 9.0, (n, 1, 1, 3)).astype(np.float32)
+    ph = rng.uniform(0.0, 6.3, (n, 1, 1, 3)).astype(np.float32)
+    images = (127.5 + 100.0 * np.sin(f * (xx[..., None] + yy[..., None])
+                                     + ph)).astype(np.uint8)
+    splits = np.repeat(np.array([0, 1, 2], np.int32),
+                       [n * 8 // 10, n // 10, n - n * 8 // 10 - n // 10])
+    np.savez(root / "celeba_128.npz", images=images, splits=splits)
+
+
+def celeba_training(cfg):
+    """Phase 14c: CelebA at 64² in-process (the CLI reads the packaged
+    data config, which has no rotation, crop or jitter): a celeba_128.npz
+    written from the seed, shrunk to 64² on load, CELEBA_TRANSFORMS in the
+    loader on the card, the config's UNet at image_size 64, B=64, bf16
+    autocast, remat on: CELEBA_STEPS timed steps with exact K1–K3
+    launches, a profiled window (device busy share), and the loader's
+    device ms for rotation + crop + jitter at B=LOADER_TIME_BATCH."""
+    import torch
+    import yaml
+    from diffusion_model_universal_torch.datasets import get_dataset
+    from diffusion_model_universal_torch.datasets import pipeline as tp
+    from diffusion_model_universal_torch.models import DDPM
+    from diffusion_model_universal_torch.ops import attention as attn_ops
+    from diffusion_model_universal_torch.ops import group_norm as gn_ops
+    from diffusion_model_universal_torch.trainers import DDPMTrainer
+    from diffusion_model_universal_torch.utils.config import (
+        default_data_config_path, load_data_config)
+    tmp = Path(tempfile.mkdtemp(prefix="dmu_celeba_"))
+    try:
+        write_celeba(tmp, CELEBA_IMAGES)
+        block = dict(load_data_config(default_data_config_path(), "celeba"),
+                     data_dir=str(tmp), transforms=CELEBA_TRANSFORMS)
+        data_cfg = tmp / "data.yaml"
+        data_cfg.write_text(yaml.safe_dump({"datasets": {"celeba": block}}))
+        run_cfg = train_config(str(tmp), batch_size=CELEBA_BATCH)
+        run_cfg["data"] = dict(run_cfg["data"], dataset="celeba",
+                               data_dir=str(tmp))
+        t0 = time.perf_counter()
+        model = DDPM(dict(cfg, image_size=64), device=DEVICE, seed=SEED,
+                     trainable=True)
+        loaders = get_dataset(run_cfg, data_config_path=str(data_cfg),
+                              device=model.device)
+        load_s = time.perf_counter() - t0
+        trainer = DDPMTrainer(model, *loaders, run_cfg, seed=SEED)
+        sizes = [len(getattr(ld, "loader", ld).images) for ld in loaders]
+        kernels = {"gn": gn_ops.GN_KERNEL, "gn_bwd": gn_ops.GN_BWD_KERNEL,
+                   "mha": attn_ops.MHA_KERNEL}
+        batches = []
+        it = iter(loaders[0])
+        for _ in range(3 + CELEBA_STEPS):
+            batches.append(next(it))
+        del it
+        x = batches[0]
+        check(tuple(x.shape) == (CELEBA_BATCH, 64, 64, 3)
+              and bool(x.isfinite().all())
+              and float(x.abs().max()) <= 1.0 + 1e-6,
+              f"CelebA batch {tuple(x.shape)}")
+        for b in batches[:3]:
+            trainer.step(b)
+        torch.cuda.synchronize()
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        for b in batches[3:]:
+            metrics = trainer.step(b)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {n: k.launches for n, k in kernels.items()}
+        want = {n: CELEBA_STEPS * c for n, c in LAUNCHES_PER_STEP.items()}
+        check(launches == want, f"CelebA launches {launches} != {want}")
+        check(bool(metrics["loss"].isfinite()), "CelebA loss not finite")
+        step = {"steps": CELEBA_STEPS, "batch": CELEBA_BATCH,
+                "ms_per_step": secs / CELEBA_STEPS * 1e3,
+                "images_per_s": CELEBA_BATCH * CELEBA_STEPS / secs,
+                "launches": launches,
+                "last_loss": float(metrics["loss"])}
+        log(f"[train] CelebA 64² ({sizes} train/val/test images, loaded and "
+            f"shrunk in {load_s:.1f} s): {CELEBA_STEPS} steps at "
+            f"B={CELEBA_BATCH} bf16: {step['ms_per_step']:.2f} ms/step, "
+            f"{step['images_per_s']:.1f} img/s; launches {launches}")
+        prof = profile_run(lambda: trainer.step(x), 3,
+                           f"CelebA 64² training step B={CELEBA_BATCH}")
+        trainer.cleanup()
+        del trainer, model
+        aug = tp.make_augment_fn(CELEBA_TRANSFORMS[2:5], [0.5] * 3,
+                                 [0.5] * 3, train=True)
+        raw = torch.randint(0, 256, (LOADER_TIME_BATCH, 64, 64, 3),
+                            dtype=torch.uint8, device=DEVICE)
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 32)
+        loader_ms = cuda_ms(lambda: aug(raw, gen), iters=20, reps=5)
+        log(f"[time] loader rotation + crop + jitter at B={LOADER_TIME_BATCH} "
+            f"64²: {loader_ms:.3f} ms a batch (device)")
+        return {"images": sizes, "load_s": load_s, "step": step,
+                "profile": prof, "loader_ms": loader_ms}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def time_options(cfg):
+    """Phase 14d: ms per update and images/s at B=128 (32², bf16
+    autocast, remat on) for A=1 and A=2, in turns; then, for no remat,
+    full remat and save_convout: ms per step, the peak
+    ``max_memory_allocated`` of a whole step and of one forward +
+    backward alone (above the resident weights and Adam state), what the
+    forward leaves held for the backward, and the convolutions one forward + backward computes (``aten::_convolution``
+    in a CPU-side profile: full remat recomputes the stages' convs,
+    save_convout keeps their outputs)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from diffusion_model_universal_torch.datasets import get_dataset
+    from diffusion_model_universal_torch.models import DDPM
+    from diffusion_model_universal_torch.trainers import DDPMTrainer
+    from diffusion_model_universal_torch.utils.profiling import (
+        device_memory_stats)
+    tmp = tempfile.mkdtemp(prefix="dmu_options_time_")
+    out = {"accum": {}, "remat": {}}
+    try:
+        run_cfg = train_config(tmp)
+
+        def trainer_for(**model_extra):
+            model = DDPM(dict(cfg, **model_extra), device=DEVICE, seed=SEED,
+                         trainable=True)
+            loaders = get_dataset(run_cfg, device=model.device)
+            return DDPMTrainer(model, *loaders, run_cfg, seed=SEED)
+
+        trainer = trainer_for()
+        batch = next(iter(trainer.train_loader))
+
+        def timed(chunk, steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                trainer.accum_step(chunk)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / steps * 1e3
+
+        for a in (1, 2):
+            timed([batch] * a, 3)
+        runs = {1: [], 2: []}
+        for order in ((1, 2), (2, 1)):
+            for a in order:
+                runs[a].append(timed([batch] * a, 10))
+        for a, ms in runs.items():
+            out["accum"][f"A={a}"] = {
+                "ms_per_update": ms, "images_per_s": [
+                    a * TRAIN_BATCH / v * 1e3 for v in ms]}
+            log(f"[train] A={a} at B={TRAIN_BATCH}: {ms} ms an update "
+                f"(two runs of 10), "
+                f"{[round(a * TRAIN_BATCH / v * 1e3, 1) for v in ms]} img/s")
+        trainer.cleanup()
+        del trainer
+        for name, extra in (("none", {"remat": False}),
+                            ("full", {"remat": True}),
+                            ("save_convout", {"remat_policy":
+                                              "save_convout"})):
+            torch.cuda.empty_cache()
+            trainer = trainer_for(**extra)
+            timed([batch], 2)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                loss = trainer.model.loss_function(
+                    batch, generator=trainer._generator(trainer.step_count))
+                torch.cuda.synchronize()
+                held = torch.cuda.memory_allocated() - base
+                torch.autograd.grad(loss, trainer.params)
+                torch.cuda.synchronize()
+                del loss
+            fwd_bwd = device_memory_stats()["peak_bytes_in_use"] - base
+            convs = sum(e.count for e in prof.key_averages()
+                        if e.key == "aten::_convolution")
+            torch.cuda.reset_peak_memory_stats()
+            ms = timed([batch], 5)
+            peak = device_memory_stats()["peak_bytes_in_use"]
+            out["remat"][name] = {"ms_per_step": ms, "peak_bytes": peak,
+                                  "resident_bytes": base,
+                                  "fwd_bwd_peak_above_resident": fwd_bwd,
+                                  "held_after_forward": held,
+                                  "convolutions_fwd_bwd": convs}
+            log(f"[train] remat {name} at B={TRAIN_BATCH}: {ms:.2f} ms a "
+                f"step, step peak {peak / 2 ** 30:.3f} GiB "
+                f"({base / 2 ** 30:.3f} GiB resident), one forward + "
+                f"backward {fwd_bwd / 2 ** 30:.3f} GiB above resident, "
+                f"{held / 2 ** 30:.3f} GiB held for the backward after the "
+                f"forward, {convs} convolutions computed")
+            trainer.cleanup()
+            del trainer
+        convs = {k: v["convolutions_fwd_bwd"] for k, v in out["remat"].items()}
+        check(convs["save_convout"] == convs["none"] < convs["full"],
+              f"save_convout recomputed convolutions: {convs}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def data_and_options(cfg):
+    """Phase 14: MNIST and CelebA, the transforms and the trainer's
+    options."""
+    t0 = time.perf_counter()
+    log("[hold] phase 14a: transforms, 64² kernels and the options' steps "
+        "on the card against the CPU:")
+    errs = {"transforms": hold_transforms()}
+    calls64, kernel_errs = hold_celeba_kernels(cfg)
+    errs["steps"] = hold_option_steps(cfg)
+    t1 = time.perf_counter()
+    cli = mnist_cli()
+    t2 = time.perf_counter()
+    celeba = celeba_training(cfg)
+    t3 = time.perf_counter()
+    times = time_options(cfg)
+    k1, k3 = time_kernels(calls64["gn"], calls64["mha"])
+    k2 = time_gn_bwd(calls64["gn_bwd"])
+    t4 = time.perf_counter()
+    secs = {"14a": t1 - t0, "14b": t2 - t1, "14c": t3 - t2, "14d": t4 - t3,
+            "total": t4 - t0}
+    log(f"[phase 14] data and options: {secs['total']:.1f} s (14a "
+        f"{secs['14a']:.1f}, 14b {secs['14b']:.1f}, 14c {secs['14c']:.1f}, "
+        f"14d {secs['14d']:.1f})")
+    return {"card_vs_cpu": errs, "kernel_errs": kernel_errs, "cli": cli,
+            "celeba": celeba, "times": times,
+            "celeba64_rows": {"gn": k1, "gn_bwd": k2, "mha": k3},
+            "celeba64_calls": {k: sum(calls64[k].values())
+                               for k in LAUNCHES_PER_STEP},
+            "seconds": secs}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3198,6 +3886,7 @@ def main() -> int:
     sampler_summary = samplers(per_forward)
     family_summary = families(per_forward)
     harness_summary = harness()
+    options_summary = data_and_options(cfg)
 
     symbols = {"gn": "dmu_group_norm_silu_fwd",
                "gn_bwd": "dmu_group_norm_silu_bwd", "mha": "dmu_mha_fwd"}
@@ -3222,7 +3911,23 @@ def main() -> int:
                 "energy_train_cli": family_summary["cli"]["energy_based"][
                     "launches"][symbols[kind]],
                 "benchmark_cli": harness_summary["cli"]["launches"][
-                    symbols[kind]]}
+                    symbols[kind]],
+                "mnist_options_train_cli": options_summary["cli"][
+                    "launches"][symbols[kind]],
+                "celeba64_train_steps_in_process": options_summary["celeba"][
+                    "step"]["launches"][kind]}
+
+    def celeba64(kind, errs):
+        rows = options_summary["celeba64_rows"][kind]
+        return {**totals(rows), "shapes": rows,
+                "launches_per_train_step":
+                    options_summary["celeba64_calls"][kind],
+                "work": f"one 64² training step at B={CELEBA_BATCH}, bf16 "
+                        "autocast, remat on: every shape times its calls "
+                        "per step",
+                "max_abs_err": max(errs.values())}
+
+    kerrs = options_summary["kernel_errs"]
 
     train_work = (f"one training step at B={TRAIN_BATCH}, bf16 autocast, "
                   "remat on: every shape times its calls per step")
@@ -3239,7 +3944,8 @@ def main() -> int:
                      launches_per_request_by_sampler=by_sampler("gn"),
                      train={**totals(k1_train), "work": train_work,
                             "max_abs_err": max(train_errs["gn"].values()),
-                            "shapes": k1_train}),
+                            "shapes": k1_train},
+                     celeba64_train=celeba64("gn", kerrs["gn"])),
         kernel_entry("group_norm_silu_bwd",
                      "diffusion_model_universal_torch/csrc/group_norm.cu",
                      GN_BWD_REPLACES, k2_rows,
@@ -3248,7 +3954,8 @@ def main() -> int:
                      launches_by_path=by_path("gn_bwd"),
                      launches_per_request_by_sampler=by_sampler("gn_bwd"),
                      tol_reductions="dγ, dβ, dtb: red_tol(n) = 1e-4·max(1, "
-                                    "sqrt(n/1024)) abs + 1e-4 rel"),
+                                    "sqrt(n/1024)) abs + 1e-4 rel",
+                     celeba64_train=celeba64("gn_bwd", kerrs["gn_bwd"])),
         kernel_entry("mha_fwd",
                      "diffusion_model_universal_torch/csrc/attention.cu",
                      MHA_REPLACES, mha_rows, cli["launches"][symbols["mha"]],
@@ -3259,7 +3966,8 @@ def main() -> int:
                      launches_per_request_by_sampler=by_sampler("mha"),
                      train={**totals(k3_train), "work": train_work,
                             "max_abs_err": max(train_errs["mha"].values()),
-                            "shapes": k3_train}),
+                            "shapes": k3_train},
+                     celeba64_train=celeba64("mha", kerrs["mha"])),
         *exp_entries,
     ]
     summary = {"requests": requests, "unet_max_abs_err": unet_err,
@@ -3272,6 +3980,9 @@ def main() -> int:
                "samplers": sampler_summary,
                "families": family_summary,
                "harness": harness_summary,
+               "data_and_options": {k: v for k, v in options_summary.items()
+                                    if k not in ("celeba64_rows",
+                                                 "kernel_errs")},
                "seconds": time.perf_counter() - t_start}
     log(f"[summary] {json.dumps(summary)}")
     print(json.dumps({"kernels": entries}))

@@ -2,18 +2,20 @@
 ``datasets/pipeline.py``).
 
 Datasets are host uint8 NHWC arrays, built once; deterministic geometry
-runs at load time. Each batch is gathered on the host, moved to the
-device as uint8, and augmented there (flips, normalize) with draws from a
-``torch.Generator`` on that device. Shuffling is the reference's
-``(seed, epoch)`` numpy permutation, so the port visits the same images
-in the same order; the flip draws differ (another generator).
-
-Not ported yet: resizing to another size, ``random_rotation``,
-``random_crop`` and ``color_jitter`` (they raise).
+(center crop, the bilinear resize, grayscale) runs at load time on the
+host. Each batch is gathered on the host, moved to the device as uint8,
+and augmented there (flips, rotation, crop, colour jitter, normalize)
+with draws from a ``torch.Generator`` on that device. Shuffling is the
+reference's ``(seed, epoch)`` numpy permutation, so the port visits the
+same images in the same order; the augmentation draws differ (another
+generator). Each stochastic stage is a function of the batch and its
+draws (:func:`rotate_batch`, :func:`random_crop_batch`,
+:func:`color_jitter_batch`), so the draws can be injected.
 """
 
 from __future__ import annotations
 
+import math
 import queue
 import threading
 from typing import (Any, Callable, Dict, Iterator, List, Optional, Sequence,
@@ -21,11 +23,15 @@ from typing import (Any, Callable, Dict, Iterator, List, Optional, Sequence,
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from .. import NOT_PORTED
+from ..models.base import resolve_device
+from ..utils.inception import resize_bilinear
 
 TRAIN_ONLY = {"random_horizontal_flip", "random_vertical_flip",
                "random_rotation", "color_jitter", "random_crop"}
+_STATIC = {"center_crop", "resize", "to_tensor", "grayscale",
+           "grayscale_to_rgb"}
 
 Augment = Callable[[torch.Tensor, torch.Generator], torch.Tensor]
 
@@ -38,14 +44,24 @@ def host_center_crop(images: np.ndarray, size: int) -> np.ndarray:
     return images[:, top:top + size, left:left + size, :]
 
 
-def host_resize(images: np.ndarray, size: int) -> np.ndarray:
-    """Identity when the images already have ``size``; any other size is
-    not ported yet."""
+def host_resize(images: np.ndarray, size: int,
+                chunk: int = 4096) -> np.ndarray:
+    """Bilinear resize of uint8 NHWC images to ``size``² by
+    :func:`..utils.inception.resize_bilinear` (``jax.image.resize``'s
+    weights: a shrink widens the triangle kernel by the scale, a stretch
+    is plain bilinear with half-pixel centers), rounded half to even and
+    clipped to uint8, on the host in chunks of ``chunk`` images (the f32
+    copy of a whole CelebA split would not fit)."""
     if images.shape[1] == size and images.shape[2] == size:
         return images
-    raise NotImplementedError(
-        f"resizing {images.shape[1]}x{images.shape[2]} images to {size} "
-        f"is {NOT_PORTED}")
+    n, _, _, c = images.shape
+    out = np.empty((n, size, size, c), np.uint8)
+    for start in range(0, n, chunk):
+        x = torch.from_numpy(images[start:start + chunk].astype(np.float32))
+        r = resize_bilinear(x.permute(0, 3, 1, 2), size)
+        out[start:start + chunk] = r.round().clamp(0, 255).to(
+            torch.uint8).permute(0, 2, 3, 1).numpy()
+    return out
 
 
 def apply_static_transforms(images: np.ndarray,
@@ -67,37 +83,231 @@ def apply_static_transforms(images: np.ndarray,
     return host_resize(images, image_size)
 
 
+# -- the stochastic stages, each a function of the batch and its draws -----
+
+def rgb_to_hsv(rgb: torch.Tensor) -> torch.Tensor:
+    """[..., 3] RGB in [0, 1] to HSV with hue in [0, 1) (torchvision's
+    ``_rgb2hsv``, which ColorJitter's hue stage uses)."""
+    r, g, b = rgb.unbind(-1)
+    maxc = rgb.amax(-1)
+    minc = rgb.amin(-1)
+    delta = maxc - minc
+    s = torch.where(maxc > 0, delta / maxc.clamp_min(1e-12),
+                    torch.zeros_like(maxc))
+    safe = torch.where(delta > 0, delta, torch.ones_like(delta))
+    rc, gc, bc = (maxc - r) / safe, (maxc - g) / safe, (maxc - b) / safe
+    h = torch.where(maxc == r, bc - gc,
+                    torch.where(maxc == g, 2.0 + rc - bc, 4.0 + gc - rc))
+    h = torch.where(delta > 0, torch.remainder(h / 6.0, 1.0),
+                    torch.zeros_like(h))
+    return torch.stack([h, s, maxc], dim=-1)
+
+
+def hsv_to_rgb(hsv: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`rgb_to_hsv` ([..., 3], hue in [0, 1))."""
+    h, s, v = hsv.unbind(-1)
+    h6 = h * 6.0
+    i = torch.floor(h6)
+    f = h6 - i
+    p = v * (1.0 - s)
+    q = v * (1.0 - f * s)
+    t = v * (1.0 - (1.0 - f) * s)
+    sector = torch.remainder(i.to(torch.int32), 6).long().unsqueeze(0)
+    pick = [torch.stack(c).gather(0, sector)[0]
+            for c in ((v, q, p, p, t, v), (t, v, v, q, p, p),
+                      (p, p, t, v, v, q))]
+    return torch.stack(pick, dim=-1)
+
+
+def rotate_batch(x: torch.Tensor, degrees: torch.Tensor,
+                 interpolation: str = "nearest") -> torch.Tensor:
+    """Rotate each NHWC image by its own angle (degrees, counter-clockwise
+    as viewed) about ((h−1)/2, (w−1)/2), same size, zeros outside: the
+    inverse map of each output pixel, sampled by ``grid_sample`` at pixel
+    coordinates (``align_corners=True``), each tap outside the image
+    reading zero (``padding_mode="zeros"``), nearest (torchvision's
+    default) or bilinear."""
+    _, h, w, _ = x.shape
+    cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
+    yy, xx = torch.meshgrid(
+        torch.arange(h, dtype=torch.float32, device=x.device),
+        torch.arange(w, dtype=torch.float32, device=x.device),
+        indexing="ij")
+    rad = degrees.float() * (math.pi / 180.0)
+    cos, sin = rad.cos()[:, None, None], rad.sin()[:, None, None]
+    ys = cos * (yy - cy) + sin * (xx - cx) + cy
+    xs = -sin * (yy - cy) + cos * (xx - cx) + cx
+    grid = torch.stack([xs * (2.0 / max(w - 1, 1)) - 1.0,
+                        ys * (2.0 / max(h - 1, 1)) - 1.0], dim=-1)
+    out = F.grid_sample(x.permute(0, 3, 1, 2), grid, mode=interpolation,
+                        padding_mode="zeros", align_corners=True)
+    return out.permute(0, 2, 3, 1)
+
+
+def random_crop_batch(x: torch.Tensor, offsets: torch.Tensor, size: int,
+                      padding: int = 0) -> torch.Tensor:
+    """Pad NHWC images by ``padding`` with their edge pixels, then crop
+    image b to ``size``² at (row, column) ``offsets[b]``."""
+    if padding:
+        x = F.pad(x.permute(0, 3, 1, 2), (padding,) * 4,
+                  mode="replicate").permute(0, 2, 3, 1)
+    r = torch.arange(size, device=x.device)
+    rows = offsets[:, 0, None] + r
+    cols = offsets[:, 1, None] + r
+    b = torch.arange(x.shape[0], device=x.device)[:, None, None]
+    return x[b, rows[:, :, None], cols[:, None, :]]
+
+
+#: torchvision's rgb_to_grayscale weights, of its contrast and saturation.
+LUMA = (0.2989, 0.587, 0.114)
+
+
+def _gray(x: torch.Tensor) -> torch.Tensor:
+    return (x * torch.tensor(LUMA, device=x.device)).sum(-1)
+
+
+def _per_image(f: torch.Tensor) -> torch.Tensor:
+    return f[:, None, None, None]
+
+
+def _brightness(x, f):
+    return (x * _per_image(f[:, 0])).clamp(0.0, 1.0)
+
+
+def _contrast(x, f):
+    gray = _gray(x) if x.shape[-1] == 3 else x[..., 0]
+    m = _per_image(gray.mean(dim=(1, 2)))
+    return ((x - m) * _per_image(f[:, 1]) + m).clamp(0.0, 1.0)
+
+
+def _saturation(x, f):
+    gray = _gray(x)[..., None]
+    return ((x - gray) * _per_image(f[:, 2]) + gray).clamp(0.0, 1.0)
+
+
+def _hue(x, f):
+    hsv = rgb_to_hsv(x)
+    h = torch.remainder(hsv[..., 0] + f[:, 3, None, None], 1.0)
+    return hsv_to_rgb(torch.stack([h, hsv[..., 1], hsv[..., 2]],
+                                  -1)).clamp(0.0, 1.0)
+
+
+JITTER_STAGES = {"brightness": _brightness, "contrast": _contrast,
+                 "saturation": _saturation, "hue": _hue}
+
+
+def jitter_stages(t: Dict[str, Any], channels: int) -> List[str]:
+    """The enabled stages of a ``color_jitter`` entry, in
+    ``JITTER_STAGES`` order (saturation and hue only on RGB)."""
+    return [name for name in JITTER_STAGES
+            if float(t.get(name, 0.0))
+            and (channels == 3 or name in ("brightness", "contrast"))]
+
+
+def color_jitter_batch(x: torch.Tensor, factors: torch.Tensor,
+                       perms: Optional[torch.Tensor],
+                       stages: Sequence[str]) -> torch.Tensor:
+    """torchvision ColorJitter on NHWC images in [0, 1], each stage
+    clamped to [0, 1]. ``factors`` [B, 4]: each image's brightness,
+    contrast and saturation factors and its hue shift; ``perms`` [B, n]
+    (n ≥ 2 enabled ``stages``): image b runs ``stages[perms[b, i]]`` i-th,
+    so each image has its own stage order."""
+    fns = [JITTER_STAGES[s] for s in stages]
+    if len(fns) == 1:
+        return fns[0](x, factors)
+    for i in range(len(fns)):
+        out = x
+        for s, fn in enumerate(fns):
+            out = torch.where(_per_image(perms[:, i] == s), fn(x, factors),
+                              out)
+        x = out
+    return x
+
+
+def _rotation_range(t: Dict[str, Any]) -> Tuple[float, float]:
+    deg = t.get("degrees", 10)
+    if isinstance(deg, (list, tuple)):
+        return float(deg[0]), float(deg[1])
+    return -float(deg), float(deg)
+
+
 def make_augment_fn(transforms: Sequence[Dict[str, Any]],
                     mean: Sequence[float], std: Sequence[float],
                     train: bool) -> Augment:
     """The YAML transform list as ``augment(batch_uint8, generator) ->
     f32 NHWC`` on the batch's device. Train-only transforms are dropped in
-    eval mode, as in the reference."""
-    steps: List[Tuple[str, float]] = []
+    eval mode, as in the reference. Rotation angles are U[-degrees,
+    degrees] (or U[lo, hi] for a pair), crop offsets uniform in [0,
+    max_off], jitter factors U[max(0, 1−v), 1+v] and the hue shift
+    U[−hue, hue], hue in [0, 0.5]."""
+    steps: List[Tuple[str, Dict[str, Any]]] = []
     has_normalize = False
     for t in transforms or []:
         name = t.get("name")
-        if name in ("center_crop", "resize", "to_tensor", "grayscale",
-                    "grayscale_to_rgb"):
+        if name in _STATIC:
             continue
         if name == "normalize":
             has_normalize = True
             continue
-        if name in TRAIN_ONLY and not train:
+        if name not in TRAIN_ONLY:
+            raise ValueError(f"unknown transform {name!r}")
+        if not train:
             continue
-        if name not in ("random_horizontal_flip", "random_vertical_flip"):
-            raise NotImplementedError(f"transform {name!r} is {NOT_PORTED}")
-        steps.append((name, float(t.get("p", 0.5))))
+        if name == "color_jitter":
+            hue = float(t.get("hue", 0.0))
+            if not 0.0 <= hue <= 0.5:
+                raise ValueError(
+                    f"color_jitter hue must be in [0, 0.5], got {hue}")
+        if name == "random_rotation":
+            _rotation_range(t)
+            if str(t.get("interpolation", "nearest")).lower() not in (
+                    "nearest", "bilinear"):
+                raise ValueError(f"random_rotation interpolation "
+                                 f"{t['interpolation']!r}")
+        steps.append((name, t))
 
     def augment(batch: torch.Tensor,
                 generator: torch.Generator) -> torch.Tensor:
         x = batch.float() / 255.0
         b = x.shape[0]
-        for name, p in steps:
-            flip = torch.rand((b, 1, 1, 1), generator=generator,
-                              device=x.device) < p
-            dim = 2 if name == "random_horizontal_flip" else 1
-            x = torch.where(flip, x.flip(dim), x)
+
+        def uniform(lo, hi, *shape):
+            u = torch.rand(shape or (b,), generator=generator,
+                           device=x.device)
+            return u * (hi - lo) + lo
+
+        for name, t in steps:
+            if name in ("random_horizontal_flip", "random_vertical_flip"):
+                flip = uniform(0.0, 1.0, b, 1, 1, 1) < float(t.get("p", 0.5))
+                dim = 2 if name == "random_horizontal_flip" else 1
+                x = torch.where(flip, x.flip(dim), x)
+            elif name == "random_rotation":
+                x = rotate_batch(x, uniform(*_rotation_range(t)),
+                                 str(t.get("interpolation",
+                                           "nearest")).lower())
+            elif name == "random_crop":
+                size = int(t.get("size", x.shape[1]))
+                pad = int(t.get("padding", 0))
+                max_off = x.shape[1] + 2 * pad - size
+                if max_off < 0:
+                    raise ValueError(f"random_crop size {size} exceeds the "
+                                     f"padded image {x.shape[1] + 2 * pad}")
+                offs = torch.randint(0, max_off + 1, (b, 2),
+                                     generator=generator, device=x.device)
+                x = random_crop_batch(x, offs, size, pad)
+            else:   # color_jitter
+                stages = jitter_stages(t, x.shape[-1])
+                if not stages:
+                    continue
+                ranges = [(max(0.0, 1 - float(t.get(k, 0.0))),
+                           1 + float(t.get(k, 0.0)))
+                          for k in ("brightness", "contrast", "saturation")]
+                hue = float(t.get("hue", 0.0))
+                factors = torch.stack([uniform(*r) for r in ranges]
+                                      + [uniform(-hue, hue)], dim=-1)
+                perms = (torch.argsort(uniform(0.0, 1.0, b, len(stages)),
+                                       dim=1) if len(stages) > 1 else None)
+                x = color_jitter_batch(x, factors, perms, stages)
         if has_normalize:
             m = torch.tensor(mean, dtype=torch.float32, device=x.device)
             s = torch.tensor(std, dtype=torch.float32, device=x.device)
@@ -112,7 +322,8 @@ class DeviceDataLoader:
 
     Per-host contiguous shard of the index space (``world_size``/``rank``),
     a per-epoch permutation seeded by (seed, epoch), a uint8 gather on the
-    host (numpy indexing), and the augmentation on ``device``. Batches are
+    host (numpy indexing), and the augmentation on ``device`` (``cuda``
+    unless the caller names another; raises without CUDA). Batches are
     f32 NHWC tensors, or ``{"image", "label"}`` dicts with labels.
     """
 
@@ -121,7 +332,7 @@ class DeviceDataLoader:
                  world_size: int = 1, rank: int = 0,
                  drop_last: bool = True,
                  labels: Optional[np.ndarray] = None,
-                 device: torch.device = torch.device("cpu")):
+                 device=None):
         if images.dtype != np.uint8:
             raise ValueError("loader expects uint8 host arrays")
         if labels is not None and len(labels) != len(images):
@@ -136,7 +347,7 @@ class DeviceDataLoader:
         self.world_size = world_size
         self.rank = rank
         self.drop_last = drop_last
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.epoch = 0
         n = len(images)
         self.shard_size = n // world_size if world_size > 1 else n

@@ -4,9 +4,14 @@ of the reference's ``datasets/registry.py``).
 Every dataset takes ``(data_dir, image_size, transforms, split_ratios,
 crop_size)`` and exposes ``train_dataset``/``val_dataset``/``test_dataset``
 as uint8 arrays; ``get_dataset`` always returns the (train, val, test)
-loader tuple. CIFAR-10 splits its 50k train pool by a seeded permutation
-(seed 42) and takes the official 10k batch as test; the synthetic set
-splits by the same permutation. MNIST and CelebA are not ported yet.
+loader tuple, on ``cuda`` unless the caller names another device. MNIST
+splits its 60k train pool into train/val by a seeded permutation (seed
+42; with no test share the train/val ratios are renormalized) and takes
+the official 10k set as test; CIFAR-10 splits its 50k train pool by the
+same permutation and takes the official 10k batch as test; CelebA takes
+the official partition (from its cache or its partition file), or a
+seeded split of a cache that has none; the synthetic set splits by the
+same permutation.
 """
 
 from __future__ import annotations
@@ -14,9 +19,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
-import torch
 
-from .. import NOT_PORTED
 from ..utils.config import default_data_config_path, load_data_config
 from . import sources
 from .pipeline import (TRAIN_ONLY, DeviceDataLoader, PrefetchLoader,
@@ -65,7 +68,7 @@ class ArrayImageDataset:
     def get_dataloaders(self, batch_size: int, world_size: int = 1,
                         rank: int = 0, seed: int = 0,
                         eval_batch_size: Optional[int] = None,
-                        device: torch.device = torch.device("cpu")
+                        device=None
                         ) -> Tuple[DeviceDataLoader, DeviceDataLoader,
                                    DeviceDataLoader]:
         ebs = eval_batch_size or batch_size
@@ -89,6 +92,30 @@ class ArrayImageDataset:
         return train, val, test
 
 
+class MNISTDataset(ArrayImageDataset):
+    """MNIST: a seeded train/val split of the 60k train pool (the ratios
+    renormalized when ``test`` is 0), the official 10k set as test."""
+
+    def _build_splits(self) -> Dict[str, np.ndarray]:
+        train_raw, test_raw = sources.load_mnist(self.data_dir)
+        train_raw = self._prep(train_raw, True)
+        test_raw = self._prep(test_raw, False)
+        ratios = dict(self.split_ratios)
+        if ratios.get("test", 0) == 0:
+            tv = ratios.get("train", 0.9) + ratios.get("val", 0.1)
+            ratios = {"train": ratios.get("train", 0.9) / tv,
+                      "val": ratios.get("val", 0.1) / tv, "test": 0.0}
+        order = np.random.default_rng(42).permutation(len(train_raw))
+        n_train = int(len(train_raw) * ratios["train"])
+        if self.use_labels:
+            tr_l, te_l = sources.load_mnist_labels(self.data_dir)
+            self._split_labels = {"train": tr_l[order[:n_train]],
+                                  "val": tr_l[order[n_train:]],
+                                  "test": te_l}
+        return {"train": train_raw[order[:n_train]],
+                "val": train_raw[order[n_train:]], "test": test_raw}
+
+
 class CIFAR10Dataset(ArrayImageDataset):
     """CIFAR-10: seeded ratio split of the 50k train pool, the official
     10k batch as test."""
@@ -104,6 +131,32 @@ class CIFAR10Dataset(ArrayImageDataset):
                                   "val": tr_l[idx["val"]], "test": te_l}
         return {"train": train_raw[idx["train"]],
                 "val": train_raw[idx["val"]], "test": test_raw}
+
+
+class CelebADataset(ArrayImageDataset):
+    """CelebA: from a ``celeba_{N}.npz`` cache through the static
+    transforms, split by its ``splits`` ids (0/1/2) or, without them, by
+    the seeded ratio split; else from the JPEGs, center-cropped to
+    ``crop_size`` (default 178) and resized to ``image_size`` while
+    decoding, split by the official partition file."""
+
+    _SPLIT_IDS = (("train", 0), ("val", 1), ("test", 2))
+
+    def _build_splits(self) -> Dict[str, np.ndarray]:
+        data, split_ids = sources.load_celeba(self.data_dir,
+                                              image_size=self.image_size)
+        if isinstance(data, np.ndarray):
+            if split_ids is None:
+                idx = split_indices(len(data), self.split_ratios, seed=42)
+                return {k: self._prep(data[v], k == "train")
+                        for k, v in idx.items()}
+            return {name: self._prep(data[split_ids == sid], name == "train")
+                    for name, sid in self._SPLIT_IDS}
+        crop = self.crop_size or 178
+        return {name: sources.decode_jpegs_crop_resize(
+                    [p for p, s in zip(data, split_ids) if s == sid], crop,
+                    self.image_size)
+                for name, sid in self._SPLIT_IDS}
 
 
 class SyntheticDataset(ArrayImageDataset):
@@ -126,23 +179,21 @@ class SyntheticDataset(ArrayImageDataset):
 
 
 DATASET_REGISTRY = {
+    "mnist": MNISTDataset,
     "cifar10": CIFAR10Dataset,
+    "celeba": CelebADataset,
     "synthetic": SyntheticDataset,
 }
 
-_NOT_PORTED_DATASETS = ("mnist", "celeba")
-
 
 def get_dataset(config: Dict, world_size: int = 1, rank: int = 0,
-                data_config_path: Optional[str] = None,
-                device: torch.device = torch.device("cpu")
+                data_config_path: Optional[str] = None, device=None
                 ) -> Tuple[Any, Any, Any]:
     """Build (train, val, test) loaders from a full run config, with the
     dataset's block of the shared data config; batches land on
-    ``device``."""
+    ``device`` (``cuda`` unless the caller names another; raises without
+    CUDA)."""
     name = config["data"]["dataset"].lower()
-    if name in _NOT_PORTED_DATASETS:
-        raise NotImplementedError(f"dataset {name} is {NOT_PORTED}")
     cls = DATASET_REGISTRY.get(name)
     if cls is None:
         raise ValueError(f"Unknown dataset: {name}; available: "

@@ -23,7 +23,7 @@ from .convert import unet_params_to_jax, unet_state_dict_from_jax
 Draw = Callable[[], torch.Tensor]
 Noise = Optional[Iterable[torch.Tensor]]
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
@@ -57,10 +57,10 @@ class BaseDiffusionModel:
         if dtype_name is None:
             dtype_name = "bfloat16" if self.device.type == "cuda" \
                 else "float32"
-        if dtype_name not in _DTYPES:
+        if dtype_name not in DTYPES:
             raise ValueError(f"compute_dtype must be one of "
-                             f"{tuple(_DTYPES)}, got {dtype_name!r}")
-        self.compute_dtype = _DTYPES[dtype_name]
+                             f"{tuple(DTYPES)}, got {dtype_name!r}")
+        self.compute_dtype = DTYPES[dtype_name]
 
     def sample_shape(self, batch_size: int) -> Tuple[int, int, int, int]:
         """NHWC sample shape."""

@@ -88,7 +88,7 @@ class DDPM(BaseDiffusionModel):
                    dropout=cfg.get("dropout", 0.0),
                    num_classes=self.num_classes,
                    conv_bias=cfg.get("conv_bias", False),
-                   remat=remat_from_config(cfg),
+                   **remat_from_config(cfg),
                    split_skip_convs=bool(cfg.get("split_skip_convs", True)))
         self._install_net(net, init_unet_, seed, trainable,
                           cast_compute_dtype_)

@@ -71,7 +71,7 @@ class ScoreBasedDiffusion(BaseDiffusionModel):
         net = UNet(in_channels=in_ch,
                    model_channels=cfg.get("model_channels", 64),
                    out_channels=in_ch, dropout=cfg.get("dropout", 0.0),
-                   remat=remat_from_config(cfg), continuous_sigma=True)
+                   continuous_sigma=True, **remat_from_config(cfg))
         self._install_net(net, init_unet_, seed, trainable,
                           cast_compute_dtype_)
         # The ladder and each level's (σ, step, noise scale), in f32 as the

@@ -14,14 +14,15 @@ a contiguous NHWC view.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
-
-from .. import NOT_PORTED
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from .layers import (AttentionDownBlock, AttentionUpBlock, ConvDownBlock,
                      ConvUpBlock, GroupNormSiLU, ResidualBlock,
@@ -57,6 +58,8 @@ class UNet(nn.Module):
             stage (recompute its forward in the backward), as the
             reference's ``nn.remat`` on ``down0…down4``/``up0…up4``; the
             mid blocks and the head are not checkpointed.
+        remat_policy: what a checkpointed stage keeps (see
+            :func:`resolve_remat_policy`); implies ``remat``.
     """
 
     def __init__(self, in_channels: int = 3, model_channels: int = 64,
@@ -64,11 +67,13 @@ class UNet(nn.Module):
                  dropout: float = 0.0, num_classes: int = 0,
                  conv_bias: bool = False, remat: bool = False,
                  continuous_sigma: bool = False,
-                 split_skip_convs: bool = True):
+                 split_skip_convs: bool = True,
+                 remat_policy: Optional[str] = None):
         super().__init__()
         c, temb = model_channels, model_channels * 4
         self.num_classes = num_classes
-        self.remat = remat
+        self.remat = remat or remat_policy is not None
+        self._remat_context = resolve_remat_policy(remat_policy)
         self.continuous_sigma = continuous_sigma
         self.time_embedding = (SigmaEmbedding(c, temb) if continuous_sigma
                                else TimeEmbedding(c, temb))
@@ -142,18 +147,51 @@ class UNet(nn.Module):
         if self.remat and torch.is_grad_enabled():
             # Non-reentrant checkpointing; dropout masks are replayed from
             # the saved RNG state (preserve_rng_state, the default).
-            return checkpoint(block, *args, use_reentrant=False)
+            return checkpoint(block, *args, use_reentrant=False,
+                              context_fn=self._remat_context)
         return block(*args)
 
 
-def remat_from_config(cfg) -> bool:
-    """The UNet's ``remat`` from a model config: ``remat`` (default on),
-    or any ``remat_policy``; only the policy that recomputes everything
-    (``full``, or none given) is ported."""
+def _save_convolutions(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    if op is torch.ops.aten.convolution.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def resolve_remat_policy(name: Optional[str]):
+    """The ``context_fn`` of a checkpointed stage for the YAML
+    ``remat_policy``.
+
+    * ``None`` / ``"full"``: the default (no context); the backward
+      recomputes the whole stage.
+    * ``"save_convout"``: a selective checkpoint that keeps every
+      ``aten.convolution`` output (the 3×3 and 1×1 convs with their bias,
+      and the down- and up-sample convs) and recomputes the rest: the
+      GroupNorm/SiLU (K1), attention (K3), the adds and the casts. The
+      reference tags the conv outputs it keeps instead
+      (``checkpoint_name(y, CONVOUT)``), after a split conv's sum; saving
+      each ``aten.convolution`` keeps both halves of a split conv, so the
+      port holds one more activation of the conv's width where a stage
+      takes the skip connection. K1 and K3 are opaque to the dispatcher
+      (one ``ctypes`` launch each), so the selective checkpoint never
+      sees them and they rerun with the stage, as under ``"full"``.
+    """
+    if name is None or name == "full":
+        return noop_context_fn
+    if name == "save_convout":
+        return functools.partial(create_selective_checkpoint_contexts,
+                                 _save_convolutions)
+    raise ValueError(f"model_config.remat_policy must be 'full' or "
+                     f"'save_convout', got {name!r}")
+
+
+def remat_from_config(cfg) -> dict:
+    """The UNet's ``remat`` and ``remat_policy`` keywords from a model
+    config: ``remat`` (default on), turned on by any ``remat_policy``."""
     remat_policy = cfg.get("remat_policy")
-    if remat_policy not in (None, "full"):
-        raise ValueError(f"remat_policy: {remat_policy} is {NOT_PORTED}")
-    return bool(cfg.get("remat", True)) or remat_policy is not None
+    resolve_remat_policy(remat_policy)
+    return {"remat": bool(cfg.get("remat", True)) or remat_policy is not None,
+            "remat_policy": remat_policy}
 
 
 def _trunc_normal_(w: torch.Tensor, fan_in: int, scale: float,
@@ -214,4 +252,5 @@ def cast_compute_dtype_(net: nn.Module, dtype: torch.dtype) -> nn.Module:
     return net
 
 
-__all__ = ["UNet", "init_unet_", "cast_compute_dtype_", "remat_from_config"]
+__all__ = ["UNet", "init_unet_", "cast_compute_dtype_", "remat_from_config",
+           "resolve_remat_policy"]

@@ -5,7 +5,7 @@
         --config diffusion_model_universal_torch/configs/ddpm_config.yaml \
         --model_type ddpm|ddim|score_based|energy_based \
         [--resume latest|NAME] [--eval_only] [--benchmark] [--seed N] \
-        [--device cuda|cpu]
+        [--profile [DIR]] [--profile_steps N] [--device cuda|cpu]
 
 Runs on ``cuda`` unless ``--device cpu`` is given, and raises without
 CUDA otherwise. Trains, then reports the test loss and saves
@@ -24,10 +24,15 @@ training), ``batch_size`` (default the training batch),
 ``benchmark_results.json``), the files under ``output.output_dir``. It
 prints ``Benchmark: {json}``.
 
+``--profile`` first traces ``--profile_steps`` real updates (after one
+warm-up update) with ``torch.profiler`` into DIR (default
+``output_dir/profile``) and prints ``Profiler trace written to DIR``;
+training then goes on from there.
+
 On the card the run ends by printing each kernel's launches in the run
 (``Kernel launches``), after those of the benchmark alone
-(``Benchmark kernel launches``). ``--profile``, ``--multihost`` and
-``--num_devices > 1`` are not ported yet and exit.
+(``Benchmark kernel launches``). ``--multihost`` and ``--num_devices >
+1`` are not ported yet and exit.
 """
 
 from __future__ import annotations
@@ -71,7 +76,6 @@ def build_argparser() -> argparse.ArgumentParser:
 def check_ported(args) -> None:
     """Raise SystemExit for options this package does not run yet."""
     for flag, on in (("--multihost", args.multihost),
-                     ("--profile", args.profile is not None),
                      ("--num_devices > 1",
                       args.num_devices is not None and args.num_devices > 1)):
         if on:
@@ -155,6 +159,12 @@ def main(argv=None) -> int:
               f"{trainer.step_count} (params sha256 "
               f"{params_digest(trainer.params)})", flush=True)
     try:
+        if args.profile is not None and not args.eval_only:
+            path = trainer.profile(
+                steps=args.profile_steps,
+                log_dir=(None if args.profile == "__default__"
+                         else args.profile))
+            print(f"Profiler trace written to {path}", flush=True)
         if args.eval_only:
             print(f"Test loss: {trainer.test():.6f}")
         else:

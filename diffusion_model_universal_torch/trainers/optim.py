@@ -7,7 +7,8 @@ exponential / one_cycle / constant, from ``training.scheduler``. The
 optimizer is Adam with ``training.beta1/beta2`` and eps 1e-8 (Optax's
 defaults), behind an optional ``clip_by_global_norm`` (``grad_clip``) and
 an optional skip of non-finite updates with ``optax.apply_if_finite``'s
-semantics (``skip_nonfinite_updates``).
+semantics (``skip_nonfinite_updates``), and the first moment optionally
+stored in another dtype (``adam_mu_dtype``).
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from typing import Any, Callable, Dict, List, Tuple
 
 import torch
 
-from .. import NOT_PORTED
+from ..models.base import DTYPES
 
 Schedule = Callable[[int], float]
 
@@ -97,18 +98,23 @@ def make_lr_schedule(training_cfg: Dict[str, Any], steps_per_epoch: int,
 class Adam:
     """Adam over a list of parameters, with Optax's update rule
     ``p −= lr(count)·m̂/(√v̂ + eps)`` and its state: ``count`` (updates
-    applied), ``mu`` and ``nu`` (f32, one per parameter).
+    applied), ``mu`` (in ``mu_dtype``) and ``nu`` (f32), one per parameter.
 
     ``grad_clip``: scale the gradients by max_norm/‖g‖ when ‖g‖ ≥ max_norm
     (``optax.clip_by_global_norm``). ``max_consecutive_errors`` > 0: a step
     whose gradients are not all finite changes neither the parameters nor
     the moments nor ``count``, until more than that many such steps come
     in a row; then the update is applied (``optax.apply_if_finite``).
+    ``mu_dtype``: the stored first moment's dtype. In optax's order, the
+    update uses the f32 moment (1−b1)·g + b1·μ (b1 rounded to
+    ``mu_dtype``), and only then is μ rounded to ``mu_dtype`` for
+    storage.
     """
 
     def __init__(self, params: List[torch.Tensor], schedule: Schedule,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-                 grad_clip: float = 0.0, max_consecutive_errors: int = 0):
+                 grad_clip: float = 0.0, max_consecutive_errors: int = 0,
+                 mu_dtype: torch.dtype = torch.float32):
         self.params = list(params)
         self.schedule = schedule
         self.b1, self.b2, self.eps = b1, b2, eps
@@ -117,7 +123,8 @@ class Adam:
         self.count = 0
         self.notfinite_count = 0
         self.total_notfinite = 0
-        self.mu = [torch.zeros_like(p, dtype=torch.float32)
+        self.mu_dtype = mu_dtype
+        self.mu = [torch.zeros_like(p, dtype=mu_dtype)
                    for p in self.params]
         self.nu = [torch.zeros_like(p, dtype=torch.float32)
                    for p in self.params]
@@ -143,8 +150,15 @@ class Adam:
                 keep, one, one * self.grad_clip))
         lr = self.schedule(self.count)
         self.count += 1
-        torch._foreach_mul_(self.mu, self.b1)
-        torch._foreach_add_(self.mu, grads, alpha=1 - self.b1)
+        if self.mu_dtype == torch.float32:
+            mu = self.mu
+            torch._foreach_mul_(mu, self.b1)
+        else:
+            # b1 rounded to μ's dtype, as JAX's weakly typed b1 is; the
+            # product stays f32, as the compiled optax update keeps it.
+            b1 = float(torch.tensor(self.b1, dtype=self.mu_dtype))
+            mu = torch._foreach_mul([m.float() for m in self.mu], b1)
+        torch._foreach_add_(mu, grads, alpha=1 - self.b1)
         torch._foreach_mul_(self.nu, self.b2)
         torch._foreach_addcmul_(self.nu, grads, grads, value=1 - self.b2)
         bc1 = 1 - self.b1 ** self.count
@@ -152,7 +166,9 @@ class Adam:
         denom = torch._foreach_sqrt(self.nu)
         torch._foreach_div_(denom, math.sqrt(bc2))
         torch._foreach_add_(denom, self.eps)
-        torch._foreach_addcdiv_(self.params, self.mu, denom, value=-lr / bc1)
+        torch._foreach_addcdiv_(self.params, mu, denom, value=-lr / bc1)
+        if mu is not self.mu:
+            torch._foreach_copy_(self.mu, mu)
         return True
 
     def state_dict(self) -> Dict[str, Any]:
@@ -178,8 +194,6 @@ def make_optimizer(params: List[torch.Tensor], training_cfg: Dict[str, Any],
                    ) -> Tuple[Adam, Schedule]:
     """Adam (+clip, +non-finite skip) with the configured LR schedule;
     the schedule is also returned, for logging the LR."""
-    if training_cfg.get("adam_mu_dtype"):
-        raise ValueError(f"training.adam_mu_dtype is {NOT_PORTED}")
     schedule = make_lr_schedule(training_cfg, steps_per_epoch, num_epochs)
     skip = training_cfg.get("skip_nonfinite_updates", 0)
     max_errors = (100 if isinstance(skip, bool) else int(skip)) if skip else 0
@@ -187,5 +201,15 @@ def make_optimizer(params: List[torch.Tensor], training_cfg: Dict[str, Any],
                b1=float(training_cfg.get("beta1", 0.9)),
                b2=float(training_cfg.get("beta2", 0.999)),
                grad_clip=float(training_cfg.get("grad_clip") or 0.0),
-               max_consecutive_errors=max_errors)
+               max_consecutive_errors=max_errors,
+               mu_dtype=dtype_from_config(training_cfg, "adam_mu_dtype"))
     return opt, schedule
+
+
+def dtype_from_config(training_cfg: Dict[str, Any], key: str) -> torch.dtype:
+    """The storage dtype ``training.<key>`` names (float32 when unset)."""
+    name = str(training_cfg.get(key) or "float32")
+    if name not in DTYPES:
+        raise ValueError(f"training.{key} must be one of {sorted(DTYPES)}, "
+                         f"got {name!r}")
+    return DTYPES[name]

@@ -6,9 +6,14 @@ from a generator seeded by (seed, step), so a resumed run draws what an
 unbroken one would), its gradients by autograd (through the GroupNorm and attention
 Functions, so kernels K1/K2/K3 on the card), the global and per-layer
 gradient norms, one Adam update (``trainers/optim.py``), and the EMA
-update with warmup, d = min(decay, (1+t)/(10+t)). The step stays on the
-device; the host reads a metric only at the logging cadence and the
-epoch's mean loss at its end.
+update with warmup, d = min(decay, (1+t)/(10+t)), computed in f32 and
+stored in ``training.ema_dtype``. With ``training.grad_accum_steps`` A,
+one update takes A micro-batches (micro-batch i draws from the generator
+of (seed, step, i)) and the mean of their losses and gradients; an epoch
+has ceil(batches / A) updates, the last one over the ragged tail, and
+the LR schedule, logging, validation and preemption count updates. The
+step stays on the device; the host reads a metric only at the logging
+cadence and the epoch's mean loss at its end.
 
 Around it, as in the reference: the single-step ``train`` loop with
 validation every ``val_interval`` steps and a best-model save, sample
@@ -17,9 +22,11 @@ grids every ``sample_interval`` epochs, checkpoints every
 emergency checkpoint on an exception, SIGTERM preemption (save, then
 return), masked per-sample ``validate``/``test``, and full-state
 ``save_checkpoint``/``load_checkpoint`` (``utils/checkpoint.py``).
+``logging.track_histograms`` logs a histogram of every gradient and
+weight, and β/α/ᾱ, at ``gradient_logging_freq``; :meth:`profile` traces
+a few real updates with ``torch.profiler``.
 
-Not ported yet (they raise): ``scan_steps > 1``, ``grad_accum_steps > 1``,
-``ema_dtype`` other than float32, ``logging.track_histograms``.
+Not ported yet (it raises): ``scan_steps > 1``.
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ from __future__ import annotations
 import contextlib
 import time
 from pathlib import Path
-from typing import Any, Dict, Iterable, List, Optional
+from typing import Any, Dict, Iterable, Iterator, List, Optional
 
 import numpy as np
 import torch
@@ -36,9 +43,11 @@ from .. import NOT_PORTED
 from ..utils.checkpoint import CheckpointManager
 from ..utils.images import frames_to_grid, save_image
 from ..utils.logging_utils import MetricLogger
-from .optim import make_optimizer
+from .optim import dtype_from_config, make_optimizer
 
 _SEED_STRIDE = 1_000_003
+#: Moves micro-batch i's generator seed away from any step's.
+_MICRO_STRIDE = 0x9E3779B97F4A7C15
 
 
 class DiffusionTrainer:
@@ -67,14 +76,14 @@ class DiffusionTrainer:
         tcfg = self.training_cfg = self.config.get("training", {}) or {}
         log_cfg = self.config.get("logging", {}) or {}
         self.seed = seed
-        for key in ("scan_steps", "grad_accum_steps"):
-            if int(tcfg.get(key, 1)) > 1:
-                raise ValueError(f"training.{key} > 1 is {NOT_PORTED}")
-        if str(tcfg.get("ema_dtype", "float32")) != "float32":
-            raise ValueError(f"training.ema_dtype other than float32 is "
-                             f"{NOT_PORTED}")
-        if log_cfg.get("track_histograms", False):
-            raise ValueError(f"logging.track_histograms is {NOT_PORTED}")
+        if int(tcfg.get("scan_steps", 1)) > 1:
+            raise ValueError(f"training.scan_steps > 1 is {NOT_PORTED}")
+        self.grad_accum = int(tcfg.get("grad_accum_steps", 1))
+        if self.grad_accum < 1:
+            raise ValueError(f"training.grad_accum_steps must be >= 1, got "
+                             f"{self.grad_accum}")
+        self.ema_dtype = dtype_from_config(tcfg, "ema_dtype")
+        self.track_histograms = bool(log_cfg.get("track_histograms", False))
 
         self.num_epochs = int(tcfg.get("num_epochs", 1))
         self.val_interval = int(tcfg.get("val_interval", 1000))
@@ -89,7 +98,8 @@ class DiffusionTrainer:
         self.gradient_logging_freq = int(
             log_cfg.get("gradient_logging_freq", 100))
         self.track_time = bool(log_cfg.get("track_time_metrics", False))
-        self.steps_per_epoch = max(len(train_loader), 1)
+        self.steps_per_epoch = max(-(-len(train_loader) // self.grad_accum),
+                                   1)
 
         torch.manual_seed(seed)  # dropout masks
         named = list(model.net.named_parameters())
@@ -97,7 +107,8 @@ class DiffusionTrainer:
         self.params: List[torch.Tensor] = [p for _, p in named]
         self.optimizer, self.lr_schedule = make_optimizer(
             self.params, tcfg, self.steps_per_epoch, self.num_epochs)
-        self.ema = [p.detach().clone().float() for p in self.params]
+        self.ema = [p.detach().to(self.ema_dtype, copy=True)
+                    for p in self.params]
         self.step_count = 0
         self._gen = torch.Generator(device=self.device)
 
@@ -122,10 +133,13 @@ class DiffusionTrainer:
                             0)
 
     # ------------------------------------------------------------------
-    def _generator(self, step: int, salt: int = 0) -> torch.Generator:
-        """The generator of the draws of one step (or one eval batch)."""
+    def _generator(self, step: int, salt: int = 0,
+                   micro: int = 0) -> torch.Generator:
+        """The generator of the draws of one step's micro-batch (or of one
+        eval batch)."""
         return self._gen.manual_seed(
-            ((self.seed + 17 * salt) * _SEED_STRIDE + step) & (2 ** 63 - 1))
+            ((self.seed + 17 * salt) * _SEED_STRIDE + step
+             + micro * _MICRO_STRIDE) & (2 ** 63 - 1))
 
     @staticmethod
     def _split_batch(batch):
@@ -134,8 +148,37 @@ class DiffusionTrainer:
         return batch, None
 
     @staticmethod
-    def _batch_count(batch) -> int:
-        return DiffusionTrainer._split_batch(batch)[0].shape[0]
+    def _batch_count(batches) -> int:
+        return sum(DiffusionTrainer._split_batch(b)[0].shape[0]
+                   for b in batches)
+
+    def _loss_and_grads(self, micro_batches: List[Any], step: int,
+                        draws: Optional[List[Dict[str, Any]]] = None):
+        """The mean loss and mean gradients of ``micro_batches`` (gradients
+        summed in f32, then scaled by 1/A, as the reference's
+        accumulation), micro-batch i drawing from ``_generator(step,
+        micro=i)`` unless ``draws[i]`` gives its draws."""
+        loss_sum, grads_sum = None, None
+        for i, batch in enumerate(micro_batches):
+            x, y = self._split_batch(batch)
+            loss = self.model.loss_function(
+                x, generator=self._generator(step, micro=i), y=y,
+                **(draws[i] if draws else {}))
+            # A parameter the loss does not reach (the energy DSM
+            # objective differentiates ∇ₓE, to which the last bias adds
+            # nothing) gets a zero gradient, as the reference's does.
+            grads = list(torch.autograd.grad(
+                loss, self.params, allow_unused=True, materialize_grads=True))
+            if grads_sum is None:
+                loss_sum, grads_sum = loss.detach(), grads
+            else:
+                loss_sum = loss_sum + loss.detach()
+                torch._foreach_add_(grads_sum, grads)
+        if len(micro_batches) > 1:
+            inv = 1.0 / len(micro_batches)
+            loss_sum = loss_sum * inv
+            torch._foreach_mul_(grads_sum, inv)
+        return loss_sum, grads_sum
 
     def step(self, batch, **draws) -> Dict[str, Any]:
         """One training step; the loss's draws may be injected as keywords
@@ -144,20 +187,24 @@ class DiffusionTrainer:
         ``langevin_noise``/``alpha`` (energy). Returns device tensors:
         ``loss``, ``grad_norm`` and ``layer_grad_norms`` (name → norm),
         all of the raw gradients."""
-        x, y = self._split_batch(batch)
-        loss = self.model.loss_function(
-            x, generator=self._generator(self.step_count), y=y, **draws)
-        # A parameter the loss does not reach (the energy DSM objective
-        # differentiates ∇ₓE, to which the last bias adds nothing) gets a
-        # zero gradient, as the reference's does.
-        grads = list(torch.autograd.grad(loss, self.params, allow_unused=True,
-                                         materialize_grads=True))
+        return self.accum_step([batch], [draws])
+
+    def accum_step(self, micro_batches: List[Any],
+                   draws: Optional[List[Dict[str, Any]]] = None
+                   ) -> Dict[str, Any]:
+        """One update from ``len(micro_batches)`` micro-batches (gradient
+        accumulation): the mean of their losses and gradients, each
+        micro-batch with its own draws (``draws[i]``, keywords as in
+        :meth:`step`, may inject them). Returns what :meth:`step`
+        returns."""
+        loss, grads = self._loss_and_grads(micro_batches, self.step_count,
+                                           draws)
         norms = torch._foreach_norm(grads)
         grad_norm = torch.linalg.vector_norm(torch.stack(norms))
         self.optimizer.step(grads, grad_norm)
         self._update_ema()
         self.step_count += 1
-        return {"loss": loss.detach(), "grad_norm": grad_norm,
+        return {"loss": loss, "grad_norm": grad_norm,
                 "layer_grad_norms": dict(zip(self.param_names, norms))}
 
     @torch.no_grad()
@@ -167,14 +214,47 @@ class DiffusionTrainer:
             # t counts completed updates: the first uses d = 1/10.
             t = float(self.step_count)
             d = min(d, (1.0 + t) / (10.0 + t))
-        torch._foreach_mul_(self.ema, d)
-        torch._foreach_add_(self.ema, self.params, alpha=1.0 - d)
+        ema = (self.ema if self.ema_dtype == torch.float32
+               else [e.float() for e in self.ema])
+        torch._foreach_mul_(ema, d)
+        torch._foreach_add_(ema, self.params, alpha=1.0 - d)
+        if ema is not self.ema:
+            torch._foreach_copy_(self.ema, ema)
 
     def param_norm(self) -> torch.Tensor:
         return torch.linalg.vector_norm(torch.stack(
             torch._foreach_norm([p.detach() for p in self.params])))
 
     # ------------------------------------------------------------------
+    def profile(self, steps: int = 5, log_dir: Optional[str] = None) -> str:
+        """Trace ``steps`` real updates (the state advances) with
+        ``torch.profiler`` into ``log_dir`` (default
+        ``output_dir/profile``), after one warm-up update outside the
+        window; returns the directory. View with TensorBoard or as a
+        Chrome trace."""
+        from ..utils.profiling import trace
+        log_dir = log_dir or str(self.output_dir / "profile")
+        updates = self._updates(self.train_loader)
+
+        def update():
+            chunk = next(updates, None)
+            if chunk is None:
+                raise ValueError(f"profiling {steps} updates after a "
+                                 f"warm-up needs {steps + 1}; an epoch has "
+                                 f"{self.steps_per_epoch}")
+            self.accum_step(chunk)
+
+        try:
+            update()
+            with trace(log_dir, device=self.device):
+                for _ in range(steps):
+                    update()
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+        finally:
+            updates.close()
+        return log_dir
+
     def _on_preempt_signal(self, signum, frame) -> None:
         self.preempted = True
 
@@ -187,8 +267,45 @@ class DiffusionTrainer:
         except ValueError:  # not in the main thread
             return None
 
-    def _log_step(self, step: int, epoch: int, metrics, batch,
-                  t0: float) -> None:
+    def _updates(self, loader: Iterable) -> Iterator[List[Any]]:
+        """The loader's batches in groups of ``grad_accum_steps``, the
+        last group the ragged tail."""
+        chunk: List[Any] = []
+        for batch in loader:
+            chunk.append(batch)
+            if len(chunk) == self.grad_accum:
+                yield chunk
+                chunk = []
+        if chunk:
+            yield chunk
+
+    def _rng_state(self):
+        return (torch.get_rng_state(),
+                torch.cuda.get_rng_state(self.device)
+                if self.device.type == "cuda" else None)
+
+    def histogram_metrics(self, micro_batches: List[Any], step: int,
+                          rng_state) -> Dict[str, Any]:
+        """Histograms of every weight and of the gradients of update
+        ``step``'s micro-batches and draws, taken again at the post-update
+        weights (the reference's ``grads_for_logging``): the same
+        generators, and the dropout RNG state ``rng_state`` that the
+        update started from; and β/α/ᾱ."""
+        devices = [self.device] if self.device.type == "cuda" else []
+        with torch.random.fork_rng(devices=devices):
+            torch.set_rng_state(rng_state[0])
+            if rng_state[1] is not None:
+                torch.cuda.set_rng_state(rng_state[1], self.device)
+            _, grads = self._loss_and_grads(micro_batches, step)
+        out = self.logger.model_histograms(
+            dict(zip(self.param_names, grads)),
+            dict(zip(self.param_names, self.params)))
+        if hasattr(self.model, "schedule"):
+            out.update(self.logger.diffusion_metrics(self.model.schedule))
+        return out
+
+    def _log_step(self, step: int, epoch: int, metrics, chunk,
+                  t0: float, rng_state=None) -> None:
         loss = float(metrics["loss"])
         log = {"train/loss": loss,
                "train/grad_norm": float(metrics["grad_norm"]),
@@ -197,7 +314,7 @@ class DiffusionTrainer:
                / self.steps_per_epoch}
         if self.track_time:
             log.update(self.logger.performance_metrics(
-                time.perf_counter() - t0, self._batch_count(batch),
+                time.perf_counter() - t0, self._batch_count(chunk),
                 self.device))
         if step % self.gradient_logging_freq == 0:
             log.update(self.logger.gradient_metrics(
@@ -205,6 +322,8 @@ class DiffusionTrainer:
                 self.param_norm()))
             log.update(self.logger.optimizer_metrics(
                 self.optimizer, self.lr_schedule(step)))
+            if rng_state is not None:
+                log.update(self.histogram_metrics(chunk, step, rng_state))
         self.logger.log(log, step)
 
     def train(self, num_epochs: Optional[int] = None) -> Dict[str, float]:
@@ -221,13 +340,18 @@ class DiffusionTrainer:
                 self.train_loader.set_epoch(epoch)
                 epoch_losses = []
                 t_epoch = time.perf_counter()
-                for batch in self.train_loader:
+                for chunk in self._updates(self.train_loader):
                     t0 = time.perf_counter()
                     step = self.step_count
-                    metrics = self.step(batch)
+                    logged = step % self.log_interval == 0
+                    rng_state = (self._rng_state() if logged
+                                 and self.track_histograms and step
+                                 % self.gradient_logging_freq == 0 else None)
+                    metrics = self.accum_step(chunk)
                     epoch_losses.append(metrics["loss"])
-                    if step % self.log_interval == 0:
-                        self._log_step(step, epoch, metrics, batch, t0)
+                    if logged:
+                        self._log_step(step, epoch, metrics, chunk, t0,
+                                       rng_state)
                     if self.val_interval and \
                             self.step_count % self.val_interval == 0:
                         self._validate_and_save_best(self.step_count, epoch)

@@ -7,12 +7,15 @@ Features and logits are computed on the model's device, by InceptionV3
 random conv net drawn from a seed. The random extractor's scores order
 models and are comparable across runs of this package; its weights come
 from a ``torch.Generator``, not from the reference's ``PRNGKey``, so its
-numbers are not the reference's default numbers. The Fréchet distance
-runs on the host in float64, as the reference's does.
+numbers are not the reference's default numbers. Extraction runs in
+true f32 (:func:`f32_extraction`: no TF32, which PyTorch's default lets
+cuDNN's convs use). The Fréchet distance runs on the host in float64, as
+the reference's does.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 from typing import Callable, Dict, Iterable, List, Optional, Union
@@ -48,6 +51,24 @@ def same_pads(size: int, kernel: int, stride: int):
 # ---------------------------------------------------------------------------
 # Feature extractors
 # ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def f32_extraction():
+    """TF32 off for cuDNN's convs and cuBLAS's matmuls while the block
+    runs, then the caller's settings back: PyTorch's default
+    (``cudnn.allow_tf32``) would run the extractor's convs with 10-bit
+    mantissas, which moves InceptionV3's features far more than the
+    harness's 1e-4 relative bound (``chip_smoke.py`` phase 13a)."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
 
 class FeatureExtractor(nn.Module):
     """Fixed random conv net: NHWC images in [−1, 1] → (pooled features
@@ -155,9 +176,10 @@ def frechet_distance(feats1, feats2) -> float:
 def extractor_features(images, extractor, batch: int = 256) -> np.ndarray:
     """[N, D] features (numpy) of NHWC images in [−1, 1], in chunks of
     ``batch``."""
-    return np.concatenate([
-        extractor(images[i:i + batch])[0].cpu().numpy()
-        for i in range(0, len(images), batch)])
+    with f32_extraction():
+        return np.concatenate([
+            extractor(images[i:i + batch])[0].cpu().numpy()
+            for i in range(0, len(images), batch)])
 
 
 def sampler_extractor_fid(sample_fn: Callable[[int, torch.Generator],
@@ -355,7 +377,8 @@ class DiffusionBenchmark:
         ssim_vals, psnr_vals, nll_vals = [], [], []
         for j, batch in enumerate(test_loader):
             x = _images(batch).to(device, torch.float32)
-            real_feats.append(self.extractor(x)[0].cpu().numpy())
+            with f32_extraction():
+                real_feats.append(self.extractor(x)[0].cpu().numpy())
             real_batches.append(x)
             gen = _generator(device, self.seed + 1, j)
             if recon is not None:
@@ -378,7 +401,8 @@ class DiffusionBenchmark:
                 from .images import save_image
                 save_image(samples.cpu().numpy(),
                            f"{sample_dir}/batch_{i:04d}.png")
-            feats, logits = self.extractor(samples)
+            with f32_extraction():
+                feats, logits = self.extractor(samples)
             fake_feats.append(feats.cpu().numpy())
             fake_logits.append(logits)
             if real_batches and recon is None:

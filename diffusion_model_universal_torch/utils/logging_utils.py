@@ -5,7 +5,8 @@ Sinks: an always-on ``metrics.jsonl`` in the run directory, and wandb and
 TensorBoard when ``logging.use_wandb`` / ``use_tensorboard`` ask for them
 and the packages import (a missing package prints a line and is skipped,
 as in the reference). Helpers turn gradient norms, the Adam state, the
-noise schedule and step times into flat metric dicts.
+noise schedule, the weights' and gradients' histograms and step times
+into flat metric dicts.
 """
 
 from __future__ import annotations
@@ -116,6 +117,18 @@ class MetricLogger:
                 and layer_grad_norms is not None):
             for name, v in layer_grad_norms.items():
                 out[f"gradients/{name.replace('.', '/')}_norm"] = float(v)
+        return out
+
+    def model_histograms(self, grads: Dict[str, torch.Tensor],
+                         params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+        """``{gradients,weights}/<name>_hist`` → a flat host copy of each
+        tensor: :meth:`log` sends it to the TensorBoard and wandb
+        histogram sinks and its mean and std to the JSONL."""
+        out: Dict[str, Any] = {}
+        for prefix, named in (("gradients", grads), ("weights", params)):
+            for name, v in named.items():
+                out[f"{prefix}/{name.replace('.', '/')}_hist"] = v.detach().to(
+                    "cpu", torch.float32, copy=True).numpy().ravel()
         return out
 
     def optimizer_metrics(self, optimizer, lr: float) -> Dict[str, Any]:

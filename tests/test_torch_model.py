@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils.checkpoint import noop_context_fn
 
 from diffusion_model_universal_tpu.models import DDPM as JaxDDPM
 from diffusion_model_universal_tpu.models.layers import attention as jattn
@@ -320,7 +321,10 @@ def test_cuda_is_the_default_and_missing_cuda_raises(monkeypatch):
 
 def test_not_ported_options_raise():
     """learn_sigma runs (its learned posterior step is held against JAX in
-    tests/test_torch_samplers.py); remat_policy: save_convout does not."""
+    tests/test_torch_samplers.py); remat_policy: save_convout, once
+    refused here, builds a rematted UNet with a selective checkpoint
+    (tests/test_torch_train_options.py holds its gradients), and an
+    unknown policy raises."""
     tm = DDPM(dict(CFG, model_channels=8, learn_sigma=True), device="cpu")
     x = torch.zeros(1, 32, 32, 3)
     with torch.no_grad():
@@ -328,5 +332,8 @@ def test_not_ported_options_raise():
     assert out.shape == x.shape and torch.isfinite(out).all()
     with pytest.raises(ValueError, match="requires learn_sigma=true"):
         DDPM(dict(CFG, model_channels=8), device="cpu").mean_var_fn()
-    with pytest.raises(ValueError, match="not yet ported"):
-        DDPM(dict(CFG, remat_policy="save_convout"), device="cpu")
+    net = DDPM(dict(CFG, model_channels=8, remat=False,
+                    remat_policy="save_convout"), device="cpu").net
+    assert net.remat and net._remat_context is not noop_context_fn
+    with pytest.raises(ValueError, match="must be 'full' or 'save_convout'"):
+        DDPM(dict(CFG, remat_policy="save_everything"), device="cpu")

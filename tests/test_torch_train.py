@@ -200,9 +200,15 @@ def test_adam_clip_and_skip_match_optax(grad_clip, skip):
 
 
 def test_adam_mu_dtype_is_not_ported():
-    with pytest.raises(ValueError, match="not yet ported"):
-        topt.make_optimizer([torch.zeros(2)], {"adam_mu_dtype": "bfloat16"},
-                            1, 1)
+    """The name is from when ``adam_mu_dtype`` was refused; it is ported
+    now (``tests/test_torch_train_options.py`` holds it against optax):
+    μ is stored in bf16, ν stays f32, and an update moves the weights."""
+    p = torch.zeros(2)
+    opt, _ = topt.make_optimizer([p], {"adam_mu_dtype": "bfloat16"}, 1, 1)
+    assert opt.step([torch.ones(2)], torch.tensor(2.0 ** 0.5))
+    assert opt.mu[0].dtype == torch.bfloat16 and opt.nu[0].dtype == \
+        torch.float32
+    assert bool((p < 0).all())
 
 
 # -- the model under autograd ---------------------------------------------

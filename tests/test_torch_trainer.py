@@ -8,13 +8,16 @@ resumes and generates from the EMA weights end to end.
 """
 
 import hashlib
+import json
 import pickle
+import struct
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils.checkpoint import noop_context_fn
 import yaml
 
 from diffusion_model_universal_tpu.datasets import pipeline as jpipe
@@ -86,7 +89,7 @@ def test_batch_order_matches_jax(shuffle, drop_last):
         ours = tpipe.DeviceDataLoader(images, 4, lambda b, g: b,
                                       shuffle=shuffle, seed=3,
                                       world_size=world, rank=rank,
-                                      drop_last=drop_last)
+                                      drop_last=drop_last, device="cpu")
         theirs = jpipe.DeviceDataLoader(images, 4, lambda b, k: b,
                                         shuffle=shuffle, seed=3,
                                         world_size=world, rank=rank,
@@ -104,7 +107,9 @@ def test_batch_order_matches_jax(shuffle, drop_last):
 
 def test_normalize_and_flips_match_jax_semantics():
     """Eval-mode normalization equals JAX's exactly; a flip is a flip of
-    the whole image, drawn per image."""
+    the whole image, drawn per image. ``random_rotation``, once refused
+    here, runs (``tests/test_torch_datasets.py`` holds it against
+    JAX)."""
     transforms = [{"name": "random_horizontal_flip", "p": 0.5},
                   {"name": "normalize"}]
     mean, std = [0.4, 0.5, 0.6], [0.2, 0.25, 0.3]
@@ -119,9 +124,11 @@ def test_normalize_and_flips_match_jax_semantics():
         torch.from_numpy(batch), torch.Generator().manual_seed(1))
     for img, out in zip(got, flipped):
         assert torch.equal(out, img) or torch.equal(out, img.flip(1))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tpipe.make_augment_fn([{"name": "random_rotation"}], mean, std,
-                              train=True)
+    rotated = tpipe.make_augment_fn(
+        [{"name": "random_rotation", "degrees": [80, 100]}], mean, std,
+        train=True)(torch.from_numpy(batch), torch.Generator())
+    assert rotated.shape == batch.shape
+    assert not torch.equal(rotated, torch.from_numpy(batch) / 255.0)
 
 
 def _write_cifar(root, n=6):
@@ -275,15 +282,47 @@ def test_checkpoint_names_latest_and_pruning(tmp_path):
 # -- what is not ported, and the device default ---------------------------------
 
 @pytest.mark.parametrize("extra,fragment", [
-    (["--profile", "trace_dir"], "--profile"), (["--profile"], "--profile"),
+    (["--profile", "trace_dir", "--profile_steps", "2"], "--profile"),
+    (["--profile", "--profile_steps", "2"], "--profile"),
     (["--multihost"], "--multihost"), (["--num_devices", "2"],
                                        "--num_devices"),
     (["--num_gpus", "4"], "--num_devices > 1 is not yet ported")])
-def test_train_cli_refuses_unported_flags(tmp_path, extra, fragment):
+def test_train_cli_refuses_unported_flags(tmp_path, extra, fragment, capsys):
+    """``--multihost`` and ``--num_devices > 1`` exit. ``--profile``, once
+    refused here, runs: one warm-up update and ``--profile_steps`` traced
+    ones on the CPU, then the epoch; a ``*.pt.trace.json`` Chrome trace of
+    the host ops lands in DIR (default ``output_dir/profile``)."""
     args = ["--config", _write(tmp_path, _config(tmp_path, 1)),
             "--model_type", "ddpm", "--device", "cpu"]
-    with pytest.raises(SystemExit, match=fragment):
-        train_cli.main(args + extra)
+    if fragment != "--profile":
+        with pytest.raises(SystemExit, match=fragment):
+            train_cli.main(args + extra)
+        return
+    out_dir = (tmp_path / "run" / "profile" if extra[1].startswith("--")
+               else tmp_path / extra[1])
+    if extra[1] == "trace_dir":
+        extra = ["--profile", str(out_dir), *extra[2:]]
+    assert train_cli.main(args + extra) == 0
+    assert f"Profiler trace written to {out_dir}" in capsys.readouterr().out
+    (trace,) = out_dir.glob("*.pt.trace.json")
+    events = json.loads(trace.read_text())["traceEvents"]
+    assert any(str(e.get("name", "")).startswith("aten::convolution")
+               for e in events)
+    final = read_state(str(tmp_path / "run" / "checkpoints" / "final_model"))
+    assert final["step"] == 3 + 4
+
+
+def _write_mnist(root):
+    rng = np.random.default_rng(7)
+    root.mkdir()
+    for split, n in (("train", 10), ("t10k", 4)):
+        for kind, head, data in (
+                ("images-idx3", struct.pack(">IIII", 2051, n, 28, 28),
+                 rng.integers(0, 256, (n, 28, 28), dtype=np.uint8)),
+                ("labels-idx1", struct.pack(">II", 2049, n),
+                 rng.integers(0, 10, n, dtype=np.uint8))):
+            (root / f"{split}-{kind}-ubyte").write_bytes(head
+                                                         + data.tobytes())
 
 
 @pytest.mark.parametrize("section,key,value,fragment", [
@@ -295,14 +334,42 @@ def test_train_cli_refuses_unported_flags(tmp_path, extra, fragment):
     ("data", "dataset", "mnist", "mnist"),
     ("data", "dataset", "celeba", "celeba")])
 def test_unported_options_raise(tmp_path, section, key, value, fragment):
+    """``scan_steps > 1`` is refused. The other options, once refused here,
+    run and differ from their defaults (``tests/test_torch_datasets.py``
+    and ``tests/test_torch_train_options.py`` hold them against JAX)."""
     cfg = _config(tmp_path, 1)
     cfg[section][key] = value
-    with pytest.raises((ValueError, NotImplementedError),
-                       match=f"{fragment}.*not yet ported"):
-        model = DDPM(cfg["model_config"], device="cpu", trainable=True)
-        loaders = get_dataset(cfg)
-        tr = DDPMTrainer(model, *loaders, cfg)
-        tr.step(next(iter(loaders[0])))
+    if key == "scan_steps":
+        with pytest.raises(ValueError, match=f"{fragment}.*not yet ported"):
+            DDPMTrainer(DDPM(cfg["model_config"], device="cpu",
+                             trainable=True),
+                        *get_dataset(cfg, device="cpu"), cfg)
+        return
+    if value == "mnist":
+        _write_mnist(tmp_path / "mnist")
+        cfg["data"]["data_dir"] = str(tmp_path / "mnist")
+    elif value == "celeba":
+        np.savez(tmp_path / "celeba_64.npz", images=np.random.default_rng(
+            0).integers(0, 256, (10, 64, 64, 3), dtype=np.uint8))
+        cfg["data"]["data_dir"] = str(tmp_path)
+    model = DDPM(cfg["model_config"], device="cpu", trainable=True)
+    loaders = get_dataset(cfg, device="cpu")
+    tr = DDPMTrainer(model, *loaders, cfg)
+    batches = list(loaders[0])
+    m = (tr.accum_step(batches[:2]) if key == "grad_accum_steps"
+         else tr.step(batches[0]))
+    assert torch.isfinite(m["loss"]) and tr.step_count == 1
+    if key == "grad_accum_steps":
+        assert tr.steps_per_epoch == -(-len(loaders[0]) // 2)
+    elif key == "remat_policy":
+        assert model.net._remat_context is not noop_context_fn
+    elif key == "dataset":
+        assert batches[0].shape[1:] == ((32, 32, 3) if value == "mnist"
+                                        else (64, 64, 3))
+    else:
+        state = tr.optimizer.mu if key == "adam_mu_dtype" else tr.ema
+        assert {v.dtype for v in state} == {torch.bfloat16}
+    tr.cleanup()
 
 
 def test_train_cli_defaults_to_cuda_and_raises_without_it(tmp_path,
