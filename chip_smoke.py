@@ -185,9 +185,33 @@ options (``grad_accum_steps``, ``ema_dtype``, ``adam_mu_dtype``,
        ``save_convout``; and K1, K2 and K3 at the 64² training shapes
        beside their plain versions, the library call and the bound.
 
+Then data parallelism over ``torch.distributed`` (``parallel/mesh.py``,
+``train --num_devices`` and ``--multihost``), at the full width of
+``ddpm_config.yaml`` (B=128, the synthetic set of ``DP_SAMPLES``):
+
+15. a. takes one f32 update with the plain trainer and one with the
+       data-parallel trainer in a NCCL group of world 1 on the same
+       batch, draws and dropout state, which must be bit-equal (cuDNN
+       deterministic);
+    b. spawns ``DP_RANKS`` gloo ranks sharing the card through the port's
+       launcher: one f32 update (dropout 0) held against one process on
+       the same global batch and draws (loss rtol 1e-5, gradient norms
+       rtol 1e-4, Adam μ 1e-7 + rtol 1e-3); in bf16 with remat
+       (dropout 0) ``validate()`` against one process (rtol 1e-6, f64
+       sums), ``DP_UPDATES`` updates with the replicas' parameters, EMA
+       and μ bit-equal after each and K1/K2/K3 exactly 100/53/9 an update
+       on each rank; a SIGTERM to rank 1 alone makes both ranks save at
+       the same step, rank 0 alone writes the checkpoint and the launcher
+       returns 143; then ``train --multihost --resume latest`` under a
+       torchrun environment of world 1 (one process, bf16, remat) must
+       report NCCL, print the ranks' parameter digest, and launch K1–K3
+       exactly as counted over its epoch of 8 updates;
+    c. times an update of B=128 on the two ranks sharing the card beside
+       one process: a measure of sharing one card, not of scaling.
+
 The last three lines of standard output are the ``kernels`` JSON line
 (all seven kernels; K1–K3 with their 64² training rows and the launches
-of each path),
+of each path, phase 15's per rank),
 the card's name and power limit from ``nvidia-smi``, and the result
 line ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
 before the result line. Needs a CUDA card; exits non-zero without one.
@@ -3806,6 +3830,391 @@ def data_and_options(cfg):
             "seconds": secs}
 
 
+# -- data parallelism (phase 15) --------------------------------------------
+
+DP_RANKS = 2                # gloo ranks sharing the card in 15b
+#: The synthetic set of phase 15: 1,024 train images (8 updates of 128),
+#: 128 validation and 128 test images.
+DP_SAMPLES = 1280
+DP_UPDATES = 3              # bf16 updates whose replicas must be bit-equal
+DP_TIME_UPDATES = 5         # timed updates (15c), after DP_UPDATES
+DP_PREEMPT_AFTER = 2        # train() updates before rank 1's SIGTERM
+DP_SYMBOLS = {"gn": "dmu_group_norm_silu_fwd",
+              "gn_bwd": "dmu_group_norm_silu_bwd", "mha": "dmu_mha_fwd"}
+
+
+def dp_config(out_dir: str, **model_extra):
+    """ddpm_config.yaml at full width for phase 15: the synthetic set of
+    ``DP_SAMPLES``, one epoch, no validation, grids or periodic
+    checkpoints, and ``model_extra`` over its model section."""
+    cfg = train_config(out_dir, num_epochs=1, val_interval=0,
+                       sample_interval=0, checkpoint_interval=0)
+    cfg["data"]["num_samples"] = DP_SAMPLES
+    cfg["model_config"] = dict(cfg["model_config"], **model_extra)
+    return cfg
+
+
+def dp_trainer(run_cfg, device, split=None):
+    """A DDPMTrainer of ``run_cfg`` on ``device`` (a rank's rows of each
+    batch with ``split``)."""
+    from diffusion_model_universal_torch.datasets import get_dataset
+    from diffusion_model_universal_torch.models import DDPM
+    from diffusion_model_universal_torch.trainers import DDPMTrainer
+    model = DDPM(run_cfg["model_config"], device=device, seed=SEED,
+                 trainable=True)
+    loaders = get_dataset(run_cfg, device=model.device, split=split)
+    return DDPMTrainer(model, *loaders, run_cfg, seed=SEED)
+
+
+def replica_digest(trainer) -> str:
+    from diffusion_model_universal_torch.scripts.train import params_digest
+    return params_digest([*trainer.params, *trainer.ema,
+                          *trainer.optimizer.mu])
+
+
+def timed_updates(trainer, updates, n: int) -> float:
+    """ms an update over ``n`` updates from ``updates``, host clock
+    between synchronizes."""
+    import torch
+    cuda = trainer.device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        trainer.accum_step(next(updates))
+    if cuda:
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def dp_rank(device, out_dir: str, f32_cfg, bf16_cfg) -> int:
+    """Phase 15b on one rank: one f32 update of ``f32_cfg``; then, of
+    ``bf16_cfg``, ``validate()``, ``DP_UPDATES`` updates with
+    the replica's digest after each and the kernels' launches over them,
+    ``DP_TIME_UPDATES`` timed updates, and ``train()`` with a SIGTERM to
+    rank 1 alone after ``DP_PREEMPT_AFTER`` of its updates. Writes
+    ``out_dir/rank{r}.pt``; returns 143 when preempted."""
+    import signal
+    import torch
+    from diffusion_model_universal_torch.ops._build import (KERNELS,
+                                                            launch_counts)
+    from diffusion_model_universal_torch.parallel import mesh
+    from diffusion_model_universal_torch.scripts.train import params_digest
+    # A spawned process starts from PyTorch's defaults: TF32 off as in
+    # main(), so that its f32 convolutions are f32.
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    r, n = mesh.rank(), mesh.world_size()
+    out = {}
+    tr = dp_trainer(f32_cfg, device, (r, n))
+    m = tr.accum_step(next(tr._updates(tr.train_loader)))
+    out["f32"] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                  "layer_grad_norms": [float(v) for v in
+                                       m["layer_grad_norms"].values()],
+                  "mu": [v.cpu() for v in tr.optimizer.mu] if r == 0 else None,
+                  "digest": replica_digest(tr)}
+    tr.cleanup()
+    del tr, m
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    tr = dp_trainer(bf16_cfg, device, (r, n))
+    out["val"] = tr.validate()
+    updates = tr._updates(tr.train_loader)
+    for k in KERNELS.values():
+        k.launches = 0
+    digests = []
+    for _ in range(DP_UPDATES):
+        tr.accum_step(next(updates))
+        digests.append(replica_digest(tr))
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    out["digests"] = digests
+    counts = launch_counts()
+    out["launches"] = {k: counts.get(s, 0) for k, s in DP_SYMBOLS.items()}
+    mesh.barrier()
+    out["ms_per_update"] = timed_updates(tr, updates, DP_TIME_UPDATES)
+    updates.close()
+    # The update's all-reduce alone: the f32 gradients' bytes.
+    grads = [p.detach().clone() for p in tr.params]
+    mesh.barrier()
+    t0 = time.perf_counter()
+    for _ in range(DP_TIME_UPDATES):
+        mesh.all_reduce_sum_(grads)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    out["all_reduce_ms"] = (time.perf_counter() - t0) / DP_TIME_UPDATES * 1e3
+    del grads
+
+    if r == 1:
+        step, seen = tr.accum_step, []
+
+        def accum_step(chunk, draws=None):
+            result = step(chunk, draws)
+            seen.append(1)
+            if len(seen) == DP_PREEMPT_AFTER:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return result
+        tr.accum_step = accum_step
+    saves, save = [], tr.ckpt.save
+
+    def counting_save(name, state):
+        saves.append(name)
+        return save(name, state)
+    tr.ckpt.save = counting_save
+    tr.train(1)
+    tr.cleanup()
+    out.update(preempted=tr.preempted, step=tr.step_count, saves=saves,
+               digest_at_preemption=params_digest(tr.params))
+    torch.save(out, os.path.join(out_dir, f"rank{r}.pt"))
+    return 143 if tr.preempted else 0
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def multihost_resume(run_dir: Path, step: int, digest: str):
+    """15a and the end of 15b: ``train --multihost --resume latest`` under
+    a torchrun environment of world 1, one process on NCCL, from the
+    checkpoint 15b's ranks saved at ``step``: it must print the ranks'
+    parameter digest, then train an epoch at full width (B=128, bf16,
+    remat) and the test batch, launching K1–K3 exactly as counted."""
+    import yaml
+    cfg = dp_config(str(run_dir), dropout=0.0)
+    cfg["training"]["num_epochs"] = 2
+    cfg_path = run_dir / "train.yaml"
+    cfg_path.write_text(yaml.safe_dump(cfg))
+    env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               MASTER_ADDR="localhost", MASTER_PORT=str(free_port()))
+    out = run_cli("train", ["--config", str(cfg_path), "--model_type",
+                            "ddpm", "--seed", str(SEED), "--multihost",
+                            "--resume", "latest"],
+                  "train --multihost --resume latest (torchrun environment, "
+                  "world 1)", env=env)
+    backend = "nccl" if DEVICE == "cuda" else "gloo"
+    check(f"Data parallel: 1 ranks over {backend}, global batch "
+          f"{TRAIN_BATCH} ({TRAIN_BATCH} a rank)" in out,
+          f"train --multihost did not report {backend}")
+    want_line = (f"Resumed from epoch 1 at step {step} (params sha256 "
+                 f"{digest})")
+    check(want_line in out, f"resume line missing: {want_line}")
+    launches = json.loads(out.split("Kernel launches (rank 0 of 1): ")[1]
+                          .splitlines()[0])
+    updates = DP_SAMPLES * 8 // 10 // TRAIN_BATCH
+    want = {s_: updates * LAUNCHES_PER_STEP[k] + {"gn": 53, "gn_bwd": 0,
+                                                  "mha": 5}[k]
+            for k, s_ in DP_SYMBOLS.items()}
+    got = {s_: launches[s_] for s_ in want}
+    check(got == want, f"train --multihost launches {got} != {want} "
+                       f"({updates} updates, one test forward)")
+    log(f"[dp] one process on {backend} resumed the ranks' checkpoint at "
+        f"step {step} with their params sha256, then {updates} updates "
+        f"and the test batch launched {got}, as counted")
+    return {"launches": launches}
+
+
+def nccl_exact_update():
+    """15a: one f32 update (dropout 0.1) of the plain trainer, then of the
+    data-parallel trainer in a NCCL group of world 1, on the same batch,
+    draws and dropout state: the loss, the norms and every parameter and
+    moment must be bit-equal (cuDNN deterministic)."""
+    import torch
+    from diffusion_model_universal_torch.parallel import mesh
+    tmp = tempfile.mkdtemp(prefix="dmu_nccl_")
+    prev = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        True, False)
+    results = []
+    try:
+        run_cfg = dp_config(tmp, compute_dtype="float32")
+        for joined in (False, True):
+            if joined:
+                mesh.init_process_group(0, 1, torch.device(DEVICE, 0)
+                                        if DEVICE == "cuda"
+                                        else torch.device("cpu"),
+                                        f"tcp://localhost:{free_port()}")
+            tr = dp_trainer(run_cfg, DEVICE)
+            check(tr.data_parallel == joined, "data_parallel flag")
+            m = tr.accum_step(next(tr._updates(tr.train_loader)))
+            results.append({"loss": m["loss"].cpu(),
+                            "grad_norm": m["grad_norm"].cpu(),
+                            "state": [v.detach().cpu() for v in (
+                                *tr.params, *tr.ema, *tr.optimizer.mu,
+                                *tr.optimizer.nu)],
+                            "backend": mesh.backend()})
+            tr.cleanup()
+            del tr, m
+    finally:
+        mesh.shutdown()
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            prev
+        shutil.rmtree(tmp, ignore_errors=True)
+    plain, dp = results
+    diffs = [float((a.float() - b.float()).abs().max()) for a, b in zip(
+        [plain["loss"], plain["grad_norm"], *plain["state"]],
+        [dp["loss"], dp["grad_norm"], *dp["state"]])]
+    exact = max(diffs) == 0.0
+    log(f"[dp] 15a: one f32 update, plain trainer vs data-parallel over "
+        f"{dp['backend']} at world 1: loss {float(plain['loss']):.8f} vs "
+        f"{float(dp['loss']):.8f}; max |diff| over loss, norm, params, EMA, "
+        f"μ, ν: {max(diffs):.3e} "
+        f"({'bit-equal' if exact else 'NOT bit-equal'})")
+    if DEVICE == "cuda":
+        check(dp["backend"] == "nccl", f"backend {dp['backend']}")
+    check(max(diffs) <= UNET_TOL, "the data-parallel update at world 1 "
+                                  "strays from the plain one")
+    return {"bit_equal": exact, "max_abs_diff": max(diffs),
+            "backend": dp["backend"]}
+
+
+def dp_references():
+    """One process on the same data as 15b's ranks: the f32 update, the
+    bf16 ``validate()`` and ms an update (after ``DP_UPDATES``)."""
+    import torch
+    tmp = tempfile.mkdtemp(prefix="dmu_dp_ref_")
+    try:
+        tr = dp_trainer(dp_config(tmp, compute_dtype="float32", dropout=0.0),
+                        DEVICE)
+        m = tr.accum_step(next(tr._updates(tr.train_loader)))
+        ref = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+               "layer_grad_norms": [float(v) for v in
+                                    m["layer_grad_norms"].values()],
+               "mu": [v.cpu() for v in tr.optimizer.mu]}
+        tr.cleanup()
+        del tr, m
+        tr = dp_trainer(dp_config(tmp, dropout=0.0), DEVICE)
+        ref["val"] = tr.validate()
+        updates = tr._updates(tr.train_loader)
+        for _ in range(DP_UPDATES):
+            tr.accum_step(next(updates))
+        ref["ms_per_update"] = timed_updates(tr, updates, DP_TIME_UPDATES)
+        updates.close()
+        tr.cleanup()
+        del tr
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+        return ref
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def two_ranks(ref):
+    """15b and 15c: ``DP_RANKS`` gloo ranks spawned by the port's
+    launcher on the card, held against one process (``ref``); the
+    preemption agreement; ``train --multihost --resume`` of the
+    checkpoint the ranks saved (:func:`multihost_resume`)."""
+    import torch
+    from diffusion_model_universal_torch.parallel import mesh
+    tmp = Path(tempfile.mkdtemp(prefix="dmu_ranks_"))
+    try:
+        t0 = time.perf_counter()
+        rc = mesh.spawn(dp_rank, DP_RANKS, args=(
+            str(tmp), dp_config(str(tmp), compute_dtype="float32",
+                                dropout=0.0),
+            dp_config(str(tmp), dropout=0.0)), device_type=DEVICE,
+            backend="gloo", rendezvous_dir=str(tmp))
+        secs = time.perf_counter() - t0
+        log(f"[dp] 15b: {DP_RANKS} gloo ranks on {DEVICE} returned {rc} in "
+            f"{secs:.1f} s")
+        check(rc == 143, f"the launcher returned {rc}, not 143, after rank "
+                         f"1's SIGTERM")
+        ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False)
+                 for r in range(DP_RANKS)]
+        f32 = ranks[0]["f32"]
+        errs = {"loss": hold("f32 update loss, 2 ranks vs 1 process",
+                             torch.tensor(f32["loss"]),
+                             torch.tensor(ref["loss"]), 0.0, 1e-5),
+                "grad_norm": hold("f32 global gradient norm",
+                                  torch.tensor(f32["grad_norm"]),
+                                  torch.tensor(ref["grad_norm"]), 0.0, 1e-4),
+                "layer_grad_norms": hold(
+                    "f32 per-layer gradient norms",
+                    torch.tensor(f32["layer_grad_norms"]),
+                    torch.tensor(ref["layer_grad_norms"]), 1e-8, 1e-4),
+                "mu": max(float((a - b).abs().max())
+                          for a, b in zip(f32["mu"], ref["mu"]))}
+        mu_ok = all(bool(((a - b).abs() <= 1e-7 + 1e-3 * b.abs()).all())
+                    for a, b in zip(f32["mu"], ref["mu"]))
+        log(f"  f32 Adam μ, all {len(ref['mu'])} tensors: max_abs_err="
+            f"{errs['mu']:.3e} (tol 1e-07 abs + 0.001 rel) "
+            f"{'ok' if mu_ok else 'FAIL'}")
+        check(mu_ok, "f32 Adam μ of 2 ranks vs 1 process beyond rtol 1e-3")
+        check(ranks[0]["f32"]["digest"] == ranks[1]["f32"]["digest"],
+              "the f32 replicas differ after one update")
+        for r_, r in enumerate(ranks):
+            errs.setdefault("val", []).append(hold(
+                f"validate() bf16, rank {r_} of {DP_RANKS} vs one process",
+                torch.tensor(r["val"], dtype=torch.float64),
+                torch.tensor(ref["val"], dtype=torch.float64), 0.0, 1e-6))
+        check(ranks[0]["digests"] == ranks[1]["digests"]
+              and len(set(ranks[0]["digests"])) == DP_UPDATES,
+              "the bf16 replicas are not bit-equal after each update")
+        want = {k: DP_UPDATES * c for k, c in LAUNCHES_PER_STEP.items()}
+        for r, got in enumerate(x["launches"] for x in ranks):
+            if DEVICE == "cuda":
+                check(got == want, f"rank {r} launched {got} in "
+                                   f"{DP_UPDATES} updates, not {want}")
+        log(f"[dp] 15b: bf16 replicas bit-equal after each of {DP_UPDATES} "
+            f"updates (params, EMA, μ); launches on each rank "
+            f"{[x['launches'] for x in ranks]} = {DP_UPDATES} × "
+            f"{LAUNCHES_PER_STEP}")
+        steps = {x["step"] for x in ranks}
+        check(all(x["preempted"] for x in ranks) and len(steps) == 1,
+              f"preemption: {[(x['preempted'], x['step']) for x in ranks]}")
+        check(ranks[0]["saves"] == ["checkpoint_epoch_0"]
+              and not ranks[1]["saves"],
+              f"checkpoint writes by rank: {[x['saves'] for x in ranks]}")
+        check(ranks[0]["digest_at_preemption"]
+              == ranks[1]["digest_at_preemption"],
+              "the replicas differ at the preemption")
+        step = steps.pop()
+        log(f"[dp] 15b: SIGTERM to rank 1 alone: both ranks saved at step "
+            f"{step}, rank 0 alone wrote checkpoint_epoch_0, the launcher "
+            f"returned 143")
+        cli = multihost_resume(tmp, step, ranks[0]["digest_at_preemption"])
+        ms = ranks[0]["ms_per_update"]
+        log(f"[dp] 15c: {DP_RANKS} gloo ranks sharing one card: "
+            f"{ms:.2f} ms an update of B={TRAIN_BATCH} "
+            f"({TRAIN_BATCH // DP_RANKS} a rank; rank 1 "
+            f"{ranks[1]['ms_per_update']:.2f}); one process "
+            f"{ref['ms_per_update']:.2f} ms; the all-reduce of the f32 "
+            f"gradients alone {ranks[0]['all_reduce_ms']:.2f} ms; "
+            f"{card_line() if DEVICE == 'cuda' else 'cpu'}. This measures "
+            f"{DP_RANKS} processes sharing one card through gloo, not "
+            f"scaling.")
+        return {"cli": cli, "errs": errs,
+                "launches_per_rank": [x["launches"] for x in ranks],
+                "step_at_preemption": step, "spawn_s": secs,
+                "ms_per_update": {"ranks": [x["ms_per_update"]
+                                            for x in ranks],
+                                  "one_process": ref["ms_per_update"]},
+                "all_reduce_ms": [x["all_reduce_ms"] for x in ranks]}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def data_parallel():
+    """Phase 15: data parallelism over torch.distributed."""
+    t0 = time.perf_counter()
+    log("[dp] phase 15a: NCCL at world size 1, in-process")
+    exact = nccl_exact_update()
+    t1 = time.perf_counter()
+    log(f"[dp] phase 15b/c: {DP_RANKS} gloo ranks sharing the card against "
+        f"one process; then train --multihost on NCCL resumes them")
+    ranks = two_ranks(dp_references())
+    t2 = time.perf_counter()
+    secs = {"15a": t1 - t0, "15b": t2 - t1, "total": t2 - t0}
+    log(f"[phase 15] data parallelism: {secs['total']:.1f} s (15a "
+        f"{secs['15a']:.1f}, 15b/c with the --multihost resume "
+        f"{secs['15b']:.1f})")
+    return {"cli": ranks.pop("cli"), "nccl_world1": exact, "ranks": ranks,
+            "seconds": secs}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3887,6 +4296,7 @@ def main() -> int:
     family_summary = families(per_forward)
     harness_summary = harness()
     options_summary = data_and_options(cfg)
+    dp_summary = data_parallel()
 
     symbols = {"gn": "dmu_group_norm_silu_fwd",
                "gn_bwd": "dmu_group_norm_silu_bwd", "mha": "dmu_mha_fwd"}
@@ -3915,7 +4325,12 @@ def main() -> int:
                 "mnist_options_train_cli": options_summary["cli"][
                     "launches"][symbols[kind]],
                 "celeba64_train_steps_in_process": options_summary["celeba"][
-                    "step"]["launches"][kind]}
+                    "step"]["launches"][kind],
+                "dp_multihost_nccl_train_cli": dp_summary["cli"]["launches"][
+                    symbols[kind]],
+                **{f"dp_gloo_rank{r}_{DP_UPDATES}_updates": n[kind]
+                   for r, n in enumerate(
+                       dp_summary["ranks"]["launches_per_rank"])}}
 
     def celeba64(kind, errs):
         rows = options_summary["celeba64_rows"][kind]
@@ -3983,6 +4398,7 @@ def main() -> int:
                "data_and_options": {k: v for k, v in options_summary.items()
                                     if k not in ("celeba64_rows",
                                                  "kernel_errs")},
+               "data_parallel": dp_summary,
                "seconds": time.perf_counter() - t_start}
     log(f"[summary] {json.dumps(summary)}")
     print(json.dumps({"kernels": entries}))

@@ -33,7 +33,9 @@ TRAIN_ONLY = {"random_horizontal_flip", "random_vertical_flip",
 _STATIC = {"center_crop", "resize", "to_tensor", "grayscale",
            "grayscale_to_rgb"}
 
-Augment = Callable[[torch.Tensor, torch.Generator], torch.Tensor]
+#: ``augment(batch_uint8, generator, rows=None)``; ``rows`` (lo, hi, n):
+#: the batch is those rows of a global batch of n, whose draws are made.
+Augment = Callable[..., torch.Tensor]
 
 
 def host_center_crop(images: np.ndarray, size: int) -> np.ndarray:
@@ -234,9 +236,12 @@ def _rotation_range(t: Dict[str, Any]) -> Tuple[float, float]:
 def make_augment_fn(transforms: Sequence[Dict[str, Any]],
                     mean: Sequence[float], std: Sequence[float],
                     train: bool) -> Augment:
-    """The YAML transform list as ``augment(batch_uint8, generator) ->
-    f32 NHWC`` on the batch's device. Train-only transforms are dropped in
-    eval mode, as in the reference. Rotation angles are U[-degrees,
+    """The YAML transform list as ``augment(batch_uint8, generator,
+    rows=None) -> f32 NHWC`` on the batch's device. Train-only transforms
+    are dropped in eval mode, as in the reference. With ``rows`` (lo, hi,
+    n) the batch is rows [lo, hi) of a global batch of n: every draw is
+    made for the n rows and the batch keeps its own, so the rows equal
+    those of the global batch's augmentation. Rotation angles are U[-degrees,
     degrees] (or U[lo, hi] for a pair), crop offsets uniform in [0,
     max_off], jitter factors U[max(0, 1−v), 1+v] and the hue shift
     U[−hue, hue], hue in [0, 0.5]."""
@@ -266,19 +271,19 @@ def make_augment_fn(transforms: Sequence[Dict[str, Any]],
                                  f"{t['interpolation']!r}")
         steps.append((name, t))
 
-    def augment(batch: torch.Tensor,
-                generator: torch.Generator) -> torch.Tensor:
+    def augment(batch: torch.Tensor, generator: torch.Generator,
+                rows=None) -> torch.Tensor:
         x = batch.float() / 255.0
-        b = x.shape[0]
+        lo, hi, n = rows or (0, x.shape[0], x.shape[0])
 
-        def uniform(lo, hi, *shape):
-            u = torch.rand(shape or (b,), generator=generator,
-                           device=x.device)
-            return u * (hi - lo) + lo
+        def uniform(lo_, hi_, *shape):
+            u = torch.rand((n, *shape), generator=generator,
+                           device=x.device)[lo:hi]
+            return u * (hi_ - lo_) + lo_
 
         for name, t in steps:
             if name in ("random_horizontal_flip", "random_vertical_flip"):
-                flip = uniform(0.0, 1.0, b, 1, 1, 1) < float(t.get("p", 0.5))
+                flip = uniform(0.0, 1.0, 1, 1, 1) < float(t.get("p", 0.5))
                 dim = 2 if name == "random_horizontal_flip" else 1
                 x = torch.where(flip, x.flip(dim), x)
             elif name == "random_rotation":
@@ -292,8 +297,9 @@ def make_augment_fn(transforms: Sequence[Dict[str, Any]],
                 if max_off < 0:
                     raise ValueError(f"random_crop size {size} exceeds the "
                                      f"padded image {x.shape[1] + 2 * pad}")
-                offs = torch.randint(0, max_off + 1, (b, 2),
-                                     generator=generator, device=x.device)
+                offs = torch.randint(0, max_off + 1, (n, 2),
+                                     generator=generator,
+                                     device=x.device)[lo:hi]
                 x = random_crop_batch(x, offs, size, pad)
             else:   # color_jitter
                 stages = jitter_stages(t, x.shape[-1])
@@ -305,7 +311,7 @@ def make_augment_fn(transforms: Sequence[Dict[str, Any]],
                 hue = float(t.get("hue", 0.0))
                 factors = torch.stack([uniform(*r) for r in ranges]
                                       + [uniform(-hue, hue)], dim=-1)
-                perms = (torch.argsort(uniform(0.0, 1.0, b, len(stages)),
+                perms = (torch.argsort(uniform(0.0, 1.0, len(stages)),
                                        dim=1) if len(stages) > 1 else None)
                 x = color_jitter_batch(x, factors, perms, stages)
         if has_normalize:
@@ -325,6 +331,14 @@ class DeviceDataLoader:
     host (numpy indexing), and the augmentation on ``device`` (``cuda``
     unless the caller names another; raises without CUDA). Batches are
     f32 NHWC tensors, or ``{"image", "label"}`` dicts with labels.
+
+    ``split`` (r, N), for one process's N ranks (``train --num_devices
+    N``): each batch of the unsharded loader is cut into N row blocks,
+    rows [r·n//N, (r+1)·n//N) of a batch of n, and the loader gathers and
+    augments block r only, with the draws of the whole batch. It yields
+    ``{"image", "rows": (lo, hi, n)}`` dicts (and ``"label"``), every
+    batch, an empty block too, so the N ranks' blocks stacked in rank
+    order are the unsharded loader's batch.
     """
 
     def __init__(self, images: np.ndarray, batch_size: int,
@@ -332,7 +346,7 @@ class DeviceDataLoader:
                  world_size: int = 1, rank: int = 0,
                  drop_last: bool = True,
                  labels: Optional[np.ndarray] = None,
-                 device=None):
+                 device=None, split: Optional[Tuple[int, int]] = None):
         if images.dtype != np.uint8:
             raise ValueError("loader expects uint8 host arrays")
         if labels is not None and len(labels) != len(images):
@@ -348,6 +362,10 @@ class DeviceDataLoader:
         self.rank = rank
         self.drop_last = drop_last
         self.device = resolve_device(device)
+        if split is not None and world_size > 1:
+            raise ValueError("a loader takes a host shard (world_size) or "
+                             "a row split, not both")
+        self.split = split
         self.epoch = 0
         n = len(images)
         self.shard_size = n // world_size if world_size > 1 else n
@@ -385,13 +403,25 @@ class DeviceDataLoader:
         gen = torch.Generator(device=self.device).manual_seed(
             (self.seed * 1_000_003 + self.epoch) & 0x7FFFFFFF)
         for idx in self.batch_indices():
+            if self.split is None:
+                batch = torch.from_numpy(self.images[idx]).to(self.device)
+                out = self.augment(batch, gen)
+                if self.labels is not None:
+                    yield {"image": out, "label": torch.from_numpy(
+                        self.labels[idx]).to(self.device)}
+                else:
+                    yield out
+                continue
+            r, parts = self.split
+            n = len(idx)
+            rows = (r * n // parts, (r + 1) * n // parts, n)
+            idx = idx[rows[0]:rows[1]]
             batch = torch.from_numpy(self.images[idx]).to(self.device)
-            out = self.augment(batch, gen)
+            out = {"image": self.augment(batch, gen, rows), "rows": rows}
             if self.labels is not None:
-                yield {"image": out, "label": torch.from_numpy(
-                    self.labels[idx]).to(self.device)}
-            else:
-                yield out
+                out["label"] = torch.from_numpy(self.labels[idx]).to(
+                    self.device)
+            yield out
         self.epoch += 1
 
 
@@ -425,8 +455,13 @@ class PrefetchLoader:
                     continue
             return False
 
+        device = getattr(self.loader, "device", None)
+
         def worker():
             try:
+                if device is not None and device.type == "cuda" \
+                        and device.index is not None:
+                    torch.cuda.set_device(device)
                 for batch in self.loader:
                     if not put(batch):
                         return

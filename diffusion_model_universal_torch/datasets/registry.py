@@ -68,7 +68,7 @@ class ArrayImageDataset:
     def get_dataloaders(self, batch_size: int, world_size: int = 1,
                         rank: int = 0, seed: int = 0,
                         eval_batch_size: Optional[int] = None,
-                        device=None
+                        device=None, split: Optional[Tuple[int, int]] = None
                         ) -> Tuple[DeviceDataLoader, DeviceDataLoader,
                                    DeviceDataLoader]:
         ebs = eval_batch_size or batch_size
@@ -79,7 +79,8 @@ class ArrayImageDataset:
                                     mean, std, train=True)
         aug_eval = make_augment_fn(self.transforms.get("eval", []),
                                    mean, std, train=False)
-        common = dict(world_size=world_size, rank=rank, device=device)
+        common = dict(world_size=world_size, rank=rank, device=device,
+                      split=split)
         train = DeviceDataLoader(self.train_dataset, batch_size, aug_train,
                                  shuffle=True, seed=seed,
                                  labels=self.train_labels, **common)
@@ -187,12 +188,20 @@ DATASET_REGISTRY = {
 
 
 def get_dataset(config: Dict, world_size: int = 1, rank: int = 0,
-                data_config_path: Optional[str] = None, device=None
+                data_config_path: Optional[str] = None, device=None,
+                split: Optional[Tuple[int, int]] = None
                 ) -> Tuple[Any, Any, Any]:
     """Build (train, val, test) loaders from a full run config, with the
     dataset's block of the shared data config; batches land on
     ``device`` (``cuda`` unless the caller names another; raises without
-    CUDA)."""
+    CUDA).
+
+    Data parallelism takes one of two forms. ``world_size``/``rank``
+    (``train --multihost``): each process loads its ``rank``-th shard of
+    the index space at ``training.batch_size``, so the global batch is
+    the processes' batches side by side. ``split`` (r, N) (``train
+    --num_devices N``): each loader yields rank r's rows of the batches
+    one process would load (``DeviceDataLoader``)."""
     name = config["data"]["dataset"].lower()
     cls = DATASET_REGISTRY.get(name)
     if cls is None:
@@ -223,7 +232,8 @@ def get_dataset(config: Dict, world_size: int = 1, rank: int = 0,
     batch_size = config.get("training", {}).get(
         "batch_size", loader_cfg.get("batch_size", 128))
     train, val, test = dataset.get_dataloaders(
-        batch_size, world_size=world_size, rank=rank, device=device)
+        batch_size, world_size=world_size, rank=rank, device=device,
+        split=split)
     if loader_cfg.get("num_workers", config.get("data", {}).get(
             "num_workers", 2)):
         train, val, test = (PrefetchLoader(train), PrefetchLoader(val),

@@ -22,6 +22,9 @@ from .convert import unet_params_to_jax, unet_state_dict_from_jax
 
 Draw = Callable[[], torch.Tensor]
 Noise = Optional[Iterable[torch.Tensor]]
+#: (lo, hi, n): a batch that holds rows [lo, hi) of a global batch of n
+#: (one rank's share under data parallelism).
+Rows = Optional[Tuple[int, int, int]]
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -38,6 +41,21 @@ def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
                            "is false; pass device='cpu' (--device cpu) to "
                            "run on the CPU")
     return dev
+
+
+def row_draws(b: int, rows: Rows) -> Tuple[int, slice]:
+    """(n, keep) for a batch of ``b`` rows that are ``rows`` of a global
+    batch: a loss's random inputs, drawn or given, are those of all n
+    rows of the global batch (a loss draws them for all n), and it keeps
+    ``[keep]``; so every layout of the ranks draws what one process
+    would, and batch-wide terms (the time weights' range) are the global
+    batch's."""
+    if rows is None:
+        return b, slice(None)
+    lo, hi, n = rows
+    if hi - lo != b or not 0 <= lo <= hi <= n:
+        raise ValueError(f"rows {rows} do not describe a batch of {b}")
+    return n, slice(lo, hi)
 
 
 class BaseDiffusionModel:

@@ -32,7 +32,7 @@ from typing import Callable, Dict, List, Optional, Tuple, Union
 import torch
 
 from ..utils.losses import DiffusionLoss
-from .base import BaseDiffusionModel, Draw, Noise
+from .base import BaseDiffusionModel, Draw, Noise, Rows, row_draws
 from .schedules import (PREDICTION_TYPES, ddpm_posterior_step,
                         ddpm_posterior_step_learned,
                         learned_range_log_variance, make_dpm_solver_params,
@@ -111,7 +111,8 @@ class DDPM(BaseDiffusionModel):
                       noise: Optional[torch.Tensor] = None,
                       generator: Optional[torch.Generator] = None,
                       y: Optional[torch.Tensor] = None,
-                      per_sample: bool = False) -> torch.Tensor:
+                      per_sample: bool = False,
+                      rows: Rows = None) -> torch.Tensor:
         """Training loss of NHWC images ``x``: t ~ U[0, T), ε ~ N(0, I),
         x_t = q_sample(x, t, ε), the network (dropout on) against the
         parameterization's target. ``t`` and ``noise`` may be given, so a
@@ -120,36 +121,43 @@ class DDPM(BaseDiffusionModel):
         fraction of the labels ``y`` by the NULL token.
 
         ``per_sample``: return [B] losses, each as the loss of a batch of
-        one (how the reference's eval weights samples).
+        one (how the reference's eval weights samples). ``rows``: ``x``
+        is those rows of a global batch, and ``t`` and ``noise``, drawn
+        or given, are the global batch's (:func:`.base.row_draws`).
 
         ``learn_sigma`` models train the hybrid objective: the loss on the
         prediction half plus ``vlb_weight`` × the VLB in bits/dim, whose
         model mean is detached so that it trains only the variance
         half."""
-        b = x.shape[0]
+        n, keep = row_draws(x.shape[0], rows)
         if t is None:
-            t = torch.randint(0, self.num_timesteps, (b,),
+            t = torch.randint(0, self.num_timesteps, (n,),
                               generator=generator, device=x.device)
         if noise is None:
-            noise = torch.randn(x.shape, generator=generator,
+            noise = torch.randn((n, *x.shape[1:]), generator=generator,
                                 device=x.device, dtype=x.dtype)
+        t_all, t, noise = t, t[keep], noise[keep]
         noisy_x = q_sample(self.schedule, x, t, noise)
         if y is not None and self.num_classes > 0:
-            drop = torch.rand((b,), generator=generator,
-                              device=x.device) < self.cfg_drop_prob
+            drop = torch.rand((n,), generator=generator,
+                              device=x.device)[keep] < self.cfg_drop_prob
             y = torch.where(drop, torch.full_like(y, self.num_classes), y)
         pred = self.apply(noisy_x, t, y, train=True)
         target = prediction_target(self.schedule, x, noise, t,
                                    self.prediction_type)
-        loss = self.loss_fn.per_sample if per_sample else self.loss_fn
+        def loss(out):
+            if per_sample:
+                return self.loss_fn.per_sample(out, target, t)
+            return self.loss_fn(out, target, t_all, keep)
+
         if not self.learn_sigma:
-            return loss(pred, target, t)
+            return loss(pred)
         mean_out, v_out = self._split_output(pred)
         eps_hat = prediction_to_eps(self.schedule, mean_out.detach(),
                                     noisy_x, t, self.prediction_type)
         log_var = learned_range_log_variance(self.schedule, v_out, t)
         vlb = vlb_term_bits(self.schedule, x, noisy_x, t, eps_hat, log_var)
-        return loss(mean_out, target, t) + self.vlb_weight * (
+        return loss(mean_out) + self.vlb_weight * (
             vlb if per_sample else vlb.mean())
 
     def _split_output(self, out: torch.Tensor

@@ -32,7 +32,7 @@ from torch import nn
 
 from ..ops.group_norm import group_norm_silu_plain
 from ..utils.losses import DiffusionLoss, energy_based_loss
-from .base import BaseDiffusionModel, Draw, Noise
+from .base import BaseDiffusionModel, Draw, Noise, Rows, row_draws
 from .layers import sinusoidal_embedding
 from .layers.resnet import to_nchw, to_nhwc
 from .schedules import ddpm_posterior_step, make_noise_schedule, q_sample
@@ -195,41 +195,48 @@ class EnergyBasedDiffusion(BaseDiffusionModel):
                       y: Optional[torch.Tensor] = None,
                       per_sample: bool = False,
                       langevin_noise: Optional[Sequence[torch.Tensor]] = None,
-                      alpha: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      alpha: Optional[torch.Tensor] = None,
+                      rows: Rows = None) -> torch.Tensor:
         """Training loss of NHWC images ``x`` (labels ``y`` are ignored):
         t ~ U[0, T), ε ~ N(0, I), x_t = q_sample(x, t, ε); then "dsm"
         regresses ε̂(x_t, t) onto ε, and "cd" runs Langevin from x_t to
         the negatives (``langevin_noise``: one draw a step) and takes CD
         + GP at interpolates α ~ U[0, 1) [B, 1, 1, 1] (``alpha``), or the
         ``DiffusionLoss`` on the energies. Undrawn inputs come from
-        ``generator``. ``per_sample``: [B] losses."""
+        ``generator``. ``per_sample``: [B] losses. ``rows``: ``x`` is
+        those rows of a global batch, and every draw, made or given, is
+        the global batch's (:func:`.base.row_draws`)."""
         b = x.shape[0]
+        n, keep = row_draws(b, rows)
         if t is None:
-            t = torch.randint(0, self.num_timesteps, (b,),
+            t = torch.randint(0, self.num_timesteps, (n,),
                               generator=generator, device=x.device)
         if noise is None:
-            noise = torch.randn(x.shape, generator=generator,
+            noise = torch.randn((n, *x.shape[1:]), generator=generator,
                                 device=x.device, dtype=x.dtype)
+        t_all, t, noise = t, t[keep], noise[keep]
         x_noisy = q_sample(self.schedule, x, t, noise)
         if self.training_objective == "dsm":
             eps = self._eps_from_energy(x_noisy, t, torch.is_grad_enabled())
             err = (eps - noise) ** 2
             return err.reshape(b, -1).mean(dim=1) if per_sample \
                 else err.mean()
-        x_fake = self._langevin(x_noisy, t, self._drawer(
-            tuple(x.shape), generator, langevin_noise))
+        draw = self._drawer((n, *x.shape[1:]), generator, langevin_noise)
+        x_fake = self._langevin(x_noisy, t, lambda: draw()[keep])
 
         def energy_fn(z):
             return self.energy_scale * self.apply(z, t)
 
         if self.loss_fn is None:
             if alpha is None:
-                alpha = torch.rand((b, 1, 1, 1), generator=generator,
+                alpha = torch.rand((n, 1, 1, 1), generator=generator,
                                    device=x.device, dtype=x.dtype)
-            return energy_based_loss(energy_fn, x, x_fake, alpha,
+            return energy_based_loss(energy_fn, x, x_fake, alpha[keep],
                                      self.regularization_weight, per_sample)
-        loss = self.loss_fn.per_sample if per_sample else self.loss_fn
-        return loss(energy_fn(x), energy_fn(x_fake), t)
+        real, fake = energy_fn(x), energy_fn(x_fake)
+        if per_sample:
+            return self.loss_fn.per_sample(real, fake, t)
+        return self.loss_fn(real, fake, t_all, keep)
 
     # -- sampling ---------------------------------------------------------
     def _ancestral_range(self, x: torch.Tensor, t_hi: int, t_lo: int,

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from ..utils.losses import DiffusionLoss, score_matching_loss
-from .base import BaseDiffusionModel, Draw, Noise
+from .base import BaseDiffusionModel, Draw, Noise, Rows, row_draws
 from .schedules import continuous_sigma, sigma_ladder
 from .unet import UNet, cast_compute_dtype_, init_unet_, remat_from_config
 
@@ -100,18 +100,23 @@ class ScoreBasedDiffusion(BaseDiffusionModel):
                       noise: Optional[torch.Tensor] = None,
                       generator: Optional[torch.Generator] = None,
                       y: Optional[torch.Tensor] = None,
-                      per_sample: bool = False) -> torch.Tensor:
+                      per_sample: bool = False,
+                      rows: Rows = None) -> torch.Tensor:
         """DSM loss of NHWC images ``x`` (labels ``y`` are ignored: the
         family is unconditional) at σ = continuous_sigma(u), u ~ U[0, 1),
         and ε ~ N(0, I); ``sigma``/``noise`` may be given, else they come
-        from ``generator``. ``per_sample``: [B] losses."""
-        b = x.shape[0]
+        from ``generator``. ``per_sample``: [B] losses. ``rows``: ``x``
+        is those rows of a global batch, and ``sigma`` and ``noise``,
+        drawn or given, are the global batch's (:func:`.base.row_draws`).
+        """
+        n, keep = row_draws(x.shape[0], rows)
         if sigma is None:
-            u = torch.rand((b,), generator=generator, device=x.device)
+            u = torch.rand((n,), generator=generator, device=x.device)
             sigma = continuous_sigma(self.sigma_min, self.sigma_max, u)
         if noise is None:
-            noise = torch.randn(x.shape, generator=generator,
+            noise = torch.randn((n, *x.shape[1:]), generator=generator,
                                 device=x.device, dtype=x.dtype)
+        sigma, noise = sigma[keep], noise[keep]
         s = sigma[:, None, None, None]
         score = self.apply(x + s * noise, sigma, train=True)
         if self.loss_fn is None:

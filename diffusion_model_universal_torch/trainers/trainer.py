@@ -26,6 +26,23 @@ return), masked per-sample ``validate``/``test``, and full-state
 weight, and β/α/ᾱ, at ``gradient_logging_freq``; :meth:`profile` traces
 a few real updates with ``torch.profiler``.
 
+Data parallelism: a trainer built in a process that has joined a
+``torch.distributed`` group (``parallel/mesh.py``) is one replica. Its
+batches are its rows of a global batch: the ``rows`` a split loader
+gives (``train --num_devices``), else the rank's block of the ranks'
+batches side by side (``--multihost``). Each loss draws the global
+batch's draws and keeps its rows; the mean loss and gradients of an
+update are summed over the ranks in one all-reduce, each rank weighted
+by its share of the rows, before the norms, the clip, Adam and the EMA,
+so every replica applies the same update. The parameters are broadcast
+from rank 0 when the trainer is built and after a restore. At each step
+boundary the ranks OR their preemption flags, so all of them save at the
+same step. Evaluation sums (Σ loss, count) over the ranks, so it gives
+the same loss for any number of ranks. Rank 0 alone writes checkpoints
+(the others wait at a barrier), logs, and draws the sample grids; each
+rank computes the histograms, whose gradients are reduced, and rank 0
+logs them; :meth:`profile` traces on rank 0.
+
 Not ported yet (it raises): ``scan_steps > 1``.
 """
 
@@ -40,6 +57,7 @@ import numpy as np
 import torch
 
 from .. import NOT_PORTED
+from ..parallel import mesh
 from ..utils.checkpoint import CheckpointManager
 from ..utils.images import frames_to_grid, save_image
 from ..utils.logging_utils import MetricLogger
@@ -101,10 +119,16 @@ class DiffusionTrainer:
         self.steps_per_epoch = max(-(-len(train_loader) // self.grad_accum),
                                    1)
 
-        torch.manual_seed(seed)  # dropout masks
+        self.data_parallel = mesh.is_initialized()
+        self.rank = mesh.rank()
+        self.world_size = mesh.world_size()
+        self.is_main = self.rank == 0
+        torch.manual_seed(seed + _SEED_STRIDE * self.rank)  # dropout masks
         named = list(model.net.named_parameters())
         self.param_names: List[str] = [n for n, _ in named]
         self.params: List[torch.Tensor] = [p for _, p in named]
+        mesh.broadcast_(self.params)
+        self._flag_group = mesh.new_flag_group()
         self.optimizer, self.lr_schedule = make_optimizer(
             self.params, tcfg, self.steps_per_epoch, self.num_epochs)
         self.ema = [p.detach().to(self.ema_dtype, copy=True)
@@ -118,7 +142,8 @@ class DiffusionTrainer:
         self.logger = MetricLogger(self.config,
                                    model_name=self.config.get("model_name",
                                                               "model"),
-                                   output_dir=str(self.output_dir))
+                                   output_dir=str(self.output_dir),
+                                   enabled=self.is_main)
         self.ckpt = CheckpointManager(str(self.output_dir / "checkpoints"),
                                       config=self.config)
         self.best_val_loss = float("inf")
@@ -152,23 +177,40 @@ class DiffusionTrainer:
         return sum(DiffusionTrainer._split_batch(b)[0].shape[0]
                    for b in batches)
 
+    def _rows(self, batch, b: int):
+        """The (lo, hi, n) rows of the global batch that ``batch`` (of
+        ``b`` samples) holds; None outside data parallelism."""
+        if isinstance(batch, dict) and "rows" in batch:
+            return tuple(batch["rows"])
+        if not self.data_parallel:
+            return None
+        return (self.rank * b, (self.rank + 1) * b, self.world_size * b)
+
     def _loss_and_grads(self, micro_batches: List[Any], step: int,
                         draws: Optional[List[Dict[str, Any]]] = None):
         """The mean loss and mean gradients of ``micro_batches`` (gradients
         summed in f32, then scaled by 1/A, as the reference's
         accumulation), micro-batch i drawing from ``_generator(step,
-        micro=i)`` unless ``draws[i]`` gives its draws."""
+        micro=i)`` unless ``draws[i]`` gives its draws (the global
+        batch's, under data parallelism). Under data parallelism, each
+        micro-batch's are weighted by the rank's share of its rows and
+        summed over the ranks."""
         loss_sum, grads_sum = None, None
         for i, batch in enumerate(micro_batches):
             x, y = self._split_batch(batch)
+            rows = self._rows(batch, x.shape[0])
             loss = self.model.loss_function(
-                x, generator=self._generator(step, micro=i), y=y,
+                x, generator=self._generator(step, micro=i), y=y, rows=rows,
                 **(draws[i] if draws else {}))
             # A parameter the loss does not reach (the energy DSM
             # objective differentiates ∇ₓE, to which the last bias adds
             # nothing) gets a zero gradient, as the reference's does.
             grads = list(torch.autograd.grad(
                 loss, self.params, allow_unused=True, materialize_grads=True))
+            share = (rows[1] - rows[0]) / rows[2] if rows else 1.0
+            if share != 1.0:
+                loss = loss * share
+                torch._foreach_mul_(grads, share)
             if grads_sum is None:
                 loss_sum, grads_sum = loss.detach(), grads
             else:
@@ -178,13 +220,17 @@ class DiffusionTrainer:
             inv = 1.0 / len(micro_batches)
             loss_sum = loss_sum * inv
             torch._foreach_mul_(grads_sum, inv)
+        if self.data_parallel:
+            loss_sum = loss_sum.clone()
+            mesh.all_reduce_sum_([loss_sum, *grads_sum])
         return loss_sum, grads_sum
 
     def step(self, batch, **draws) -> Dict[str, Any]:
         """One training step; the loss's draws may be injected as keywords
         of the family's ``loss_function`` (tests): ``t``/``noise``
         (DDPM, DDIM), ``sigma``/``noise`` (score), ``t``/``noise``/
-        ``langevin_noise``/``alpha`` (energy). Returns device tensors:
+        ``langevin_noise``/``alpha`` (energy), the global batch's under
+        data parallelism. Returns device tensors:
         ``loss``, ``grad_norm`` and ``layer_grad_norms`` (name → norm),
         all of the raw gradients."""
         return self.accum_step([batch], [draws])
@@ -246,7 +292,8 @@ class DiffusionTrainer:
 
         try:
             update()
-            with trace(log_dir, device=self.device):
+            with (trace(log_dir, device=self.device) if self.is_main
+                  else contextlib.nullcontext()):
                 for _ in range(steps):
                     update()
                 if self.device.type == "cuda":
@@ -257,6 +304,15 @@ class DiffusionTrainer:
 
     def _on_preempt_signal(self, signum, frame) -> None:
         self.preempted = True
+
+    def _preemption_agreed(self) -> bool:
+        """The OR of every rank's preemption flag (a SIGTERM is
+        process-local), taken at each step boundary by every rank, so
+        that all of them take the save-and-return branch at the same
+        step instead of some waiting in the next update's all-reduce."""
+        if self.data_parallel:
+            self.preempted = mesh.any_flag(self.preempted, self._flag_group)
+        return self.preempted
 
     def _install_preemption_handler(self):
         if not self.handle_preemption:
@@ -306,6 +362,12 @@ class DiffusionTrainer:
 
     def _log_step(self, step: int, epoch: int, metrics, chunk,
                   t0: float, rng_state=None) -> None:
+        # Every rank recomputes the histograms' gradients (their
+        # all-reduce needs all of them); rank 0 alone logs.
+        histograms = (self.histogram_metrics(chunk, step, rng_state)
+                      if rng_state is not None else {})
+        if not self.is_main:
+            return
         loss = float(metrics["loss"])
         log = {"train/loss": loss,
                "train/grad_norm": float(metrics["grad_norm"]),
@@ -322,8 +384,7 @@ class DiffusionTrainer:
                 self.param_norm()))
             log.update(self.logger.optimizer_metrics(
                 self.optimizer, self.lr_schedule(step)))
-            if rng_state is not None:
-                log.update(self.histogram_metrics(chunk, step, rng_state))
+            log.update(histograms)
         self.logger.log(log, step)
 
     def train(self, num_epochs: Optional[int] = None) -> Dict[str, float]:
@@ -355,12 +416,8 @@ class DiffusionTrainer:
                     if self.val_interval and \
                             self.step_count % self.val_interval == 0:
                         self._validate_and_save_best(self.step_count, epoch)
-                    if self.preempted:
-                        self.save_checkpoint(f"checkpoint_epoch_{epoch}",
-                                             epoch)
-                        if self.keep_checkpoints:
-                            self.ckpt.prune_epoch_checkpoints(
-                                self.keep_checkpoints)
+                    if self._preemption_agreed():
+                        self._save_epoch_checkpoint(epoch)
                         history["preempted"] = 1.0
                         self.logger.log({"train/preempted": 1.0},
                                         self.step_count)
@@ -372,19 +429,18 @@ class DiffusionTrainer:
                         "epoch/train_loss": mean_loss,
                         "epoch/time": time.perf_counter() - t_epoch,
                     }, self.step_count)
-                if self.sample_interval and \
+                if self.is_main and self.sample_interval and \
                         (epoch + 1) % self.sample_interval == 0:
                     self.generate_samples(epoch)
                 if self.checkpoint_interval and \
                         (epoch + 1) % self.checkpoint_interval == 0:
-                    self.save_checkpoint(f"checkpoint_epoch_{epoch}", epoch)
-                    if self.keep_checkpoints:
-                        self.ckpt.prune_epoch_checkpoints(
-                            self.keep_checkpoints)
+                    self._save_epoch_checkpoint(epoch)
         except Exception:
-            epoch = self.step_count // self.steps_per_epoch
-            self.save_checkpoint(f"emergency_checkpoint_epoch_{epoch}",
-                                 epoch)
+            # No barrier: the other ranks may be gone.
+            if self.is_main:
+                epoch = self.step_count // self.steps_per_epoch
+                self.ckpt.save(f"emergency_checkpoint_epoch_{epoch}",
+                               self.state(epoch))
             raise
         finally:
             if prev_handler is not None:
@@ -408,21 +464,25 @@ class DiffusionTrainer:
         as the loss of a batch of one (as the reference's vmapped eval),
         with the network in training mode as the reference's
         ``loss_function`` has it. Batch k draws from a generator seeded by
-        (seed, salt, offset of its first sample)."""
-        total = torch.zeros((), dtype=torch.float64, device=self.device)
-        count, offset = 0, 0
+        (seed, salt, offset of its first sample in the global batches).
+        Under data parallelism each rank holds its rows of every global
+        batch (a ragged one split unevenly, no sample dropped or counted
+        twice) and the (Σ loss, count) pair is summed over the ranks."""
+        sums = torch.zeros(2, dtype=torch.float64, device=self.device)
+        offset = 0
         for batch in loader:
             x, y = self._split_batch(batch)
-            n = x.shape[0]
-            if n == 0:
-                continue
-            losses = self.model.loss_function(
-                x, generator=self._generator(offset, salt), y=y,
-                per_sample=True)
-            total += losses.double().sum()
-            count += n
-            offset += n
-        return float(total) / count if count else float("inf")
+            rows = self._rows(batch, x.shape[0])
+            if x.shape[0]:
+                losses = self.model.loss_function(
+                    x, generator=self._generator(offset, salt), y=y,
+                    per_sample=True, rows=rows)
+                sums[0] += losses.double().sum()
+                sums[1] += x.shape[0]
+            offset += rows[2] if rows else x.shape[0]
+        mesh.all_reduce_sum_([sums])
+        total, count = sums.tolist()
+        return total / count if count else float("inf")
 
     def validate(self) -> float:
         return self._run_eval(self.val_loader, salt=1)
@@ -473,7 +533,21 @@ class DiffusionTrainer:
         }
 
     def save_checkpoint(self, name: str, epoch: int) -> str:
-        return self.ckpt.save(name, self.state(epoch))
+        """Rank 0 writes the checkpoint; every rank waits until it is
+        whole."""
+        if self.is_main:
+            self.ckpt.save(name, self.state(epoch))
+        mesh.barrier()
+        return str(self.ckpt.directory / name)
+
+    def _save_epoch_checkpoint(self, epoch: int) -> None:
+        """``checkpoint_epoch_{epoch}``, then the pruning to
+        ``keep_checkpoints``, on rank 0."""
+        if self.is_main:
+            self.ckpt.save(f"checkpoint_epoch_{epoch}", self.state(epoch))
+            if self.keep_checkpoints:
+                self.ckpt.prune_epoch_checkpoints(self.keep_checkpoints)
+        mesh.barrier()
 
     def load_checkpoint(self, name: Optional[str] = None) -> int:
         """Restore the full state; returns the epoch to resume from. With
@@ -489,6 +563,8 @@ class DiffusionTrainer:
             for e, n in zip(self.ema, self.param_names):
                 e.copy_(state["ema_params"][n])
         self.optimizer.load_state_dict(state["opt_state"])
+        mesh.broadcast_([*self.params, *self.ema, *self.optimizer.mu,
+                         *self.optimizer.nu])
         self.step_count = int(state["step"])
         self.best_val_loss = float(state["best_val_loss"])
         self.start_epoch = int(state["epoch"]) + 1

@@ -30,14 +30,20 @@ class MetricLogger:
     """Routes metric dicts to wandb / TensorBoard / JSONL."""
 
     def __init__(self, config: Dict[str, Any], model_name: str = "model",
-                 output_dir: str = "outputs"):
+                 output_dir: str = "outputs", enabled: bool = True):
         self.config = config or {}
         log_cfg = self.config.get("logging", {}) or {}
         self.log_cfg = log_cfg
         self.model_name = model_name
         self.output_dir = Path(output_dir)
+        #: False on the ranks other than 0 of a data-parallel run: no
+        #: sink is opened and nothing is written.
+        self.enabled = enabled
         self._wandb = None
         self._tb = None
+        self._jsonl = None
+        if not enabled:
+            return
         self.output_dir.mkdir(parents=True, exist_ok=True)
         run_name = f"{model_name}_{datetime.now().strftime('%Y%m%d_%H%M%S')}"
         if log_cfg.get("use_wandb", False):
@@ -63,6 +69,8 @@ class MetricLogger:
     def log(self, metrics: Dict[str, Any], step: int) -> None:
         """Write a flat metric dict to every sink; an array of more than
         one value goes in as a histogram (mean and std in the JSONL)."""
+        if not self.enabled:
+            return
         scalars = {}
         for k, v in metrics.items():
             v = _to_host(v)

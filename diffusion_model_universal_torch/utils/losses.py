@@ -173,10 +173,15 @@ class DiffusionLoss:
         return loss
 
     def __call__(self, pred: torch.Tensor, target: torch.Tensor,
-                 timesteps: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 timesteps: Optional[torch.Tensor] = None,
+                 keep: slice = slice(None)) -> torch.Tensor:
+        """The batch's mean loss. ``keep``: ``pred`` and ``target`` are
+        those rows of the batch ``timesteps`` covers, whose range the time
+        weights are rescaled over (one rank's rows under data
+        parallelism)."""
         loss = self._base_loss(pred, target)
         if self.use_time_weighting and timesteps is not None:
-            w = self.time_weights(timesteps)
+            w = self.time_weights(timesteps)[keep]
             loss = loss * w.reshape(w.shape[:1] + (1,) * (loss.dim() - 1))
         loss = loss.mean()
         if self._perceptual is not None:

@@ -286,17 +286,43 @@ def test_checkpoint_names_latest_and_pruning(tmp_path):
     (["--profile", "--profile_steps", "2"], "--profile"),
     (["--multihost"], "--multihost"), (["--num_devices", "2"],
                                        "--num_devices"),
-    (["--num_gpus", "4"], "--num_devices > 1 is not yet ported")])
-def test_train_cli_refuses_unported_flags(tmp_path, extra, fragment, capsys):
-    """``--multihost`` and ``--num_devices > 1`` exit. ``--profile``, once
+    (["--num_gpus", "3"], "--num_devices > 1 is not yet ported")])
+def test_train_cli_refuses_unported_flags(tmp_path, extra, fragment, capsys,
+                                          monkeypatch):
+    """The name is from when all these flags were refused. ``--multihost``
+    without the environment torchrun sets exits with a message naming
+    it. ``--num_devices 2`` trains two gloo ranks on the CPU end to end,
+    rank 0 writing the checkpoints. ``--num_gpus 3`` (the reference's
+    spelling) is no longer refused as not ported (the ``fragment``); the
+    batch of 4, which 3 ranks cannot split, is
+    (``tests/test_torch_parallel.py`` holds the ranks against one process
+    and JAX). ``--profile``, once
     refused here, runs: one warm-up update and ``--profile_steps`` traced
     ones on the CPU, then the epoch; a ``*.pt.trace.json`` Chrome trace of
     the host ops lands in DIR (default ``output_dir/profile``)."""
     args = ["--config", _write(tmp_path, _config(tmp_path, 1)),
             "--model_type", "ddpm", "--device", "cpu"]
-    if fragment != "--profile":
-        with pytest.raises(SystemExit, match=fragment):
+    if extra[0] == "--multihost":
+        for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                    "MASTER_PORT"):
+            monkeypatch.delenv(key, raising=False)
+        with pytest.raises(SystemExit, match="--multihost .*torchrun"):
             train_cli.main(args + extra)
+        return
+    if extra[0] == "--num_gpus":
+        with pytest.raises(SystemExit, match="batch_size 4 is not a "
+                                             "multiple of --num_devices 3"
+                           ) as err:
+            train_cli.main(args + extra)
+        assert fragment not in str(err.value)
+        return
+    if extra[0] == "--num_devices":
+        assert train_cli.main(args + extra) == 0
+        final = read_state(str(tmp_path / "run" / "checkpoints"
+                                / "final_model"))
+        assert final["step"] == 4
+        lines = (tmp_path / "run" / "metrics.jsonl").read_text().splitlines()
+        assert sum("train/loss" in line for line in lines) == 4
         return
     out_dir = (tmp_path / "run" / "profile" if extra[1].startswith("--")
                else tmp_path / extra[1])
