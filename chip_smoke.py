@@ -24,9 +24,10 @@ T=1000, 4 heads, serve batch 16) with random weights made from a seed:
    forward at B=1 card vs CPU, and 3 bf16 sampler steps at B=16 on the
    card;
 4. serves three ``POST /generate`` requests and one ``GET /healthz``
-   through the port's HTTP server (bf16, 1000 ancestral steps each),
+   through the port's HTTP server (bf16, after a DPM++-20 warm-up: one
+   request of the 1000 ancestral steps, two by DPM++-20),
    checks the outputs, and checks that each request advanced the kernels'
-   launch counters by exactly T × launches per forward;
+   launch counters by exactly its forwards × launches per forward;
 5. times each kernel at its main-path shapes beside its plain version,
    one PyTorch library call computing the same function, and its bound
    (K3 also at S=256 and 1024, D=64, B·N=64);
@@ -49,7 +50,7 @@ on, dropout 0.1, the config's SNR-weighted MSE, Adam and EMA):
 8. runs the training CLI at full width as a subprocess on the synthetic
    dataset (2 epochs, checkpoints, validation, a sample grid), resumes it
    from its latest checkpoint for a third epoch, and generates from the
-   final checkpoint's EMA weights;
+   final checkpoint's EMA weights, at ``CLI_T`` diffusion steps;
 9. times training steps in-process (ms/step, images/s), checks that each
    step launched K1, K2 and K3 exactly as often as counted, traces a few
    steps with ``torch.profiler``, and times every kernel at the training
@@ -105,8 +106,8 @@ Then the samplers, through the entry points a user calls:
     c. runs ``train --model_type ddim`` for a few steps at full width (a
        DDIM sample grid), ``generate --ema --sampler dpm++`` from its
        checkpoint, ``generate --class_id 3`` and ``--inpaint_image/
-       --inpaint_mask`` on a saved conditional model, and ``train`` with
-       ``learn_sigma: true``.
+       --inpaint_mask`` (``INPAINT_T`` ancestral steps) on a saved
+       conditional model, and ``train`` with ``learn_sigma: true``.
 
 Then the score-based and energy-based families, at the published widths
 of ``score_based_config.yaml`` (the same C=128 UNet with a σ embedding)
@@ -120,11 +121,11 @@ channels):
        the EnergyNet's E and ∇ₓE; CD + GP and the energy DSM with their
        second-order gradients; 2 levels of each energy sampler;
     b. serves each family over HTTP in bf16 at the serve batch with one
-       cut, 50 levels × 10 Langevin steps (``FAMILIES``): a warm-up and
+       cut, 10 levels × 10 Langevin steps (``FAMILIES``): a warm-up and
        three timed requests, the seconds, images/s, host ms a network
        evaluation, the published ladder's forecast and the device busy
        share of 5 of a request's levels (``torch.profiler``); the score
-       request must launch K1 and K3 exactly 53× and 5× its 500
+       request must launch K1 and K3 exactly 53× and 5× its 100
        forwards, the energy request no K1, K2 or K3 (its GroupNorm is the
        plain version, as the reference's is XLA's);
     c. runs ``train`` for 3 steps at each config's batch of 64 on the
@@ -208,6 +209,29 @@ Then data parallelism over ``torch.distributed`` (``parallel/mesh.py``,
        exactly as counted over its epoch of 8 updates;
     c. times an update of B=128 on the two ranks sharing the card beside
        one process: a measure of sharing one card, not of scaling.
+
+Then sampling over ranks and ``distributed.model_parallel``
+(``parallel/mesh.py``'s ``Scope`` and ``Sharding``) at the full width of
+``ddpm_config.yaml``, from one seeded checkpoint in f32 and bf16:
+
+16. a. ``generate``'s chunk (16 DPM++-20 samples, bf16) and one f32
+       ``model_parallel: 1`` update, alone and as rank 0 of a NCCL group
+       of world 1: bit-equal (cuDNN deterministic);
+    b. spawns ``RANK_WORLD`` gloo ranks sharing the card, held against one
+       process in f32 (1e-3 + 1e-3·|ref|): ``generate``'s chunk, the
+       server's ``RANK_REQUESTS`` (DPM++-20 three times and ancestral-1000
+       at serve batch 16) over HTTP on rank 0 with rank 1 following, and
+       a ``--benchmark`` batch (the FID inputs); K1/K3 exactly 53/5 a
+       forward on each rank; the bf16 requests timed beside one process
+       (DPM++-20 here, ancestral-1000 from phase 4);
+    c. ``model_parallel: 2`` on the same two ranks: ``MP_UPDATES`` f32
+       updates at B=128 against one process (loss rtol 1e-5, norms 1e-4,
+       μ 1e-7 + rtol 1e-3) with K1/K2/K3 at 100/53/9 an update a rank;
+       the device bytes requested between updates a rank within 1 MB of
+       16 bytes an element of its shards (one process: of the whole tree),
+       and the allocator's blocks for them;
+       the checkpoint they write restored by one process bit-equal; ms an
+       update in bf16 beside phase 15c's.
 
 The last three lines of standard output are the ``kernels`` JSON line
 (all seven kernels; K1–K3 with their 64² training rows and the launches
@@ -686,8 +710,13 @@ def serve(model_f32, cfg, per_forward):
     T = service.model.num_timesteps
     log(f"[serve] model on {service.model.device}, compute dtype "
         f"{service.model.compute_dtype}, T={T}, serve_batch {SERVE_BATCH}")
-    warm = service.warmup()
-    log(f"[serve] warmup request (batch {SERVE_BATCH}): {warm:.2f} s")
+    # The warm-up runs the same forwards by DPM++-20 (a depth cut from
+    # the ancestral sampler's T, to make room for phase 16).
+    t0 = time.perf_counter()
+    service.generate(SERVE_BATCH, seed=0, sampler="dpm++", sampler_steps=20)
+    warm = time.perf_counter() - t0
+    log(f"[serve] warmup request (batch {SERVE_BATCH}, DPM++-20): "
+        f"{warm:.2f} s")
     thread = threading.Thread(target=srv.serve_forever, daemon=True)
     thread.start()
     host, port = srv.server_address[:2]
@@ -696,9 +725,13 @@ def serve(model_f32, cfg, per_forward):
     try:
         for k in kernels.values():
             k.launches = 0
+        # One ancestral request (the request-seconds metric); the other
+        # two, by DPM++-20, hold the other batch sizes and the PNG (a
+        # depth cut from three ancestral requests, for phase 16's room).
+        dpm = {"sampler": "dpm++", "sampler_steps": 20}
         for body in ({"num_samples": SERVE_BATCH, "seed": 1, "format": "npy"},
-                     {"num_samples": 4, "seed": 2, "format": "npy"},
-                     {"num_samples": 9, "seed": 3, "format": "png"}):
+                     {"num_samples": 4, "seed": 2, "format": "npy", **dpm},
+                     {"num_samples": 9, "seed": 3, "format": "png", **dpm}):
             before = {n: k.launches for n, k in kernels.items()}
             req = urllib.request.Request(
                 base + "/generate", data=json.dumps(body).encode(),
@@ -724,8 +757,10 @@ def serve(model_f32, cfg, per_forward):
                       f"png grid shape {grid.shape}")
                 what = f"png grid {grid.shape}"
             delta = {nm: k.launches - before[nm] for nm, k in kernels.items()}
-            want = {nm: T * per_forward[nm] for nm in kernels}
-            check(delta == want, f"launches {delta} != T × per-forward {want}")
+            forwards = 19 if "sampler" in body else T
+            want = {nm: forwards * per_forward[nm] for nm in kernels}
+            check(delta == want, f"launches {delta} != forwards × per-forward "
+                                 f"{want}")
             results.append({"request": body, "seconds": secs,
                             "images_per_s_of_batch": SERVE_BATCH / secs})
             log(f"[serve] POST /generate {body}: {what}, {secs:.3f} s "
@@ -854,7 +889,7 @@ def profile_steps(model, steps: int = 5):
                            "sampler")
 
 
-def time_dispatch(model, steps: int = 50, reps: int = 10):
+def time_dispatch(model, steps: int = 50, reps: int = 6):
     """Wall ms per sampler step at the serve batch with every GroupNorm
     and attention call made through its autograd Function (the ops' only
     path), and with the kernels called directly: ``reps`` pairs, each
@@ -1253,9 +1288,16 @@ def run_cli(module: str, args, what: str, timeout: int = 900,
     return out.stdout
 
 
+#: Phase 8's T: its sample grid and ``generate --ema`` run the ancestral
+#: sampler's T steps (the published 1000, cut to make room for phase 16;
+#: a training step's cost does not depend on T).
+CLI_T = 100
+
+
 def train_cli(steps_per_epoch: int):
     """Phase 8: the training CLI at full width (2 epochs), a resume from
-    its latest checkpoint for a third epoch, and ``generate --ema``."""
+    its latest checkpoint for a third epoch, and ``generate --ema``, at
+    ``CLI_T`` diffusion steps."""
     import numpy as np
     import yaml
     from diffusion_model_universal_torch.scripts.train import params_digest
@@ -1266,10 +1308,14 @@ def train_cli(steps_per_epoch: int):
                  "sample_interval": 2, "val_interval": steps_per_epoch}
     log(f"[cli] ddpm_config.yaml with data.dataset=synthetic, training "
         f"overrides {overrides}, output_dir under {tmp}")
+    def cli_config(**training):
+        cfg = train_config(str(tmp), **training)
+        cfg["model_config"] = dict(cfg["model_config"], num_timesteps=CLI_T)
+        return cfg
+
     try:
         cfg_path = tmp / "train.yaml"
-        cfg_path.write_text(yaml.safe_dump(train_config(str(tmp),
-                                                        **overrides)))
+        cfg_path.write_text(yaml.safe_dump(cli_config(**overrides)))
         base = ["--config", str(cfg_path), "--model_type", "ddpm",
                 "--seed", str(SEED)]
         out = run_cli("train", base, "train 2 epochs")
@@ -1286,8 +1332,8 @@ def train_cli(steps_per_epoch: int):
                           .read_bytes())
         log(f"[cli] sample grid epoch_1.png {grid.shape}; checkpoints "
             f"{sorted(p.name for p in ck.iterdir())}; launches {launches}")
-        cfg_path.write_text(yaml.safe_dump(train_config(
-            str(tmp), **dict(overrides, num_epochs=3))))
+        cfg_path.write_text(yaml.safe_dump(cli_config(
+            **dict(overrides, num_epochs=3))))
         out = run_cli("train", base + ["--resume", "latest"],
                       "resume from latest for epoch 3")
         want = (f"Resumed from epoch 2 at step {2 * steps_per_epoch} "
@@ -2383,6 +2429,11 @@ def serve_samplers(per_forward):
     return rows, profile
 
 
+#: Phase 11c's inpainting model's T (the published 1000, cut to make
+#: room for phase 16).
+INPAINT_T = 100
+
+
 def sampler_clis():
     """Phase 11c: ``train --model_type ddim`` for a few steps at full width,
     then ``generate --ema --sampler dpm++`` from its checkpoint;
@@ -2466,14 +2517,21 @@ def sampler_clis():
         mask[:, :16] = 1.0
         np.save(tmp / "image.npy", image)
         np.save(tmp / "mask.npy", mask)
+        # Inpainting runs the ancestral sampler's T steps: T cut to
+        # INPAINT_T (depth, not width).
+        inpaint = seeded_model("conditional", DEVICE,
+                               num_timesteps=INPAINT_T)
+        inpaint_ckpt = str(tmp / "inpaint.ckpt")
+        inpaint.save(inpaint_ckpt)
+        del inpaint
         run_cli("generate", ["--config", str(DDIM_CONFIG), "--model_type",
-                             "ddim", "--checkpoint", cond_ckpt,
+                             "ddim", "--checkpoint", inpaint_ckpt,
                              "--inpaint_image", str(tmp / "image.npy"),
                              "--inpaint_mask", str(tmp / "mask.npy"),
                              "--num_samples", "4", "--output_dir",
                              str(tmp / "gen_inpaint")],
-                "generate --inpaint_image/--inpaint_mask, 4 samples, "
-                "1000 ancestral steps")
+                f"generate --inpaint_image/--inpaint_mask, 4 samples, "
+                f"{INPAINT_T} ancestral steps")
         left = decode_png((tmp / "gen_inpaint" / "sample_0000.png")
                           .read_bytes())[:, :16]
         want = np.round((image[:, :16] + 1) * 127.5).clip(0, 255)
@@ -2525,10 +2583,10 @@ ENERGY_CONFIG = (REPO / "diffusion_model_universal_torch" / "configs"
 #: UNet forwards (num_scales × langevin_steps), the energy family's ∇ₓE
 #: (levels × langevin_steps).
 FAMILIES = {
-    "score_based": (SCORE_CONFIG, {"num_scales": 50, "langevin_steps": 10},
-                    500, 1000 * 10),
+    "score_based": (SCORE_CONFIG, {"num_scales": 10, "langevin_steps": 10},
+                    100, 1000 * 10),
     "energy_based": (ENERGY_CONFIG,
-                     {"num_timesteps": 50, "langevin_steps": 10}, 500,
+                     {"num_timesteps": 10, "langevin_steps": 10}, 100,
                      1000 * 10),
 }
 #: Phase 12c's cut of the CLIs' YAML copies: the sample grid and
@@ -3701,6 +3759,11 @@ def celeba_training(cfg):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+#: Updates a timing run of phase 14d takes (10 before phase 16 needed
+#: the room).
+TIMED_UPDATES = 6
+
+
 def time_options(cfg):
     """Phase 14d: ms per update and images/s at B=128 (32², bf16
     autocast, remat on) for A=1 and A=2, in turns; then, for no remat,
@@ -3744,7 +3807,7 @@ def time_options(cfg):
         runs = {1: [], 2: []}
         for order in ((1, 2), (2, 1)):
             for a in order:
-                runs[a].append(timed([batch] * a, 10))
+                runs[a].append(timed([batch] * a, TIMED_UPDATES))
         for a, ms in runs.items():
             out["accum"][f"A={a}"] = {
                 "ms_per_update": ms, "images_per_s": [
@@ -4215,6 +4278,567 @@ def data_parallel():
             "seconds": secs}
 
 
+# -- sampling over ranks and model parallelism (phase 16) ------------------
+
+RANK_WORLD = 2              # gloo ranks sharing the card in 16b and 16c
+#: The serve requests of 16b (serve_batch SERVE_BATCH): DPM++-20 three
+#: times, then the ancestral sampler's T steps.
+RANK_REQUESTS = ([{"num_samples": SERVE_BATCH, "seed": s, "sampler": "dpm++",
+                   "sampler_steps": 20} for s in (1, 2, 3)]
+                 + [{"num_samples": SERVE_BATCH, "seed": 4}])
+#: generate's request in 16a and 16b: one chunk of SERVE_BATCH, DPM++-20.
+RANK_GENERATE = ["--num_samples", str(SERVE_BATCH), "--sampler", "dpm++",
+                 "--sampler_steps", "20", "--seed", "7", "--grid_only"]
+MP_UPDATES = 3              # f32 updates of 16c held against one process
+MP_TIME_UPDATES = 5         # timed bf16 updates of 16c, after 2 warm-ups
+MB = 1e6
+
+
+def rank_checkpoints(cfg, tmp: Path):
+    """Model-only checkpoints of one seeded UNet (the zero-initialized
+    leaves given small seeded values) in f32 and bf16, and the config
+    file that names them: ``{dtype: path}``, path."""
+    import torch
+    import yaml
+    from diffusion_model_universal_torch.models import DDPM
+    from diffusion_model_universal_torch.models.convert import \
+        unet_params_to_jax
+    src = DDPM(dict(cfg, compute_dtype="float32"), device="cpu", seed=SEED)
+    gen = torch.Generator().manual_seed(SEED + 1)
+    with torch.no_grad():
+        for p in src.net.parameters():
+            if not p.any():
+                p.copy_(0.02 * torch.randn(p.shape, generator=gen))
+    params = unet_params_to_jax(src.net)
+    ckpts = {}
+    for dtype in ("float32", "bfloat16"):
+        m = DDPM(dict(cfg, compute_dtype=dtype), device="cpu", seed=SEED)
+        m.load_params(params)
+        ckpts[dtype] = str(tmp / f"unet_{dtype}.ckpt")
+        m.save(ckpts[dtype])
+    cfg_path = tmp / "model.yaml"
+    cfg_path.write_text(yaml.safe_dump({"model_config": cfg}))
+    return ckpts, str(cfg_path)
+
+
+def generate_args(cfg_path: str, ckpt: str, device: str, out_dir: str):
+    from diffusion_model_universal_torch.scripts import generate
+    return generate.build_argparser().parse_args([
+        "--config", cfg_path, "--model_type", "ddpm", "--checkpoint", ckpt,
+        "--device", device, "--output_dir", out_dir, *RANK_GENERATE])
+
+
+def serve_args(cfg_path: str, ckpt: str, device: str):
+    from diffusion_model_universal_torch.scripts import serve as serve_cli
+    return serve_cli.build_argparser().parse_args([
+        "--config", cfg_path, "--model_type", "ddpm", "--checkpoint", ckpt,
+        "--port", "0", "--serve_batch", str(SERVE_BATCH), "--device",
+        device])
+
+
+def counted(device, fn):
+    """``fn()`` and the K1/K2/K3 launches it made on this process."""
+    import torch
+    from diffusion_model_universal_torch.ops._build import (KERNELS,
+                                                            launch_counts)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    for k in KERNELS.values():
+        k.launches = 0
+    out = fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    counts = launch_counts()
+    return out, {k: counts.get(s, 0) for k, s in DP_SYMBOLS.items()}
+
+
+def post_requests(srv, bodies, timed: bool):
+    """Each request of ``bodies`` to ``srv`` over HTTP (npy): the arrays
+    and the host seconds of each."""
+    import numpy as np
+    host, port = srv.server_address[:2]
+    out = []
+    for body in bodies:
+        req = urllib.request.Request(
+            f"http://{host}:{port}/generate",
+            data=json.dumps(dict(body, format="npy")).encode(),
+            headers={"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=900) as r:
+            arr = np.load(io.BytesIO(r.read()))
+        out.append((arr, time.perf_counter() - t0))
+    return out
+
+
+def serve_over_ranks(service, bodies, warmup: bool):
+    """16b's server: rank 0 serves ``bodies`` to itself over HTTP while
+    the other ranks follow its requests; returns rank 0's (arrays,
+    seconds) and /healthz, None elsewhere."""
+    from diffusion_model_universal_torch.parallel import mesh
+    from diffusion_model_universal_torch.scripts import serve as serve_cli
+    if mesh.rank() != 0:
+        service.follow()
+        return None
+    args = serve_cli.build_argparser().parse_args([
+        "--config", "unused", "--model_type", "ddpm", "--checkpoint",
+        "unused", "--port", "0"])
+    srv = serve_cli.make_server(args, service)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        if warmup:
+            post_requests(srv, bodies[:1], False)
+        results = post_requests(srv, bodies, True)
+        host, port = srv.server_address[:2]
+        with urllib.request.urlopen(f"http://{host}:{port}/healthz",
+                                    timeout=60) as r:
+            health = json.loads(r.read())
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=60)
+        service.stop()
+    return {"results": results, "healthz": health}
+
+
+def state_bytes(trainer) -> int:
+    """Bytes of the trainer's resident f32 state: the network's
+    parameters (empty where sharded), the shards Adam updates, the EMA
+    and μ and ν."""
+    seen, total = set(), 0
+    for t in (*trainer.params, *trainer.master, *trainer.ema,
+              *trainer.optimizer.mu, *trainer.optimizer.nu):
+        if id(t) not in seen:
+            seen.add(id(t))
+            total += t.numel() * t.element_size()
+    return total
+
+
+def device_bytes(device):
+    """(requested, allocated) bytes live on ``device``: the sizes the
+    tensors asked for, and the allocator's blocks for them (which a block
+    too small to split leaves up to 1 MB larger). ``empty_cache`` first
+    retires the blocks freed while another stream still used them (gloo
+    records its stream on the broadcast buffers), which the allocator
+    counts until its next allocation."""
+    import torch
+    if device.type != "cuda":
+        return 0, 0
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+    stats = torch.cuda.memory_stats(device)
+    return (stats["requested_bytes.all.current"],
+            stats["allocated_bytes.all.current"])
+
+
+def mp_updates(run_cfg, device, split=None, save: bool = False):
+    """16c: ``MP_UPDATES`` updates of a trainer of ``run_cfg`` (a rank's
+    rows with ``split``): metrics, launches, the gathered μ and the whole
+    parameters' digest, and the resident bytes between updates: what the
+    device's live bytes (requested, and the allocator's) drop by when the
+    trainer and its model are freed, no batch alive (so a workspace the
+    updates allocated for good is not counted), beside the state's own
+    bytes. With ``save``, the checkpoint ``mp`` is written."""
+    import gc
+    import torch
+    from diffusion_model_universal_torch.scripts.train import params_digest
+    tr = dp_trainer(run_cfg, device, split)
+
+    def run():
+        updates = tr._updates(tr.train_loader)
+        metrics = []
+        for _ in range(MP_UPDATES):
+            m = tr.accum_step(next(updates))
+            metrics.append({"loss": float(m["loss"]),
+                            "grad_norm": float(m["grad_norm"]),
+                            "layer_grad_norms": [
+                                float(v) for v in
+                                m["layer_grad_norms"].values()]})
+        updates.close()
+        return metrics
+
+    metrics, launches = counted(device, run)
+    gc.collect()
+    between = device_bytes(device)
+    out = {"metrics": metrics, "launches": launches,
+           "state_mb": state_bytes(tr) / MB,
+           "mu": [m.float() for m in tr.optimizer.state_dict()["mu"]]}
+    with tr.whole_params():
+        out["digest"] = params_digest(tr.params)
+    if save:
+        tr.save_checkpoint("mp", 0)
+    tr.cleanup()
+    del tr
+    gc.collect()
+    if device.type == "cuda":
+        after = device_bytes(device)
+        out["resident_mb"] = (between[0] - after[0]) / MB
+        out["allocated_mb"] = (between[1] - after[1]) / MB
+        torch.cuda.empty_cache()
+    else:
+        out["resident_mb"] = out["allocated_mb"] = out["state_mb"]
+    return out
+
+
+def timed_mp_updates(run_cfg, device, split):
+    """16c: ms an update of ``run_cfg`` (bf16, remat) over
+    ``MP_TIME_UPDATES`` updates after 2 warm-ups."""
+    import torch
+    from diffusion_model_universal_torch.parallel import mesh
+    tr = dp_trainer(run_cfg, device, split)
+    updates = tr._updates(tr.train_loader)
+    for _ in range(2):
+        tr.accum_step(next(updates))
+    mesh.barrier()
+    ms = timed_updates(tr, updates, MP_TIME_UPDATES)
+    updates.close()
+    tr.cleanup()
+    del tr
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return ms
+
+
+def rank_paths(device, out_dir: str, cfg_path: str, ckpts, mp_cfgs) -> int:
+    """Phase 16b and 16c on one rank of ``RANK_WORLD``: ``generate``'s
+    chunk (f32), the server's requests in f32 and in bf16, a benchmark
+    batch, then ``model_parallel: 2`` updates; writes
+    ``out_dir/rank{r}.pt``."""
+    import torch
+    from diffusion_model_universal_torch.parallel import mesh
+    from diffusion_model_universal_torch.scripts import generate
+    from diffusion_model_universal_torch.scripts import serve as serve_cli
+    from diffusion_model_universal_torch.utils import benchmarks
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    r, n = mesh.rank(), mesh.world_size()
+    dev = str(device.type)
+    out = {}
+    images, out["generate_launches"] = counted(device, lambda: generate.draw(
+        generate_args(cfg_path, ckpts["float32"], dev, out_dir), device))
+    out["generate"] = images
+    for dtype in ("float32", "bfloat16"):
+        service = serve_cli.load_service(
+            serve_args(cfg_path, ckpts[dtype], dev), device)
+        out[f"serve_{dtype}"], out[f"serve_{dtype}_launches"] = counted(
+            device, lambda: serve_over_ranks(service, RANK_REQUESTS,
+                                             warmup=dtype == "bfloat16"))
+        if dtype == "float32":
+            bench = benchmarks.DiffusionBenchmark(
+                n_samples=SERVE_BATCH, batch_size=SERVE_BATCH,
+                sampler="dpm++", sampler_steps=20, device=device,
+                scope=mesh.sampling_scope())
+            out["benchmark"] = [b.cpu() for b in
+                                bench.generated(service.model)]
+        del service
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    out["mp"] = mp_updates(mp_cfgs["float32"], device, (r, n), save=True)
+    out["mp"]["ms_per_update"] = timed_mp_updates(mp_cfgs["bfloat16"],
+                                                  device, (r, n))
+    torch.save(out, os.path.join(out_dir, f"rank{r}.pt"))
+    return 0
+
+
+def mp_config(out_dir: str, model_parallel: int, **model_extra):
+    """dp_config with ``distributed.model_parallel`` and no prefetch
+    thread (a batch in flight would count in 16c's resident bytes)."""
+    cfg = dp_config(out_dir, **model_extra)
+    cfg["data"]["num_workers"] = 0
+    cfg["distributed"] = {"model_parallel": model_parallel}
+    return cfg
+
+
+def predicted_state_mb(cfg, model_parallel: int) -> float:
+    """16 bytes (f32 parameter, EMA, μ, ν) an element: the sharded
+    leaves' over ``model_parallel``, the rest whole."""
+    from diffusion_model_universal_torch.models import DDPM
+    from diffusion_model_universal_torch.parallel import mesh
+    net = DDPM(cfg, device="cpu", seed=SEED).net
+    plan = mesh.shard_plan(net, max(model_parallel, 2))
+    sharded = sum(p.numel() for p, s in zip(net.parameters(), plan)
+                  if s is not None)
+    whole = sum(p.numel() for p in net.parameters()) - sharded
+    return 16 * (sharded / model_parallel + whole) / MB
+
+
+def nccl_rank_paths(cfg_path, ckpts, tmp: Path):
+    """16a: ``generate``'s chunk (bf16) and one f32 ``model_parallel: 1``
+    update, alone and then as rank 0 of a NCCL group of world 1: both
+    bit-equal."""
+    import numpy as np
+    import torch
+    from diffusion_model_universal_torch.parallel import mesh
+    from diffusion_model_universal_torch.scripts import generate
+    prev = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        True, False)
+    dev = torch.device(DEVICE, 0) if DEVICE == "cuda" else torch.device(DEVICE)
+    results = []
+    try:
+        run_cfg = mp_config(str(tmp / "nccl"), 1, compute_dtype="float32")
+        for joined in (False, True):
+            if joined:
+                mesh.init_process_group(0, 1, dev,
+                                        f"tcp://localhost:{free_port()}")
+            images = generate.draw(generate_args(
+                cfg_path, ckpts["bfloat16"], DEVICE, str(tmp / "gen")), dev)
+            tr = dp_trainer(run_cfg, DEVICE)
+            check(tr.data_parallel == joined and tr.sharding is None,
+                  "16a: the trainer's layout")
+            m = tr.accum_step(next(tr._updates(tr.train_loader)))
+            results.append({"images": images, "backend": mesh.backend(),
+                            "state": [v.detach().cpu() for v in (
+                                m["loss"], m["grad_norm"], *tr.params,
+                                *tr.ema, *tr.optimizer.mu,
+                                *tr.optimizer.nu)]})
+            tr.cleanup()
+            del tr, m
+    finally:
+        mesh.shutdown()
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            prev
+    plain, joined = results
+    gen_diff = float(np.abs(plain["images"] - joined["images"]).max())
+    upd_diff = max(float((a.float() - b.float()).abs().max())
+                   for a, b in zip(plain["state"], joined["state"]))
+    log(f"[ranks] 16a: at world 1 over {joined['backend']}: generate's "
+        f"chunk ({SERVE_BATCH} DPM++-20 samples, bf16) max |diff| "
+        f"{gen_diff:.3e}; one f32 model_parallel: 1 update (loss, norm, "
+        f"params, EMA, μ, ν) max |diff| {upd_diff:.3e}")
+    if DEVICE == "cuda":
+        check(joined["backend"] == "nccl", f"backend {joined['backend']}")
+    check(gen_diff == 0.0 and upd_diff == 0.0,
+          "16a: the rank paths at world 1 are not bit-equal to one process")
+    return {"generate_max_abs_diff": gen_diff,
+            "update_max_abs_diff": upd_diff, "backend": joined["backend"]}
+
+
+def rank_references(cfg_path, ckpts, tmp: Path):
+    """One process on the card: 16b's generate chunk, the f32 requests
+    and a benchmark batch, the bf16 DPM++ requests' seconds; and 16c's f32
+    updates at M=1."""
+    import torch
+    from diffusion_model_universal_torch.scripts import generate
+    from diffusion_model_universal_torch.scripts import serve as serve_cli
+    from diffusion_model_universal_torch.utils import benchmarks
+    dev = torch.device(DEVICE)
+    ref = {"generate": generate.draw(generate_args(
+        cfg_path, ckpts["float32"], DEVICE, str(tmp / "gen")), dev)}
+    for dtype in ("float32", "bfloat16"):
+        service = serve_cli.load_service(
+            serve_args(cfg_path, ckpts[dtype], DEVICE), dev)
+        bodies = RANK_REQUESTS if dtype == "float32" else RANK_REQUESTS[:3]
+        if dtype == "bfloat16":
+            service.generate(**{k: v for k, v in bodies[0].items()})
+        got = []
+        for body in bodies:
+            if DEVICE == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            arr = service.generate(**body)
+            got.append((arr, time.perf_counter() - t0))
+        ref[f"serve_{dtype}"] = got
+        if dtype == "float32":
+            bench = benchmarks.DiffusionBenchmark(
+                n_samples=SERVE_BATCH, batch_size=SERVE_BATCH,
+                sampler="dpm++", sampler_steps=20, device=dev)
+            ref["benchmark"] = [b.cpu() for b in
+                                bench.generated(service.model)]
+        del service
+    ref["mp"] = mp_updates(mp_config(str(tmp / "one"), 1,
+                                     compute_dtype="float32", dropout=0.0),
+                           dev)
+    return ref
+
+
+def hold_images(name, got, want) -> float:
+    import torch
+    return hold(name, torch.as_tensor(got), torch.as_tensor(want), UNET_TOL)
+
+
+def rank_parallel(phase4_requests, dp_summary, per_forward):
+    """Phase 16: sampling over ranks and ``model_parallel``."""
+    import torch
+    from diffusion_model_universal_torch.parallel import mesh
+    from diffusion_model_universal_torch.scripts.train import params_digest
+    from diffusion_model_universal_torch.utils.config import (
+        canonicalize_model_config, load_config)
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="dmu_ranks16_"))
+    try:
+        cfg = load_config(str(CONFIG))["model_config"]
+        ckpts, cfg_path = rank_checkpoints(cfg, tmp)
+        log("[ranks] phase 16a: generate and a model_parallel: 1 update at "
+            "world 1 on NCCL, in-process")
+        nccl = nccl_rank_paths(cfg_path, ckpts, tmp)
+        t1 = time.perf_counter()
+        ref = rank_references(cfg_path, ckpts, tmp)
+        t2 = time.perf_counter()
+        log(f"[ranks] phase 16b/c: {RANK_WORLD} gloo ranks sharing the card "
+            f"against one process ({t2 - t1:.1f} s of references)")
+        mp_cfgs = {"float32": mp_config(str(tmp), RANK_WORLD,
+                                        compute_dtype="float32",
+                                        dropout=0.0),
+                   "bfloat16": mp_config(str(tmp), RANK_WORLD, dropout=0.0)}
+        rc = mesh.spawn(rank_paths, RANK_WORLD, args=(
+            str(tmp), cfg_path, ckpts, mp_cfgs), device_type=DEVICE,
+            backend="gloo", rendezvous_dir=str(tmp))
+        t3 = time.perf_counter()
+        check(rc == 0, f"the launcher returned {rc}")
+        ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False)
+                 for r in range(RANK_WORLD)]
+        r0 = ranks[0]
+        log(f"[ranks] 16b: {RANK_WORLD} ranks returned in {t3 - t2:.1f} s")
+        errs = {"generate": hold_images(
+            f"generate {SERVE_BATCH} DPM++-20 f32, {RANK_WORLD} ranks vs "
+            f"one process", r0["generate"], ref["generate"])}
+        check(all(r["generate"] is None for r in ranks[1:]),
+              "a rank other than 0 returned images")
+        served = r0["serve_float32"]
+        check(served["healthz"]["devices"] == RANK_WORLD,
+              f"healthz {served['healthz']}")
+        for i, ((got, _), (want, _)) in enumerate(zip(
+                served["results"], ref["serve_float32"])):
+            errs[f"serve_{i}"] = hold_images(
+                f"serve f32 {json.dumps(RANK_REQUESTS[i])}", got, want)
+        (got_b,), (want_b,) = r0["benchmark"], ref["benchmark"]
+        errs["benchmark"] = hold_images(
+            "--benchmark batch (the FID inputs), DPM++-20 f32", got_b, want_b)
+        T = canonicalize_model_config(cfg)["num_timesteps"]
+        forwards = {"generate": 19, "serve_float32": 3 * 19 + T,
+                    "serve_bfloat16": 4 * 19 + T}
+        launches = []
+        for r, x in enumerate(ranks):
+            got = {"generate": x["generate_launches"],
+                   "serve_float32": x["serve_float32_launches"],
+                   "serve_bfloat16": x["serve_bfloat16_launches"]}
+            launches.append(got)
+            for path, f in forwards.items():
+                want = {"gn": per_forward["gn"] * f, "gn_bwd": 0,
+                        "mha": per_forward["mha"] * f}
+                if DEVICE == "cuda":
+                    check(got[path] == want, f"rank {r} {path}: launches "
+                                             f"{got[path]} != {want}")
+        log(f"[ranks] 16b launches a rank (K1/K2/K3 = {per_forward['gn']}/0/"
+            f"{per_forward['mha']} a forward; {forwards} forwards): "
+            f"{launches}")
+        secs = {"ranks_bf16": [s for _, s in r0["serve_bfloat16"]["results"]],
+                "one_process_bf16_dpm": [s for _, s in
+                                         ref["serve_bfloat16"]],
+                "one_process_bf16_ancestral_phase4": [
+                    x["seconds"] for x in phase4_requests
+                    if "sampler" not in x["request"]]}
+        log(f"[ranks] 16b bf16 request seconds, {RANK_WORLD} gloo ranks "
+            f"sharing the card: DPM++-20 "
+            f"{[round(s, 4) for s in secs['ranks_bf16'][:3]]}, "
+            f"ancestral-{T} {secs['ranks_bf16'][3]:.3f}; one process: "
+            f"DPM++-20 {[round(s, 4) for s in secs['one_process_bf16_dpm']]}"
+            f", ancestral-{T} (phase 4, the same config and batch) "
+            f"{[round(s, 3) for s in secs['one_process_bf16_ancestral_phase4']]}"
+            f"; {card_line() if DEVICE == 'cuda' else 'cpu'}")
+
+        mp = [x["mp"] for x in ranks]
+        one = ref["mp"]
+        for k, (got, want) in enumerate(zip(mp[0]["metrics"],
+                                            one["metrics"])):
+            errs[f"mp_loss_{k}"] = hold(
+                f"model_parallel 2 update {k} loss vs one process",
+                torch.tensor(got["loss"]), torch.tensor(want["loss"]), 0.0,
+                1e-5)
+            errs[f"mp_norm_{k}"] = hold(
+                f"update {k} global gradient norm",
+                torch.tensor(got["grad_norm"]),
+                torch.tensor(want["grad_norm"]), 0.0, 1e-4)
+            errs[f"mp_layer_norms_{k}"] = hold(
+                f"update {k} per-layer gradient norms",
+                torch.tensor(got["layer_grad_norms"]),
+                torch.tensor(want["layer_grad_norms"]), 1e-8, 1e-4)
+        mu_ok = all(bool(((a - b).abs() <= 1e-7 + 1e-3 * b.abs()).all())
+                    for a, b in zip(mp[0]["mu"], one["mu"]))
+        errs["mp_mu"] = max(float((a - b).abs().max())
+                            for a, b in zip(mp[0]["mu"], one["mu"]))
+        log(f"  gathered Adam μ after {MP_UPDATES} updates: max_abs_err="
+            f"{errs['mp_mu']:.3e} (tol 1e-07 abs + 0.001 rel) "
+            f"{'ok' if mu_ok else 'FAIL'}")
+        check(mu_ok, "16c: μ of model_parallel 2 vs one process")
+        check(mp[0]["digest"] == mp[1]["digest"],
+              "16c: the ranks gathered different parameters")
+        predicted = {m: predicted_state_mb(cfg, m) for m in (1, RANK_WORLD)}
+        memory = {"ranks": [x["resident_mb"] for x in mp],
+                  "ranks_allocated": [x["allocated_mb"] for x in mp],
+                  "ranks_state": [x["state_mb"] for x in mp],
+                  "one_process": one["resident_mb"],
+                  "one_process_allocated": one["allocated_mb"],
+                  "one_process_state": one["state_mb"],
+                  "predicted": predicted}
+        for r, x in enumerate(mp):
+            check(abs(x["state_mb"] - predicted[RANK_WORLD]) < 1e-6,
+                  f"rank {r} holds {x['state_mb']} MB of state, not "
+                  f"{predicted[RANK_WORLD]}")
+            if DEVICE == "cuda":
+                check(abs(x["resident_mb"] - predicted[RANK_WORLD]) <= 1.0,
+                      f"rank {r}: {x['resident_mb']:.3f} MB requested "
+                      f"between updates, predicted "
+                      f"{predicted[RANK_WORLD]:.3f}")
+        if DEVICE == "cuda":
+            check(abs(one["resident_mb"] - predicted[1]) <= 1.0,
+                  f"one process: {one['resident_mb']:.3f} MB requested "
+                  f"between updates, predicted {predicted[1]:.3f}")
+        want = {k: MP_UPDATES * c for k, c in LAUNCHES_PER_STEP.items()}
+        for r, x in enumerate(mp):
+            if DEVICE == "cuda":
+                check(x["launches"] == want,
+                      f"16c rank {r} launched {x['launches']} in "
+                      f"{MP_UPDATES} updates, not {want}")
+        log(f"[ranks] 16c: model_parallel {RANK_WORLD}: device bytes "
+            f"between updates a rank, requested "
+            f"{[round(v, 3) for v in memory['ranks']]} MB, allocated "
+            f"{[round(v, 3) for v in memory['ranks_allocated']]} MB (state "
+            f"{memory['ranks_state'][0]:.3f}, predicted "
+            f"{predicted[RANK_WORLD]:.3f}); one process requested "
+            f"{one['resident_mb']:.3f}, allocated "
+            f"{one['allocated_mb']:.3f} MB (predicted {predicted[1]:.3f}); "
+            f"launches a rank over {MP_UPDATES} updates "
+            f"{[x['launches'] for x in mp]}")
+        # The checkpoint the ranks wrote, restored by one process.
+        restored = dp_trainer(mp_config(str(tmp), 1, compute_dtype="float32",
+                                        dropout=0.0), DEVICE)
+        restored.load_checkpoint("mp")
+        same = (params_digest(restored.params) == mp[0]["digest"]
+                and all(torch.equal(a.float().cpu(), b) for a, b in zip(
+                    restored.optimizer.mu, mp[0]["mu"])))
+        restored.cleanup()
+        del restored
+        check(same, "16c: the checkpoint of model_parallel 2 restored at "
+                    "world 1 differs from the ranks' gathered state")
+        ms = {"model_parallel_ranks": [x["ms_per_update"] for x in mp],
+              "dp_ranks_15c": dp_summary["ranks"]["ms_per_update"]["ranks"],
+              "one_process_15c": dp_summary["ranks"]["ms_per_update"][
+                  "one_process"]}
+        log(f"[ranks] 16c: the checkpoint of (D=1, M={RANK_WORLD}) restored "
+            f"by one process bit-equal (params sha256 {mp[0]['digest'][:16]}…,"
+            f" μ); ms an update of B={TRAIN_BATCH} bf16: model_parallel "
+            f"{RANK_WORLD} on {RANK_WORLD} gloo ranks "
+            f"{[round(v, 2) for v in ms['model_parallel_ranks']]}; 15c data "
+            f"parallel {[round(v, 2) for v in ms['dp_ranks_15c']]}, one "
+            f"process {ms['one_process_15c']:.2f}; "
+            f"{card_line() if DEVICE == 'cuda' else 'cpu'}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    t4 = time.perf_counter()
+    seconds = {"16a": t1 - t0, "references": t2 - t1, "ranks": t3 - t2,
+               "total": t4 - t0}
+    log(f"[phase 16] sampling over ranks and model_parallel: "
+        f"{seconds['total']:.1f} s (16a {seconds['16a']:.1f}, one-process "
+        f"references {seconds['references']:.1f}, ranks "
+        f"{seconds['ranks']:.1f})")
+    return {"nccl_world1": nccl, "errs": errs, "launches_per_rank": launches,
+            "mp_launches_per_rank": [x["launches"] for x in mp],
+            "request_seconds": secs, "memory_mb": memory,
+            "ms_per_update": ms, "seconds": seconds}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4297,6 +4921,7 @@ def main() -> int:
     harness_summary = harness()
     options_summary = data_and_options(cfg)
     dp_summary = data_parallel()
+    rank_summary = rank_parallel(requests, dp_summary, per_forward)
 
     symbols = {"gn": "dmu_group_norm_silu_fwd",
                "gn_bwd": "dmu_group_norm_silu_bwd", "mha": "dmu_mha_fwd"}
@@ -4330,7 +4955,14 @@ def main() -> int:
                     symbols[kind]],
                 **{f"dp_gloo_rank{r}_{DP_UPDATES}_updates": n[kind]
                    for r, n in enumerate(
-                       dp_summary["ranks"]["launches_per_rank"])}}
+                       dp_summary["ranks"]["launches_per_rank"])},
+                **{f"ranks_gloo_rank{r}_{path}": n[kind]
+                   for r, paths in enumerate(
+                       rank_summary["launches_per_rank"])
+                   for path, n in paths.items()},
+                **{f"model_parallel_gloo_rank{r}_{MP_UPDATES}_updates":
+                   n[kind] for r, n in enumerate(
+                       rank_summary["mp_launches_per_rank"])}}
 
     def celeba64(kind, errs):
         rows = options_summary["celeba64_rows"][kind]
@@ -4399,6 +5031,7 @@ def main() -> int:
                                     if k not in ("celeba64_rows",
                                                  "kernel_errs")},
                "data_parallel": dp_summary,
+               "rank_parallel": rank_summary,
                "seconds": time.perf_counter() - t_start}
     log(f"[summary] {json.dumps(summary)}")
     print(json.dumps({"kernels": entries}))

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models.base import resolve_device
+from ..parallel.mesh import split_rows
 from ..utils.inception import resize_bilinear
 
 TRAIN_ONLY = {"random_horizontal_flip", "random_vertical_flip",
@@ -412,9 +413,7 @@ class DeviceDataLoader:
                 else:
                     yield out
                 continue
-            r, parts = self.split
-            n = len(idx)
-            rows = (r * n // parts, (r + 1) * n // parts, n)
+            rows = split_rows(len(idx), *self.split)
             idx = idx[rows[0]:rows[1]]
             batch = torch.from_numpy(self.images[idx]).to(self.device)
             out = {"image": self.augment(batch, gen, rows), "rows": rows}

@@ -58,6 +58,26 @@ def row_draws(b: int, rows: Rows) -> Tuple[int, slice]:
     return n, slice(lo, hi)
 
 
+def sample_rows(batch_size: int, rows: Rows) -> slice:
+    """The rows ``[keep]`` a sampler of ``batch_size`` samples returns:
+    all of them, or rows [lo, hi) of ``rows`` (lo, hi, n), whose n must be
+    ``batch_size``."""
+    if rows is None:
+        return slice(None)
+    lo, hi, n = rows
+    if n != batch_size or not 0 <= lo <= hi <= n:
+        raise ValueError(f"rows {rows} do not describe a batch of "
+                         f"{batch_size}")
+    return slice(lo, hi)
+
+
+def cut_rows(t: Optional[torch.Tensor], keep: slice
+             ) -> Optional[torch.Tensor]:
+    """Per-sample conditioning (labels, images) cut to a sampler's rows
+    ``[keep]``."""
+    return None if t is None else t[keep]
+
+
 class BaseDiffusionModel:
     """Static model description, device and network."""
 
@@ -117,25 +137,42 @@ class BaseDiffusionModel:
 
     # -- sampler draws ----------------------------------------------------
     def _drawer(self, shape, generator: Optional[torch.Generator],
-                noise: Noise) -> Draw:
+                noise: Noise, keep: slice = slice(None)) -> Draw:
         """The sampler's source of N(0, I) draws of ``shape``: the next
-        tensor of ``noise`` when given, else ``generator``."""
+        tensor of ``noise`` when given, else ``generator``; each cut to
+        rows ``[keep]`` (a rank's rows of a global batch of
+        ``shape[0]``)."""
         if noise is not None:
             it = iter(noise)
-            return lambda: next(it).to(self.device, torch.float32)
+            return lambda: next(it)[keep].to(self.device, torch.float32)
         return lambda: torch.randn(shape, generator=generator,
-                                   device=self.device, dtype=torch.float32)
+                                   device=self.device,
+                                   dtype=torch.float32)[keep]
 
     def _t(self, b: int, t: int) -> torch.Tensor:
         """[b] integer timesteps ``t`` on the device."""
         return torch.full((b,), int(t), dtype=torch.long, device=self.device)
 
-    def _init_noise(self, batch_size: int, draw: Draw) -> torch.Tensor:
+    def _init_noise(self, batch_size: int, draw: Draw,
+                    keep: slice = slice(None)) -> torch.Tensor:
         x = draw()
-        if tuple(x.shape) != self.sample_shape(batch_size):
+        want = self.sample_shape(len(range(batch_size)[keep]))
+        if tuple(x.shape) != want:
             raise ValueError(f"initial noise has shape {tuple(x.shape)}, "
-                             f"expected {self.sample_shape(batch_size)}")
+                             f"expected {want}")
         return x
+
+    def _start(self, batch_size: int, generator: Optional[torch.Generator],
+               noise: Noise, rows: Rows) -> Tuple[torch.Tensor, Draw, slice]:
+        """``(x_T, draw, keep)`` of a sampler of ``batch_size`` samples:
+        with ``rows`` (lo, hi, n = ``batch_size``), this rank's rows
+        [lo, hi) of them, every draw made for all n rows (or given for
+        them) and cut to ``[keep]``, so N ranks sample one process's
+        images."""
+        keep = sample_rows(batch_size, rows)
+        draw = self._drawer(self.sample_shape(batch_size), generator, noise,
+                            keep)
+        return self._init_noise(batch_size, draw, keep), draw, keep
 
     # -- checkpointing ----------------------------------------------------
     def load_params(self, params: Dict) -> None:

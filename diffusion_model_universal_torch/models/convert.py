@@ -75,6 +75,27 @@ def unet_params_to_jax(module: nn.Module) -> Tree:
     return state_dict_to_jax(module, module.state_dict())
 
 
+def flax_layout(owner: nn.Module, key: str, name: str, ndim: int
+                ) -> Tuple[str, Tuple[int, ...], Tuple[int, ...]]:
+    """The flax counterpart of parameter ``name`` (``key`` in full) of
+    ``owner``: ``(flax_name, perm, flipped)``, where flax axis k is axis
+    ``perm[k]`` of the port's tensor, read in reverse along the axes in
+    ``flipped`` (the rules above)."""
+    if name != "weight":
+        return name, tuple(range(ndim)), ()
+    if isinstance(owner, nn.ConvTranspose2d):
+        return "kernel", (2, 3, 0, 1), (2, 3)
+    if ndim == 4:
+        return "kernel", (2, 3, 1, 0), ()
+    if isinstance(owner, nn.Linear):
+        return "kernel", (1, 0), ()
+    if isinstance(owner, nn.Embedding):
+        return "embedding", (0, 1), ()
+    if isinstance(owner, GroupNormSiLU):
+        return "scale", (0,), ()
+    raise ValueError(f"no flax counterpart for {key}")
+
+
 def state_dict_to_jax(module: nn.Module,
                       tensors: Dict[str, torch.Tensor]) -> Tree:
     """Any tensors keyed and shaped like ``module``'s state_dict (weights,
@@ -83,21 +104,12 @@ def state_dict_to_jax(module: nn.Module,
     tree: Tree = {}
     for key, value in tensors.items():
         prefix, _, name = key.rpartition(".")
-        owner = module.get_submodule(prefix)
         a = value.detach().to("cpu", torch.float32).numpy()
-        if name == "weight":
-            if isinstance(owner, nn.ConvTranspose2d):
-                a, name = a[:, :, ::-1, ::-1].transpose(2, 3, 0, 1), "kernel"
-            elif a.ndim == 4:
-                a, name = a.transpose(2, 3, 1, 0), "kernel"
-            elif isinstance(owner, nn.Linear):
-                a, name = a.T, "kernel"
-            elif isinstance(owner, nn.Embedding):
-                name = "embedding"
-            elif isinstance(owner, GroupNormSiLU):
-                name = "scale"
-            else:
-                raise ValueError(f"no flax counterpart for {key}")
+        name, perm, flipped = flax_layout(module.get_submodule(prefix), key,
+                                          name, a.ndim)
+        if flipped:
+            a = np.flip(a, flipped)
+        a = a.transpose(perm)
         node = tree
         for part in filter(None, prefix.split(".")):
             node = node.setdefault(part, {})

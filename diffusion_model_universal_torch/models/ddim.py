@@ -17,7 +17,7 @@ from typing import Dict, List, Optional, Union
 
 import torch
 
-from .base import Draw, Noise
+from .base import Draw, Noise, Rows, cut_rows
 from .ddpm import DDPM
 from .schedules import ddim_step, make_ddim_params
 
@@ -57,22 +57,24 @@ class DDIM(DDPM):
     @torch.inference_mode()
     def generate_samples(self, batch_size: int,
                          generator: Optional[torch.Generator] = None,
-                         noise: Noise = None) -> torch.Tensor:
-        """S-step DDIM sampler. Draws: x_T, then one a step when η > 0."""
-        draw = self._drawer(self.sample_shape(batch_size), generator, noise)
-        x = self._init_noise(batch_size, draw)
+                         noise: Noise = None,
+                         rows: Rows = None) -> torch.Tensor:
+        """S-step DDIM sampler. Draws: x_T, then one a step when η > 0;
+        ``rows`` as DDPM's."""
+        x, draw, _ = self._start(batch_size, generator, noise, rows)
         return self._ddim_scan(x, self.ddim_sampling_steps, 0, draw)
 
     @torch.inference_mode()
     def generate_samples_cfg(self, batch_size: int, labels: torch.Tensor,
                              guidance_scale: float = 3.0,
                              generator: Optional[torch.Generator] = None,
-                             noise: Noise = None) -> torch.Tensor:
+                             noise: Noise = None,
+                             rows: Rows = None) -> torch.Tensor:
         """S-step DDIM sampling with classifier-free guidance."""
-        draw = self._drawer(self.sample_shape(batch_size), generator, noise)
-        x = self._init_noise(batch_size, draw)
+        x, draw, keep = self._start(batch_size, generator, noise, rows)
         return self._ddim_scan(x, self.ddim_sampling_steps, 0, draw,
-                               self.eps_fn(labels, guidance_scale))
+                               self.eps_fn(cut_rows(labels, keep),
+                                           guidance_scale))
 
     @torch.inference_mode()
     def generate_samples_with_intermediates(

@@ -32,7 +32,8 @@ from typing import Callable, Dict, List, Optional, Tuple, Union
 import torch
 
 from ..utils.losses import DiffusionLoss
-from .base import BaseDiffusionModel, Draw, Noise, Rows, row_draws
+from .base import (BaseDiffusionModel, Draw, Noise, Rows, cut_rows,
+                   row_draws)
 from .schedules import (PREDICTION_TYPES, ddpm_posterior_step,
                         ddpm_posterior_step_learned,
                         learned_range_log_variance, make_dpm_solver_params,
@@ -284,36 +285,39 @@ class DDPM(BaseDiffusionModel):
     @torch.inference_mode()
     def generate_samples(self, batch_size: int,
                          generator: Optional[torch.Generator] = None,
-                         noise: Noise = None) -> torch.Tensor:
+                         noise: Noise = None,
+                         rows: Rows = None) -> torch.Tensor:
         """Full T-step ancestral sampler. Returns f32 NHWC samples.
 
         Noise comes from ``generator`` (a ``torch.Generator`` on the
         model's device), or from ``noise``: x_T first, then one tensor per
-        step from t = T−1 down to 0.
+        step from t = T−1 down to 0. ``rows`` (lo, hi, ``batch_size``):
+        return rows [lo, hi) of the batch, the draws made for all of it
+        (every sampler takes it; :meth:`.base.BaseDiffusionModel._start`).
         """
-        draw = self._drawer(self.sample_shape(batch_size), generator, noise)
-        x = self._init_noise(batch_size, draw)
+        x, draw, _ = self._start(batch_size, generator, noise, rows)
         return self._denoise_range(x, self.num_timesteps, 0, draw)
 
     @torch.inference_mode()
     def generate_samples_cfg(self, batch_size: int, labels: torch.Tensor,
                              guidance_scale: float = 3.0,
                              generator: Optional[torch.Generator] = None,
-                             noise: Noise = None) -> torch.Tensor:
+                             noise: Noise = None,
+                             rows: Rows = None) -> torch.Tensor:
         """Class-conditional ancestral sampling with classifier-free
         guidance; ``labels`` [batch_size], scale 1.0 = plain conditional.
-        Draws as :meth:`generate_samples`."""
-        draw = self._drawer(self.sample_shape(batch_size), generator, noise)
-        x = self._init_noise(batch_size, draw)
-        return self._denoise_range(x, self.num_timesteps, 0, draw, labels,
-                                   guidance_scale)
+        Draws and ``rows`` as :meth:`generate_samples`."""
+        x, draw, keep = self._start(batch_size, generator, noise, rows)
+        return self._denoise_range(x, self.num_timesteps, 0, draw,
+                                   cut_rows(labels, keep), guidance_scale)
 
     @torch.inference_mode()
     def generate_samples_dpm(self, batch_size: int, num_steps: int = 20,
                              labels: Optional[torch.Tensor] = None,
                              guidance_scale: float = 1.0,
                              generator: Optional[torch.Generator] = None,
-                             noise: Noise = None) -> torch.Tensor:
+                             noise: Noise = None,
+                             rows: Rows = None) -> torch.Tensor:
         """DPM-Solver++(2M) (Lu et al. 2022): a second-order multistep ODE
         solver in x₀, one ε̂ a step, S−1 updates over the half-log-SNR
         grid, x̂₀ clipped to [−1, 1]. The first update (h_prev = 0) is
@@ -321,9 +325,9 @@ class DDPM(BaseDiffusionModel):
         self._check_steps(num_steps)
         p = make_dpm_solver_params(self.schedule, num_steps)
         ts = p.timesteps.tolist()
-        draw = self._drawer(self.sample_shape(batch_size), generator, noise)
-        x = self._init_noise(batch_size, draw)
-        eps_fn = self.eps_fn(labels, guidance_scale)
+        x, _, keep = self._start(batch_size, generator, noise, rows)
+        batch_size = x.shape[0]
+        eps_fn = self.eps_fn(cut_rows(labels, keep), guidance_scale)
         x0_prev = torch.zeros_like(x)
         h_prev = torch.zeros((), device=self.device)
         for j in range(1, num_steps):
@@ -346,7 +350,8 @@ class DDPM(BaseDiffusionModel):
                               labels: Optional[torch.Tensor] = None,
                               guidance_scale: float = 1.0,
                               generator: Optional[torch.Generator] = None,
-                              noise: Noise = None) -> torch.Tensor:
+                              noise: Noise = None,
+                              rows: Rows = None) -> torch.Tensor:
         """Karras-spaced Heun (EDM, Karras et al. 2022, Alg. 1): plain
         Heun on dx̂/dσ̂ = ε̂ in x̂ = x/α, σ̂ = σ/α over the ρ-spaced grid
         snapped to the schedule; two ε̂ an update, 2·(S−1) in all, no x̂₀
@@ -354,9 +359,9 @@ class DDPM(BaseDiffusionModel):
         self._check_steps(num_steps)
         p = make_karras_heun_params(self.schedule, num_steps, rho)
         ts = p.timesteps.tolist()
-        draw = self._drawer(self.sample_shape(batch_size), generator, noise)
-        x = self._init_noise(batch_size, draw)
-        eps_fn = self.eps_fn(labels, guidance_scale)
+        x, _, keep = self._start(batch_size, generator, noise, rows)
+        batch_size = x.shape[0]
+        eps_fn = self.eps_fn(cut_rows(labels, keep), guidance_scale)
         for j in range(1, num_steps):
             dsig = p.sigma_hat[j] - p.sigma_hat[j - 1]      # < 0
             d_cur = eps_fn(x, self._t(batch_size, ts[j - 1]))
@@ -371,7 +376,8 @@ class DDPM(BaseDiffusionModel):
                                  labels: Optional[torch.Tensor] = None,
                                  guidance_scale: float = 1.0,
                                  generator: Optional[torch.Generator] = None,
-                                 noise: Noise = None) -> torch.Tensor:
+                                 noise: Noise = None,
+                                 rows: Rows = None) -> torch.Tensor:
         """Respaced (strided) ancestral sampler (iDDPM §4): the stochastic
         reverse process over S evenly spaced timesteps with the coarse
         schedule, the model evaluated at the original timesteps; a learned
@@ -381,9 +387,9 @@ class DDPM(BaseDiffusionModel):
         ts_t = respace_timesteps(self.num_timesteps, num_steps)
         sub = respaced_schedule(self.schedule, ts_t)
         ts = ts_t.tolist()
-        draw = self._drawer(self.sample_shape(batch_size), generator, noise)
-        x = self._init_noise(batch_size, draw)
-        fn = self._guided_fn(labels, guidance_scale)
+        x, draw, keep = self._start(batch_size, generator, noise, rows)
+        batch_size = x.shape[0]
+        fn = self._guided_fn(cut_rows(labels, keep), guidance_scale)
         for j in range(num_steps - 1, -1, -1):
             t_b = self._t(batch_size, ts[j])          # the model's clock
             j_b = self._t(batch_size, j)              # the coarse clock
@@ -404,18 +410,21 @@ class DDPM(BaseDiffusionModel):
                                  labels: Optional[torch.Tensor] = None,
                                  guidance_scale: float = 1.0,
                                  generator: Optional[torch.Generator] = None,
-                                 noise: Noise = None) -> torch.Tensor:
+                                 noise: Noise = None,
+                                 rows: Rows = None) -> torch.Tensor:
         """Inpainting by RePaint's replacement (Lugmayr et al. 2022, without
         its resampling): after every ancestral step the known region
         (``mask`` 1, broadcastable to ``image`` [B, H, W, C]) is replaced
         by ``image`` q-sampled to t−1; the output keeps the known pixels
         exactly. Draws: x_T, then two a step (the posterior noise, then
-        the q-sample noise)."""
-        image = image.to(self.device, torch.float32)
+        the q-sample noise). ``rows`` cut the batch of ``image`` (and a
+        per-sample mask and ``labels``)."""
+        x, draw, keep = self._start(image.shape[0], generator, noise, rows)
+        image = image[keep].to(self.device, torch.float32)
         b = image.shape[0]
-        draw = self._drawer(self.sample_shape(b), generator, noise)
-        x = self._init_noise(b, draw)
-        step = self.posterior_step_fn(labels, guidance_scale)
+        if mask.ndim == 4 and mask.shape[0] > 1:
+            mask = mask[keep]
+        step = self.posterior_step_fn(cut_rows(labels, keep), guidance_scale)
         mask = torch.broadcast_to(mask.to(self.device, torch.float32),
                                   image.shape)
         for t in range(self.num_timesteps - 1, -1, -1):

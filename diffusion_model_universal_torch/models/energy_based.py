@@ -221,8 +221,9 @@ class EnergyBasedDiffusion(BaseDiffusionModel):
             err = (eps - noise) ** 2
             return err.reshape(b, -1).mean(dim=1) if per_sample \
                 else err.mean()
-        draw = self._drawer((n, *x.shape[1:]), generator, langevin_noise)
-        x_fake = self._langevin(x_noisy, t, lambda: draw()[keep])
+        draw = self._drawer((n, *x.shape[1:]), generator, langevin_noise,
+                            keep)
+        x_fake = self._langevin(x_noisy, t, draw)
 
         def energy_fn(z):
             return self.energy_scale * self.apply(z, t)
@@ -276,13 +277,14 @@ class EnergyBasedDiffusion(BaseDiffusionModel):
     @torch.no_grad()
     def generate_samples(self, batch_size: int,
                          generator: Optional[torch.Generator] = None,
-                         noise: Noise = None) -> torch.Tensor:
+                         noise: Noise = None,
+                         rows: Rows = None) -> torch.Tensor:
         """The reverse sweep over all T levels ("cd"), or the T-step
         ancestral chain on ε̂ ("dsm"). Draws: x_T, then each level's in
-        the order of :meth:`_sweep_range` or one a step. Returns f32 NHWC
-        samples."""
-        draw = self._drawer(self.sample_shape(batch_size), generator, noise)
-        x = self._init_noise(batch_size, draw)
+        the order of :meth:`_sweep_range` or one a step. ``rows`` (lo, hi,
+        ``batch_size``): rows [lo, hi) of the batch, the draws made for
+        all of it. Returns f32 NHWC samples."""
+        x, draw, _ = self._start(batch_size, generator, noise, rows)
         return self._sweep(x, self.num_timesteps, 0, draw)
 
     @torch.no_grad()

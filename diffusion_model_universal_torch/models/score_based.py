@@ -152,14 +152,16 @@ class ScoreBasedDiffusion(BaseDiffusionModel):
     def generate_samples(self, batch_size: int,
                          generator: Optional[torch.Generator] = None,
                          noise: Noise = None,
-                         score_fn: Optional[ScoreFn] = None) -> torch.Tensor:
+                         score_fn: Optional[ScoreFn] = None,
+                         rows: Rows = None) -> torch.Tensor:
         """Annealed Langevin sampling: ``num_scales`` × ``langevin_steps``
         score evaluations (one more with ``final_denoise``). Draws: x_init
         ~ N(0, I), then one a step. ``score_fn(x, sigma_b)`` replaces the
-        network (a test's analytic score). Returns f32 NHWC samples."""
+        network (a test's analytic score). ``rows`` (lo, hi,
+        ``batch_size``): rows [lo, hi) of the batch, the draws made for all
+        of it. Returns f32 NHWC samples."""
         score_fn = score_fn or self.apply
-        draw = self._drawer(self.sample_shape(batch_size), generator, noise)
-        x = self._init_noise(batch_size, draw)
+        x, draw, _ = self._start(batch_size, generator, noise, rows)
         x = self._run_levels(x, 0, self.num_scales, draw, score_fn)
         return self._maybe_final_denoise(x, score_fn)
 

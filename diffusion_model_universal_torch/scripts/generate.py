@@ -8,17 +8,24 @@
         [--num_samples N] [--output_dir D] [--device cuda|cpu] \
         [--sampler default|dpm++|heun|strided --sampler_steps S] \
         [--class_id K --guidance_scale G] \
-        [--inpaint_image IMG.npy --inpaint_mask MASK.npy]
+        [--inpaint_image IMG.npy --inpaint_mask MASK.npy] \
+        [--num_devices N]
 
-Runs on ``cuda`` unless ``--device cpu`` is given. The score-based and
+Runs on ``cuda`` unless ``--device cpu`` is given. ``--num_devices N``
+samples over the first N devices (all of them when N exceeds the count;
+on the CPU, N gloo processes): N ranks (``parallel/mesh.py::spawn``)
+each draw every chunk's noise for the whole chunk and sample their rows
+of it, and rank 0 gathers the images in order and writes them, so the
+images are one process's. The score-based and
 energy-based families sample with their own sampler only: ``--class_id``,
 ``--inpaint_image`` and the fast samplers (which need an ε-prediction
 model) are refused for them, as the reference refuses them. Reads the model-only
 checkpoint that either package writes, or a trainer checkpoint directory
 of the port (``--ema`` picks its EMA weights). A request whose estimated
 footprint exceeds the card's budget is drawn in equal chunks, each from
-its own generator, or refused (``utils/memory.py``); the CPU has no
-budget unless ``DMU_SAMPLER_HBM_BYTES`` sets one.
+its own generator, or refused (``utils/memory.py``; a chunk a multiple
+of N, each device holding its rows); the CPU has no budget unless
+``DMU_SAMPLER_HBM_BYTES`` sets one.
 """
 
 from __future__ import annotations
@@ -30,7 +37,7 @@ import pickle
 import sys
 from pathlib import Path
 
-from .. import NOT_PORTED
+from ..parallel import mesh
 
 MODEL_TYPES = ("ddpm", "ddim", "score_based", "energy_based")
 #: The fast samplers, by the name a request or ``--sampler`` gives, and
@@ -83,15 +90,30 @@ def build_argparser() -> argparse.ArgumentParser:
     return p
 
 
-def _load_inpaint_inputs(args, model):
-    """Load and check --inpaint_image/--inpaint_mask into [N,H,W,C] and a
-    mask that broadcasts to it (numpy f32)."""
-    import numpy as np
+def _check_inpaint_args(args) -> None:
     if args.inpaint_mask is None:
         raise SystemExit("--inpaint_image requires --inpaint_mask")
     if args.sampler != "default":
         raise SystemExit("--inpaint_image uses the ancestral sampler; "
                          "drop --sampler")
+
+
+def check_args(args) -> None:
+    """The refusals of ``--inpaint_image`` that need no model, in the
+    order ``draw`` makes them (``main`` makes them before it starts any
+    rank)."""
+    if args.inpaint_image is not None:
+        if args.model_type not in ("ddpm", "ddim"):
+            raise SystemExit(f"--inpaint_image unsupported for "
+                             f"{args.model_type} models (ddpm/ddim only)")
+        _check_inpaint_args(args)
+
+
+def _load_inpaint_inputs(args, model):
+    """Load and check --inpaint_image/--inpaint_mask into [N,H,W,C] and a
+    mask that broadcasts to it (numpy f32)."""
+    import numpy as np
+    _check_inpaint_args(args)
     image = np.load(args.inpaint_image).astype(np.float32)
     mask = np.load(args.inpaint_mask).astype(np.float32)
     if image.ndim == 3:
@@ -158,11 +180,12 @@ def chunk_seed(seed: int, index: int) -> int:
     return (seed * 0x9E3779B97F4A7C15 + index + 1) % (1 << 63)
 
 
-def plan_chunks(num_samples: int, model, model_cfg: dict):
+def plan_chunks(num_samples: int, model, model_cfg: dict,
+                n_devices: int):
     """``(chunk, n_chunks)`` for a request of ``num_samples`` on
-    ``model``'s device, from the memory preflight
-    (``utils/memory.py``); exits with the planner's message when even one
-    sample does not fit."""
+    ``model``'s device, split over ``n_devices`` ranks, from the memory
+    preflight (``utils/memory.py``); exits with the planner's message when
+    even one sample a device does not fit."""
     from ..utils.memory import (SamplerMemoryError, device_memory_budget,
                                 plan_sampler_chunks)
     try:
@@ -174,30 +197,78 @@ def plan_chunks(num_samples: int, model, model_cfg: dict):
             dtype_bytes=model.compute_dtype.itemsize,
             params_bytes=sum(p.numel() * p.element_size()
                              for p in model.net.parameters()),
+            n_devices=n_devices,
             budget_bytes=device_memory_budget(model.device))
     except SamplerMemoryError as e:
         raise SystemExit(f"--num_samples {num_samples}: {e}")
 
 
-def check_ported(args) -> None:
-    """Raise SystemExit for options this package does not run yet."""
-    if args.num_devices is not None and args.num_devices > 1:
-        raise SystemExit(f"--num_devices > 1 is {NOT_PORTED}")
+def rank_samples(sample, rows, model):
+    """``sample(rows)`` as host f32 numpy, for this rank's ``rows`` of a
+    batch: an empty array when the rank has none (it still joins the
+    gather)."""
+    import numpy as np
+    lo, hi, _ = rows
+    if lo == hi:
+        return np.zeros(model.sample_shape(0), np.float32)
+    return sample(rows).float().cpu().numpy()
 
 
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
-    check_ported(args)
+    from ..models.base import resolve_device
 
+    device = resolve_device(args.device)
+    n = len(mesh.local_devices(args.num_devices, device.type))
+    if n == 1:
+        return run(args, device)
+    check_args(args)
+    if device.type == "cuda":
+        from ..ops._build import build_all
+        build_all()
+    out = Path(args.output_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    return mesh.spawn(run_rank, n, args=(args,), device_type=device.type,
+                      rendezvous_dir=str(out))
+
+
+def run_rank(device, args) -> int:
+    """One rank of ``--num_devices N`` (``mesh.spawn``'s target)."""
+    return run(args, device)
+
+
+def run(args, device) -> int:
+    """Sample as ``main`` describes on ``device``, alone or as a rank of
+    the group this process has joined; rank 0 writes the images."""
+    samples = draw(args, device)
+    if samples is None:
+        return 0
+    from ..utils.images import save_image
+    out = Path(args.output_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    if not args.grid_only:
+        for i in range(len(samples)):
+            save_image(samples[i], str(out / f"sample_{i:04d}.png"))
+    nrow = int(math.ceil(math.sqrt(args.num_samples)))
+    grid_path = save_image(samples, str(out / "samples_grid.png"), nrow=nrow)
+    print(f"Saved {len(samples)} samples to {out} (grid: {grid_path})")
+    return 0
+
+
+def draw(args, device):
+    """The request's samples, [num_samples, H, W, C] f32 numpy on rank 0
+    (None on the other ranks): every chunk sampled with its own seed,
+    each rank its rows of it (``mesh.sampling_scope``)."""
+    import numpy as np
     import torch
 
     from ..models import MODEL_REGISTRY
     from ..utils.config import load_config, resolve_interpolations
-    from ..utils.images import save_image
 
+    scope = mesh.sampling_scope()
     config = resolve_interpolations(load_config(args.config))
     model_cfg = resolve_model_config(config, args.checkpoint)
-    model = MODEL_REGISTRY[args.model_type](model_cfg, device=args.device)
+    model = MODEL_REGISTRY[args.model_type](model_cfg, device=device)
     load_params(model, args.checkpoint, args.ema)
 
     conditional = args.class_id is not None
@@ -221,9 +292,9 @@ def main(argv=None) -> int:
                          f"model (ddpm/ddim), got {args.model_type}")
     scale = args.guidance_scale if conditional else 1.0
 
-    def sample_chunk(start: int, n: int, gen: torch.Generator):
-        """One sampler call for samples [start, start + n), with this
-        chunk's labels and inpainting inputs."""
+    def sample_chunk(start: int, n: int, gen: torch.Generator, rows):
+        """One sampler call for ``rows`` of samples [start, start + n),
+        with this chunk's labels and inpainting inputs."""
         labels = (model.make_class_labels(args.class_id, n) if conditional
                   else None)
         if inpaint is not None:
@@ -232,45 +303,39 @@ def main(argv=None) -> int:
             return model.generate_samples_inpaint(
                 torch.from_numpy(image[start:start + n]),
                 torch.from_numpy(mask), labels=labels, guidance_scale=scale,
-                generator=gen)
+                generator=gen, rows=rows)
         if args.sampler != "default":
             try:
                 return getattr(model, FAST_SAMPLERS[args.sampler])(
                     n, num_steps=args.sampler_steps, labels=labels,
-                    guidance_scale=scale, generator=gen)
+                    guidance_scale=scale, generator=gen, rows=rows)
             except ValueError as e:  # --sampler_steps out of [2, T]
                 raise SystemExit(f"--sampler {args.sampler}: {e}")
         if labels is not None:
             return model.generate_samples_cfg(
-                n, labels, guidance_scale=args.guidance_scale, generator=gen)
-        return model.generate_samples(n, generator=gen)
+                n, labels, guidance_scale=args.guidance_scale, generator=gen,
+                rows=rows)
+        return model.generate_samples(n, generator=gen, rows=rows)
 
-    chunk, n_chunks = plan_chunks(args.num_samples, model, model_cfg)
-    if n_chunks == 1:
-        gen = torch.Generator(device=model.device).manual_seed(args.seed)
-        samples = sample_chunk(0, args.num_samples, gen).cpu().numpy()
-    else:
+    chunk, n_chunks = plan_chunks(args.num_samples, model, model_cfg,
+                                  scope.world)
+    if n_chunks > 1 and scope.rank == 0:
         print(f"Memory preflight: {args.num_samples} samples split into "
               f"{n_chunks} chunks of {chunk} (estimated footprint exceeds "
               f"the device budget; set DMU_SAMPLER_HBM_BYTES to override)",
               flush=True)
-        parts = []
-        for ci in range(n_chunks):
-            start = ci * chunk
-            n = min(chunk, args.num_samples - start)
-            gen = torch.Generator(device=model.device).manual_seed(
-                chunk_seed(args.seed, ci))
-            parts.append(sample_chunk(start, n, gen).cpu())
-        samples = torch.cat(parts).numpy()
-    out = Path(args.output_dir)
-    out.mkdir(parents=True, exist_ok=True)
-    if not args.grid_only:
-        for i in range(len(samples)):
-            save_image(samples[i], str(out / f"sample_{i:04d}.png"))
-    nrow = int(math.ceil(math.sqrt(args.num_samples)))
-    grid_path = save_image(samples, str(out / "samples_grid.png"), nrow=nrow)
-    print(f"Saved {len(samples)} samples to {out} (grid: {grid_path})")
-    return 0
+    parts = []
+    for ci in range(n_chunks):
+        start = ci * chunk
+        n = min(chunk, args.num_samples - start)
+        gen = torch.Generator(device=model.device).manual_seed(
+            args.seed if n_chunks == 1 else chunk_seed(args.seed, ci))
+        mine = rank_samples(lambda rows: sample_chunk(start, n, gen, rows),
+                            scope.rows(n), model)
+        gathered = scope.gather(mine)
+        if gathered is not None:
+            parts.extend(gathered)
+    return np.concatenate(parts) if scope.rank == 0 else None
 
 
 if __name__ == "__main__":

@@ -8,10 +8,17 @@ JSON).
 * **One request on the card at a time.** The service holds a lock around
   sampling; the HTTP server's threads queue on it.
 * **Stdlib only** (``http.server`` threading server).
+* **Over ranks** (``--num_devices N``; on the CPU, N gloo processes):
+  rank 0 runs the HTTP server and sends each request's parameters to
+  the other ranks (``mesh.broadcast_object``); every rank samples its
+  rows of the ``--serve_batch`` batch, each drawing the whole batch's
+  noise, and rank 0 gathers them, so the images are one process's.
+  SIGTERM or Ctrl-C on rank 0 stops the server and then every rank; a
+  failed rank fails the server (``mesh.spawn``).
 
 Endpoints:
     GET  /healthz             → 200 JSON {status, model, serve_batch,
-                                devices, requests}
+                                devices (the ranks), requests}
     POST /generate            → PNG grid (default) or raw .npy
          body: {"num_samples": int ≤ serve_batch, "seed": int,
                 "format": "png" | "npy",
@@ -27,7 +34,8 @@ Endpoints:
 Usage:
     python -m diffusion_model_universal_torch.scripts.serve \
         --config diffusion_model_universal_torch/configs/ddim_config.yaml \
-        --model_type ddim --checkpoint model.ckpt --port 8000 --device cuda
+        --model_type ddim --checkpoint model.ckpt --port 8000 --device cuda \
+        [--num_devices N]
 
 (``--model_type`` is any of ddpm, ddim, score_based, energy_based.)
 """
@@ -38,12 +46,14 @@ import argparse
 import io
 import json
 import math
+import signal
 import sys
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
-from .generate import FAST_SAMPLERS, MODEL_TYPES
+from ..parallel import mesh
+from .generate import FAST_SAMPLERS, MODEL_TYPES, rank_samples
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -69,11 +79,14 @@ class SamplerService:
 
     Sampling holds a lock, so concurrent requests run one after another
     and the launch counters of the kernels advance by whole requests.
+    Over ranks (``scope`` of more than one), rank 0's service sends each
+    request to the others, which :meth:`follow`, and gathers their rows.
     """
 
-    def __init__(self, model, serve_batch: int):
+    def __init__(self, model, serve_batch: int, scope=None):
         self.model = model
         self.serve_batch = serve_batch
+        self.scope = scope or mesh.Scope(0, 1)
         self.requests = 0
         self._lock = threading.Lock()
 
@@ -91,7 +104,6 @@ class SamplerService:
         steps; ``class_id`` conditions on a class with classifier-free
         guidance at ``guidance_scale`` (1.0 without labels)."""
         import numpy as np
-        import torch
 
         if not 1 <= num_samples <= self.serve_batch:
             raise ValueError(
@@ -105,33 +117,73 @@ class SamplerService:
                                                 FAST_SAMPLERS[sampler]):
             raise ValueError(f"sampler {sampler!r} needs an ε-prediction "
                              "model (ddpm/ddim)")
-        labels = None
         if class_id is not None:
             if not hasattr(self.model, "make_class_labels"):
                 raise ValueError(
                     "class_id unsupported for this model family")
-            labels = self.model.make_class_labels(class_id,
-                                                  self.serve_batch)
+            self.model.make_class_labels(class_id, 1)
+            class_id = int(class_id)
+        request = {"seed": int(seed), "class_id": class_id,
+                   "guidance_scale": (float(guidance_scale)
+                                      if class_id is not None else 1.0),
+                   "sampler": sampler,
+                   "sampler_steps": (int(sampler_steps)
+                                     if sampler != "default" else 0)}
         with self._lock:
-            gen = torch.Generator(device=self.model.device)
-            gen.manual_seed(seed)
-            if sampler != "default":
-                batch = getattr(self.model, FAST_SAMPLERS[sampler])(
-                    self.serve_batch, num_steps=int(sampler_steps),
-                    labels=labels,
-                    guidance_scale=(float(guidance_scale)
-                                    if labels is not None else 1.0),
-                    generator=gen)
-            elif labels is not None:
-                batch = self.model.generate_samples_cfg(
-                    self.serve_batch, labels,
-                    guidance_scale=float(guidance_scale), generator=gen)
-            else:
-                batch = self.model.generate_samples(self.serve_batch,
-                                                    generator=gen)
-            out = batch[:num_samples].cpu().numpy()
+            if self.scope.world > 1:
+                mesh.broadcast_object(request)
+            parts = self.scope.gather(self._sample(request))
+            for part in parts:
+                if isinstance(part, ValueError):
+                    raise part
+            out = np.concatenate(parts)[:num_samples]
             self.requests += 1
         return np.asarray(out, dtype=np.float32)
+
+    def _sample(self, request):
+        """This rank's rows of the serve_batch batch of ``request``, or
+        the ValueError the sampler raised for it (every rank's goes to
+        rank 0, which answers 400, and the ranks serve on)."""
+        import torch
+        b = self.serve_batch
+        labels = None
+        if request["class_id"] is not None:
+            labels = self.model.make_class_labels(request["class_id"], b)
+        gen = torch.Generator(device=self.model.device)
+        gen.manual_seed(request["seed"])
+        sampler = request["sampler"]
+
+        def sample(rows):
+            if sampler != "default":
+                return getattr(self.model, FAST_SAMPLERS[sampler])(
+                    b, num_steps=request["sampler_steps"], labels=labels,
+                    guidance_scale=request["guidance_scale"],
+                    generator=gen, rows=rows)
+            if labels is not None:
+                return self.model.generate_samples_cfg(
+                    b, labels, guidance_scale=request["guidance_scale"],
+                    generator=gen, rows=rows)
+            return self.model.generate_samples(b, generator=gen, rows=rows)
+
+        try:
+            return rank_samples(sample, self.scope.rows(b), self.model)
+        except ValueError as e:
+            return e
+
+    def follow(self) -> None:
+        """A rank other than 0: sample its rows of each request rank 0
+        sends, until rank 0 sends the stop (:meth:`stop`)."""
+        while True:
+            request = mesh.broadcast_object(None)
+            if request is None:
+                return
+            self.scope.gather(self._sample(request))
+
+    def stop(self) -> None:
+        """Rank 0: release the ranks that :meth:`follow`."""
+        if self.scope.world > 1:
+            with self._lock:
+                mesh.broadcast_object(None)
 
 
 def make_handler(service: SamplerService, model_type: str):
@@ -152,14 +204,11 @@ def make_handler(service: SamplerService, model_type: str):
         def do_GET(self):
             if self.path != "/healthz":
                 return self._send_json(404, {"error": "not found"})
-            import torch
-            device = service.model.device
             self._send_json(200, {
                 "status": "ok",
                 "model": model_type,
                 "serve_batch": service.serve_batch,
-                "devices": (torch.cuda.device_count()
-                            if device.type == "cuda" else 1),
+                "devices": service.scope.world,
                 "requests": service.requests,
             })
 
@@ -200,20 +249,25 @@ def make_handler(service: SamplerService, model_type: str):
     return Handler
 
 
-def make_server(args) -> ThreadingHTTPServer:
-    """Build the service + HTTP server (separated from main() so tests
-    can run it on an ephemeral port in a thread)."""
+def load_service(args, device=None) -> SamplerService:
+    """The model of ``args`` on ``device`` (default ``--device``) in a
+    service over the ranks this process has joined."""
     from ..models import MODEL_REGISTRY
     from ..utils.config import load_config, resolve_interpolations
-    from .generate import check_ported, load_params, resolve_model_config
+    from .generate import load_params, resolve_model_config
 
-    check_ported(args)
     config = resolve_interpolations(load_config(args.config))
     model_cfg = resolve_model_config(config, args.checkpoint)
-    model = MODEL_REGISTRY[args.model_type](model_cfg, device=args.device)
+    model = MODEL_REGISTRY[args.model_type](
+        model_cfg, device=args.device if device is None else device)
     load_params(model, args.checkpoint, args.ema)
+    return SamplerService(model, args.serve_batch, mesh.sampling_scope())
 
-    service = SamplerService(model, args.serve_batch)
+
+def make_server(args, service=None) -> ThreadingHTTPServer:
+    """Build the service (unless given) + HTTP server (separated from
+    main() so tests can run it on an ephemeral port in a thread)."""
+    service = service or load_service(args)
     srv = ThreadingHTTPServer((args.host, args.port),
                               make_handler(service, args.model_type))
     srv.service = service  # for tests / introspection
@@ -222,12 +276,52 @@ def make_server(args) -> ThreadingHTTPServer:
 
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
-    srv = make_server(args)
+    from ..models.base import resolve_device
+
+    device = resolve_device(args.device)
+    n = len(mesh.local_devices(args.num_devices, device.type))
+    if n == 1:
+        return serve(args, make_server(args))
+    if device.type == "cuda":
+        from ..ops._build import build_all
+        build_all()
+    return mesh.spawn(run_rank, n, args=(args,), device_type=device.type)
+
+
+def run_rank(device, args) -> int:
+    """One rank of ``--num_devices N`` (``mesh.spawn``'s target): rank 0
+    serves until SIGTERM or SIGINT, then stops the others, which follow
+    its requests (they ignore both signals and wait for its stop)."""
+    service = load_service(args, device)
+    srv = make_server(args, service) if mesh.rank() == 0 else None
+
+    def shut_down(signum, frame):
+        threading.Thread(target=srv.shutdown, daemon=True).start()
+
+    handler = signal.SIG_IGN if srv is None else shut_down
+    prev = {sig: signal.signal(sig, handler)
+            for sig in (signal.SIGTERM, signal.SIGINT)}
+    try:
+        if srv is None:
+            service.follow()
+            return 0
+        try:
+            return serve(args, srv)
+        finally:
+            service.stop()
+    finally:
+        for sig, h in prev.items():
+            signal.signal(sig, h)
+
+
+def serve(args, srv) -> int:
+    """Warm ``srv``'s service up, then serve until shut down."""
     dt = srv.service.warmup()
     host, port = srv.server_address[:2]
     print(f"serving {args.model_type} on http://{host}:{port} "
           f"(batch {args.serve_batch} on {srv.service.model.device}, "
-          f"warmed in {dt:.1f}s)")
+          f"{srv.service.scope.world} rank(s), warmed in {dt:.1f}s)",
+          flush=True)
     try:
         srv.serve_forever()
     except KeyboardInterrupt:

@@ -35,8 +35,9 @@ Data parallelism (``parallel/mesh.py``), in the reference's two modes:
 * ``--num_devices N`` (``--num_gpus``): one launch over the first N
   devices (all of them when N exceeds the count; on the CPU, N
   processes). N > 1 spawns N ranks, rank r on device r, that split each
-  batch of ``training.batch_size`` B, which must divide by N: rank r
-  takes rows [r·B/N, (r+1)·B/N), so the data order is one device's.
+  batch of ``training.batch_size`` B, which must divide by N (= D·M, the
+  data and model axes of the layout): rank r takes rows
+  [r·B/N, (r+1)·B/N), so the data order is one device's.
 * ``--multihost``: one process per card, launched by ``torchrun``, whose
   environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
   ``MASTER_PORT``) it reads; without it, it exits. Each process loads its
@@ -44,12 +45,18 @@ Data parallelism (``parallel/mesh.py``), in the reference's two modes:
   ``logging.track_histograms`` is off, as in the reference.
 
 Either way an update equals one process's on the global batch (up to the
-order of f32 sums), rank 0 alone prints, logs and writes checkpoints, and
-``--benchmark`` runs on rank 0 (on the whole test set with
-``--num_devices``, on its shard with ``--multihost``). NCCL joins the
-ranks on the card, gloo on the CPU. The config's ``distributed`` section
-gives the layout: ``model_parallel`` and ``spatial_parallel`` > 1 are not
-ported and exit (``backend`` and ``find_unused_parameters`` are
+order of f32 sums), and rank 0 alone prints, logs and writes checkpoints.
+``--benchmark`` samples over the ranks (every rank with
+``--num_devices``; under ``--multihost`` the ``LOCAL_WORLD_SIZE`` ranks
+of rank 0's host, as the reference samples on its process-local mesh),
+each rank its rows of every generated batch, and rank 0 scores the
+gathered images against the whole test set (``--num_devices``) or its
+shard (``--multihost``). NCCL joins the ranks on the card, gloo on the
+CPU. The config's ``distributed`` section gives the layout:
+``model_parallel`` M > 1 shards the parameters, the EMA and Adam's
+moments over groups of M ranks (``trainers/trainer.py``), the batch's
+rows still split over all of them; ``spatial_parallel`` > 1 is not
+ported and exits (``backend`` and ``find_unused_parameters`` are
 accepted and unused).
 
 On the card the run ends by printing each kernel's launches in the run
@@ -61,9 +68,9 @@ launches``).
 from __future__ import annotations
 
 import argparse
-import contextlib
 import hashlib
 import json
+import os
 import sys
 from pathlib import Path
 
@@ -106,9 +113,12 @@ def params_digest(tensors) -> str:
     return h.hexdigest()
 
 
-def run_benchmark(trainer, config, test_loader, eval_only: bool) -> dict:
-    """The ``--benchmark`` protocol on the trainer's model; writes and
-    prints the results."""
+def run_benchmark(trainer, config, test_loader, eval_only: bool,
+                  scope=None) -> dict:
+    """The ``--benchmark`` protocol on the trainer's model, sampled over
+    the ranks of ``scope`` (every rank calls this; a rank outside the
+    scope only joins the gather of the EMA weights); rank 0 writes and
+    prints the results, which it returns (None elsewhere)."""
     from ..utils import benchmarks
     bench_cfg = config.get("benchmark", {}) or {}
     model = trainer.model
@@ -121,7 +131,7 @@ def run_benchmark(trainer, config, test_loader, eval_only: bool) -> dict:
         pairing=bench_cfg.get("pairing", "unpaired"),
         sampler=bench_cfg.get("sampler", "default"),
         sampler_steps=bench_cfg.get("sampler_steps"),
-        device=model.device)
+        device=model.device, scope=scope)
     out_dir = Path(config.get("output", {}).get("output_dir", "outputs"))
     out_dir.mkdir(parents=True, exist_ok=True)
     sample_dir = None
@@ -129,30 +139,35 @@ def run_benchmark(trainer, config, test_loader, eval_only: bool) -> dict:
         sample_dir = str(out_dir / bench_cfg.get("sample_dir",
                                                  "benchmark_samples"))
     before = launch_counts()
-    with trainer.ema_weights() if bench_cfg.get("use_ema", True) \
-            else contextlib.nullcontext():
-        results = bench.evaluate(model, test_loader, sample_dir=sample_dir)
+    with (trainer.ema_weights() if bench_cfg.get("use_ema", True)
+          else trainer.whole_params()):
+        results = (bench.evaluate(model, test_loader, sample_dir=sample_dir)
+                   if scope is not None else None)
+    if model.device.type == "cuda" and scope is not None:
+        after = launch_counts()
+        who = (f" (rank {scope.rank} of {scope.world})" if scope.world > 1
+               else "")
+        print(f"Benchmark kernel launches{who}: "
+              f"{json.dumps({k: after[k] - before.get(k, 0) for k in after})}",
+              flush=True)
+    if results is None:
+        return None
     with open(out_dir / bench_cfg.get("results_file",
                                       "benchmark_results.json"), "w") as f:
         json.dump(results, f, indent=2)
     print("Benchmark:", json.dumps(results, indent=2))
-    if model.device.type == "cuda":
-        after = launch_counts()
-        print(f"Benchmark kernel launches: "
-              f"{json.dumps({k: after[k] - before.get(k, 0) for k in after})}",
-              flush=True)
     return results
 
 
-def check_layout(config, num_devices: int) -> None:
+def check_layout(config, num_devices: int) -> dict:
     """The config's ``distributed`` layout over ``num_devices`` devices
     (``parallel/mesh.py::make_layout``); exits on a refusal."""
     dist_cfg = config.get("distributed", {}) or {}
     try:
-        mesh.make_layout(num_devices,
-                         model_parallel=int(dist_cfg.get("model_parallel", 1)),
-                         spatial_parallel=int(
-                             dist_cfg.get("spatial_parallel", 1)))
+        return mesh.make_layout(
+            num_devices,
+            model_parallel=int(dist_cfg.get("model_parallel", 1)),
+            spatial_parallel=int(dist_cfg.get("spatial_parallel", 1)))
     except ValueError as e:
         raise SystemExit(f"distributed: {e}") from None
 
@@ -175,13 +190,15 @@ def main(argv=None) -> int:
         finally:
             mesh.shutdown()
     n = len(mesh.local_devices(args.num_devices, device.type))
-    check_layout(config, n)
+    layout = check_layout(config, n)
     if n == 1:
         return run(args, config, device)
     batch = int(config.get("training", {}).get("batch_size", 128))
     if batch % n:
-        raise SystemExit(f"training.batch_size {batch} is not a multiple of "
-                         f"--num_devices {n}: each rank takes B/N rows")
+        raise SystemExit(
+            f"training.batch_size {batch} is not a multiple of "
+            f"--num_devices {n} (data {layout[mesh.DATA_AXIS]} × model "
+            f"{layout[mesh.MODEL_AXIS]}): each rank takes B/(D·M) rows")
     if device.type == "cuda":
         from ..ops._build import build_all
         build_all()
@@ -230,7 +247,8 @@ def run(args, config, device, split=None) -> int:
     if args.resume:
         name = None if args.resume == "latest" else args.resume
         start_epoch = trainer.load_checkpoint(name)
-        digests = mesh.gather(params_digest(trainer.params))
+        with trainer.whole_params():
+            digests = mesh.gather(params_digest(trainer.params))
         if len(set(digests)) != 1:
             raise RuntimeError(f"the ranks restored different parameters: "
                                f"{digests}")
@@ -261,10 +279,14 @@ def run(args, config, device, split=None) -> int:
             if main_rank:
                 print(f"Final test loss: {loss:.6f}")
             trainer.save_checkpoint("final_model", num_epochs - 1)
-        if args.benchmark and main_rank:
-            if split is not None:   # the whole test set, as one device has
+        if args.benchmark:
+            local = (int(os.environ.get("LOCAL_WORLD_SIZE", world))
+                     if args.multihost else None)
+            scope = mesh.sampling_scope(local)
+            if split is not None and main_rank:   # the whole test set
                 test_loader = get_dataset(config, device=model.device)[2]
-            run_benchmark(trainer, config, test_loader, args.eval_only)
+            run_benchmark(trainer, config, test_loader, args.eval_only,
+                          scope)
     finally:
         trainer.cleanup()
     if model.device.type == "cuda":

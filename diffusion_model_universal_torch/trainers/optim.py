@@ -109,13 +109,19 @@ class Adam:
     update uses the f32 moment (1−b1)·g + b1·μ (b1 rounded to
     ``mu_dtype``), and only then is μ rounded to ``mu_dtype`` for
     storage.
+
+    ``sharding`` (``parallel/mesh.py::Sharding``, under
+    ``model_parallel``): ``params`` are this rank's shards of the sharded
+    leaves (whole for the rest), so are μ and ν; :meth:`state_dict` and
+    :meth:`load_state_dict` keep the whole tensors of one process.
     """
 
     def __init__(self, params: List[torch.Tensor], schedule: Schedule,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                  grad_clip: float = 0.0, max_consecutive_errors: int = 0,
-                 mu_dtype: torch.dtype = torch.float32):
+                 mu_dtype: torch.dtype = torch.float32, sharding=None):
         self.params = list(params)
+        self.sharding = sharding
         self.schedule = schedule
         self.b1, self.b2, self.eps = b1, b2, eps
         self.grad_clip = float(grad_clip or 0.0)
@@ -171,11 +177,17 @@ class Adam:
             torch._foreach_copy_(self.mu, mu)
         return True
 
-    def state_dict(self) -> Dict[str, Any]:
+    def state_dict(self, gather: bool = True) -> Dict[str, Any]:
+        """The state with whole moments (gathered from every shard under
+        ``sharding``: every rank of the group must call this), or with
+        this rank's own when not ``gather``."""
+        mu, nu = self.mu, self.nu
+        if self.sharding is not None and gather:
+            mu, nu = self.sharding.whole(mu), self.sharding.whole(nu)
         return {"count": self.count, "notfinite_count": self.notfinite_count,
                 "total_notfinite": self.total_notfinite,
-                "mu": [m.detach().cpu() for m in self.mu],
-                "nu": [n.detach().cpu() for n in self.nu]}
+                "mu": [m.detach().cpu().clone() for m in mu],
+                "nu": [n.detach().cpu().clone() for n in nu]}
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
         if len(state["mu"]) != len(self.mu):
@@ -184,16 +196,20 @@ class Adam:
         self.count = int(state["count"])
         self.notfinite_count = int(state["notfinite_count"])
         self.total_notfinite = int(state["total_notfinite"])
+        mu, nu = state["mu"], state["nu"]
+        if self.sharding is not None:   # this rank's shards of the whole
+            mu, nu = self.sharding.shards(mu), self.sharding.shards(nu)
         with torch.no_grad():
-            for dst, src in zip(self.mu + self.nu, state["mu"] + state["nu"]):
+            for dst, src in zip(self.mu + self.nu, list(mu) + list(nu)):
                 dst.copy_(src)
 
 
 def make_optimizer(params: List[torch.Tensor], training_cfg: Dict[str, Any],
-                   steps_per_epoch: int, num_epochs: int
+                   steps_per_epoch: int, num_epochs: int, sharding=None
                    ) -> Tuple[Adam, Schedule]:
-    """Adam (+clip, +non-finite skip) with the configured LR schedule;
-    the schedule is also returned, for logging the LR."""
+    """Adam (+clip, +non-finite skip) with the configured LR schedule
+    (over this rank's shards with ``sharding``); the schedule is also
+    returned, for logging the LR."""
     schedule = make_lr_schedule(training_cfg, steps_per_epoch, num_epochs)
     skip = training_cfg.get("skip_nonfinite_updates", 0)
     max_errors = (100 if isinstance(skip, bool) else int(skip)) if skip else 0
@@ -202,7 +218,8 @@ def make_optimizer(params: List[torch.Tensor], training_cfg: Dict[str, Any],
                b2=float(training_cfg.get("beta2", 0.999)),
                grad_clip=float(training_cfg.get("grad_clip") or 0.0),
                max_consecutive_errors=max_errors,
-               mu_dtype=dtype_from_config(training_cfg, "adam_mu_dtype"))
+               mu_dtype=dtype_from_config(training_cfg, "adam_mu_dtype"),
+               sharding=sharding)
     return opt, schedule
 
 

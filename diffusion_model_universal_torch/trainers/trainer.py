@@ -43,6 +43,29 @@ the same loss for any number of ranks. Rank 0 alone writes checkpoints
 rank computes the histograms, whose gradients are reduced, and rank 0
 logs them; :meth:`profile` traces on rank 0.
 
+Model parallelism (``distributed.model_parallel`` M > 1): the reference
+shards its parameter, EMA and Adam trees over the model axis
+(``parallel/mesh.py::shard_plan``, the rule of its ``param_sharding``);
+here each group of M consecutive ranks does: between updates a rank
+holds only its shard of each sharded leaf's f32 parameter, EMA, μ and ν
+(``master``, ``ema``, the optimizer's moments; whole for the small
+leaves), and the network's copies of the sharded leaves hold no storage.
+An update gathers the whole parameters into the network once
+(:meth:`whole_params`, so remat's recompute and accumulation run on whole
+weights), takes the loss and gradients as above (all-reduced whole, so
+the norms, the clip and the non-finite skip are one process's), updates
+its shards of the parameters, μ, ν and the EMA, and frees the whole
+copies. Evaluation, the sample grids, :meth:`ema_weights`,
+:meth:`param_norm` and the histograms gather what they read, and so do
+:meth:`state` (every rank calls it; rank 0 writes the checkpoint one
+process writes) and :meth:`load_checkpoint` (every rank reads the whole
+file and keeps its shards), so a checkpoint moves between any layouts.
+The emergency checkpoint on an exception needs no collective (the other
+ranks may be gone): each rank that raises writes its own shards
+(:meth:`shard_state`), and ``utils/checkpoint.py`` joins them into one
+process's state when a full set of M is there. The batch's rows stay
+split over all D·M ranks. With M = 1 none of this runs.
+
 Not ported yet (it raises): ``scan_steps > 1``.
 """
 
@@ -127,12 +150,31 @@ class DiffusionTrainer:
         named = list(model.net.named_parameters())
         self.param_names: List[str] = [n for n, _ in named]
         self.params: List[torch.Tensor] = [p for _, p in named]
+        param_count = sum(p.numel() for p in self.params)
         mesh.broadcast_(self.params)
-        self._flag_group = mesh.new_flag_group()
+        model_parallel = int((self.config.get("distributed") or {}).get(
+            "model_parallel", 1))
+        self.sharding = None
+        # The f32 weights Adam updates: this rank's shards of the sharded
+        # leaves under model parallelism, else the network's parameters.
+        self.master = self.params
+        if model_parallel > 1:
+            self.sharding = mesh.Sharding(
+                self.params, mesh.shard_plan(model.net, model_parallel),
+                model_parallel)
+            self.master = [
+                t if spec is None
+                else t.detach().clone(memory_format=torch.contiguous_format)
+                for t, spec in zip(self.sharding.shards(self.params),
+                                   self.sharding.plan)]
         self.optimizer, self.lr_schedule = make_optimizer(
-            self.params, tcfg, self.steps_per_epoch, self.num_epochs)
+            self.master, tcfg, self.steps_per_epoch, self.num_epochs,
+            self.sharding)
         self.ema = [p.detach().to(self.ema_dtype, copy=True)
-                    for p in self.params]
+                    for p in self.master]
+        self._whole = self.sharding is None
+        if self.sharding is not None:
+            self.sharding.free_(self.params)
         self.step_count = 0
         self._gen = torch.Generator(device=self.device)
 
@@ -152,7 +194,7 @@ class DiffusionTrainer:
             "learning_rate": tcfg.get("learning_rate", 0.0),
             "batch_size": tcfg.get("batch_size", 0),
             "num_epochs": self.num_epochs,
-            "param_count": sum(p.numel() for p in self.params)})
+            "param_count": param_count})
         if hasattr(model, "schedule"):   # the score family has none
             self.logger.log(self.logger.diffusion_metrics(model.schedule),
                             0)
@@ -243,12 +285,14 @@ class DiffusionTrainer:
         micro-batch with its own draws (``draws[i]``, keywords as in
         :meth:`step`, may inject them). Returns what :meth:`step`
         returns."""
-        loss, grads = self._loss_and_grads(micro_batches, self.step_count,
-                                           draws)
-        norms = torch._foreach_norm(grads)
-        grad_norm = torch.linalg.vector_norm(torch.stack(norms))
-        self.optimizer.step(grads, grad_norm)
-        self._update_ema()
+        with self.whole_params():
+            loss, grads = self._loss_and_grads(micro_batches,
+                                               self.step_count, draws)
+            norms = torch._foreach_norm(grads)
+            grad_norm = torch.linalg.vector_norm(torch.stack(norms))
+            self.optimizer.step(grads if self.sharding is None
+                                else self.sharding.shards(grads), grad_norm)
+            self._update_ema()
         self.step_count += 1
         return {"loss": loss, "grad_norm": grad_norm,
                 "layer_grad_norms": dict(zip(self.param_names, norms))}
@@ -263,13 +307,33 @@ class DiffusionTrainer:
         ema = (self.ema if self.ema_dtype == torch.float32
                else [e.float() for e in self.ema])
         torch._foreach_mul_(ema, d)
-        torch._foreach_add_(ema, self.params, alpha=1.0 - d)
+        torch._foreach_add_(ema, self.master, alpha=1.0 - d)
         if ema is not self.ema:
             torch._foreach_copy_(self.ema, ema)
 
     def param_norm(self) -> torch.Tensor:
-        return torch.linalg.vector_norm(torch.stack(
-            torch._foreach_norm([p.detach() for p in self.params])))
+        """‖θ‖ over every parameter (under model parallelism a gather:
+        every rank calls it)."""
+        with self.whole_params():
+            return torch.linalg.vector_norm(torch.stack(
+                torch._foreach_norm([p.detach() for p in self.params])))
+
+    @contextlib.contextmanager
+    def whole_params(self):
+        """The whole parameters in the network for the block: under model
+        parallelism gathered from every shard (every rank of the group
+        enters together) and freed after; nested blocks gather once.
+        Nothing to do otherwise."""
+        if self._whole:
+            yield
+            return
+        self.sharding.gather_(self.params, self.master)
+        self._whole = True
+        try:
+            yield
+        finally:
+            self.sharding.free_(self.params)
+            self._whole = False
 
     # ------------------------------------------------------------------
     def profile(self, steps: int = 5, log_dir: Optional[str] = None) -> str:
@@ -311,7 +375,7 @@ class DiffusionTrainer:
         that all of them take the save-and-return branch at the same
         step instead of some waiting in the next update's all-reduce."""
         if self.data_parallel:
-            self.preempted = mesh.any_flag(self.preempted, self._flag_group)
+            self.preempted = mesh.any_flag(self.preempted)
         return self.preempted
 
     def _install_preemption_handler(self):
@@ -348,14 +412,15 @@ class DiffusionTrainer:
         generators, and the dropout RNG state ``rng_state`` that the
         update started from; and β/α/ᾱ."""
         devices = [self.device] if self.device.type == "cuda" else []
-        with torch.random.fork_rng(devices=devices):
-            torch.set_rng_state(rng_state[0])
-            if rng_state[1] is not None:
-                torch.cuda.set_rng_state(rng_state[1], self.device)
-            _, grads = self._loss_and_grads(micro_batches, step)
-        out = self.logger.model_histograms(
-            dict(zip(self.param_names, grads)),
-            dict(zip(self.param_names, self.params)))
+        with self.whole_params():
+            with torch.random.fork_rng(devices=devices):
+                torch.set_rng_state(rng_state[0])
+                if rng_state[1] is not None:
+                    torch.cuda.set_rng_state(rng_state[1], self.device)
+                _, grads = self._loss_and_grads(micro_batches, step)
+            out = self.logger.model_histograms(
+                dict(zip(self.param_names, grads)),
+                dict(zip(self.param_names, self.params)))
         if hasattr(self.model, "schedule"):
             out.update(self.logger.diffusion_metrics(self.model.schedule))
         return out
@@ -363,9 +428,13 @@ class DiffusionTrainer:
     def _log_step(self, step: int, epoch: int, metrics, chunk,
                   t0: float, rng_state=None) -> None:
         # Every rank recomputes the histograms' gradients (their
-        # all-reduce needs all of them); rank 0 alone logs.
-        histograms = (self.histogram_metrics(chunk, step, rng_state)
-                      if rng_state is not None else {})
+        # all-reduce needs all of them) and takes the parameter norm (a
+        # gather under model parallelism); rank 0 alone logs.
+        grad_step = step % self.gradient_logging_freq == 0
+        with self.whole_params() if grad_step else contextlib.nullcontext():
+            histograms = (self.histogram_metrics(chunk, step, rng_state)
+                          if rng_state is not None else {})
+            param_norm = self.param_norm() if grad_step else None
         if not self.is_main:
             return
         loss = float(metrics["loss"])
@@ -378,10 +447,10 @@ class DiffusionTrainer:
             log.update(self.logger.performance_metrics(
                 time.perf_counter() - t0, self._batch_count(chunk),
                 self.device))
-        if step % self.gradient_logging_freq == 0:
+        if grad_step:
             log.update(self.logger.gradient_metrics(
                 metrics["layer_grad_norms"], metrics["grad_norm"],
-                self.param_norm()))
+                param_norm))
             log.update(self.logger.optimizer_metrics(
                 self.optimizer, self.lr_schedule(step)))
             log.update(histograms)
@@ -429,18 +498,25 @@ class DiffusionTrainer:
                         "epoch/train_loss": mean_loss,
                         "epoch/time": time.perf_counter() - t_epoch,
                     }, self.step_count)
-                if self.is_main and self.sample_interval and \
+                if self.sample_interval and \
                         (epoch + 1) % self.sample_interval == 0:
-                    self.generate_samples(epoch)
+                    with self.whole_params():
+                        if self.is_main:
+                            self.generate_samples(epoch)
                 if self.checkpoint_interval and \
                         (epoch + 1) % self.checkpoint_interval == 0:
                     self._save_epoch_checkpoint(epoch)
         except Exception:
-            # No barrier: the other ranks may be gone.
-            if self.is_main:
-                epoch = self.step_count // self.steps_per_epoch
-                self.ckpt.save(f"emergency_checkpoint_epoch_{epoch}",
-                               self.state(epoch))
+            # No barrier and no gather: the other ranks may be gone, so
+            # under model parallelism each rank writes its own shards.
+            epoch = self.step_count // self.steps_per_epoch
+            name = f"emergency_checkpoint_epoch_{epoch}"
+            if self.sharding is not None:
+                self.ckpt.save_shard(name, self.sharding.index,
+                                     self.sharding.model_parallel,
+                                     self.shard_state(epoch))
+            elif self.is_main:
+                self.ckpt.save(name, self.state(epoch))
             raise
         finally:
             if prev_handler is not None:
@@ -470,16 +546,17 @@ class DiffusionTrainer:
         twice) and the (Σ loss, count) pair is summed over the ranks."""
         sums = torch.zeros(2, dtype=torch.float64, device=self.device)
         offset = 0
-        for batch in loader:
-            x, y = self._split_batch(batch)
-            rows = self._rows(batch, x.shape[0])
-            if x.shape[0]:
-                losses = self.model.loss_function(
-                    x, generator=self._generator(offset, salt), y=y,
-                    per_sample=True, rows=rows)
-                sums[0] += losses.double().sum()
-                sums[1] += x.shape[0]
-            offset += rows[2] if rows else x.shape[0]
+        with self.whole_params():
+            for batch in loader:
+                x, y = self._split_batch(batch)
+                rows = self._rows(batch, x.shape[0])
+                if x.shape[0]:
+                    losses = self.model.loss_function(
+                        x, generator=self._generator(offset, salt), y=y,
+                        per_sample=True, rows=rows)
+                    sums[0] += losses.double().sum()
+                    sums[1] += x.shape[0]
+                offset += rows[2] if rows else x.shape[0]
         mesh.all_reduce_sum_([sums])
         total, count = sums.tolist()
         return total / count if count else float("inf")
@@ -493,20 +570,34 @@ class DiffusionTrainer:
     # ------------------------------------------------------------------
     @contextlib.contextmanager
     def ema_weights(self):
-        """Run the model with the EMA weights, then put the weights back."""
+        """Run the model with the EMA weights, then put the weights back
+        (under model parallelism the EMA is gathered: every rank of the
+        group enters together)."""
+        was_whole = self._whole
+        # The parameters whose values the block overwrites.
+        held = [p for i, p in enumerate(self.params) if was_whole
+                or self.sharding.plan[i] is None]
         with torch.no_grad():
-            saved = [p.detach().clone() for p in self.params]
-            torch._foreach_copy_(self.params, self.ema)
+            saved = [p.detach().clone() for p in held]
+            if self.sharding is None:
+                torch._foreach_copy_(self.params, self.ema)
+            else:
+                self.sharding.gather_(self.params, self.ema)
+        self._whole = True
         try:
             yield
         finally:
             with torch.no_grad():
-                torch._foreach_copy_(self.params, saved)
+                if not was_whole:
+                    self.sharding.free_(self.params)
+                torch._foreach_copy_(held, saved)
+            self._whole = was_whole
 
     def generate_samples(self, epoch: int, num_samples: int = 4,
                          use_ema: bool = False) -> str:
         """A grid of the sampler's intermediates, one row per sample,
-        saved as ``samples/epoch_{epoch}.png``."""
+        saved as ``samples/epoch_{epoch}.png`` (under model parallelism,
+        inside :meth:`whole_params`, or with ``use_ema`` on every rank)."""
         gen = torch.Generator(device=self.device).manual_seed(
             (self.seed + 99) * _SEED_STRIDE + epoch)
         with self.ema_weights() if use_ema else contextlib.nullcontext():
@@ -520,13 +611,35 @@ class DiffusionTrainer:
 
     # ------------------------------------------------------------------
     def state(self, epoch: int) -> Dict[str, Any]:
-        """The full training state on the CPU, as a checkpoint holds it."""
+        """The full training state on the CPU, as a checkpoint holds it
+        (whole tensors: under model parallelism gathered from the
+        shards, and every rank calls this)."""
+        params, ema = self.params, self.ema
+        if self.sharding is not None:
+            params = self.sharding.whole(self.master)
+            ema = self.sharding.whole(self.ema)
         return {
             "params": {n: p.detach().cpu().clone()
-                       for n, p in zip(self.param_names, self.params)},
+                       for n, p in zip(self.param_names, params)},
+            "ema_params": {n: e.detach().cpu().clone()
+                           for n, e in zip(self.param_names, ema)},
+            "opt_state": self.optimizer.state_dict(),
+            "step": self.step_count,
+            "epoch": int(epoch),
+            "best_val_loss": float(self.best_val_loss),
+        }
+
+    def shard_state(self, epoch: int) -> Dict[str, Any]:
+        """This rank's part of :meth:`state` under model parallelism,
+        with no collective: its shards of the sharded leaves (and the
+        whole small ones), and each leaf's shard axis (None: whole)."""
+        return {
+            "params": {n: p.detach().cpu().clone()
+                       for n, p in zip(self.param_names, self.master)},
             "ema_params": {n: e.detach().cpu().clone()
                            for n, e in zip(self.param_names, self.ema)},
-            "opt_state": self.optimizer.state_dict(),
+            "opt_state": self.optimizer.state_dict(gather=False),
+            "axes": dict(zip(self.param_names, self.sharding.plan)),
             "step": self.step_count,
             "epoch": int(epoch),
             "best_val_loss": float(self.best_val_loss),
@@ -535,16 +648,25 @@ class DiffusionTrainer:
     def save_checkpoint(self, name: str, epoch: int) -> str:
         """Rank 0 writes the checkpoint; every rank waits until it is
         whole."""
+        state = self._checkpoint_state(epoch)
         if self.is_main:
-            self.ckpt.save(name, self.state(epoch))
+            self.ckpt.save(name, state)
         mesh.barrier()
         return str(self.ckpt.directory / name)
+
+    def _checkpoint_state(self, epoch: int) -> Optional[Dict[str, Any]]:
+        """:meth:`state` on rank 0 (on every rank under model parallelism,
+        whose gathers need them all); None elsewhere."""
+        if self.is_main or self.sharding is not None:
+            return self.state(epoch)
+        return None
 
     def _save_epoch_checkpoint(self, epoch: int) -> None:
         """``checkpoint_epoch_{epoch}``, then the pruning to
         ``keep_checkpoints``, on rank 0."""
+        state = self._checkpoint_state(epoch)
         if self.is_main:
-            self.ckpt.save(f"checkpoint_epoch_{epoch}", self.state(epoch))
+            self.ckpt.save(f"checkpoint_epoch_{epoch}", state)
             if self.keep_checkpoints:
                 self.ckpt.prune_epoch_checkpoints(self.keep_checkpoints)
         mesh.barrier()
@@ -558,13 +680,26 @@ class DiffusionTrainer:
                 raise FileNotFoundError(
                     f"no checkpoint_epoch_* under {self.ckpt.directory}")
         state = self.ckpt.restore(name)
-        self.model.net.load_state_dict(state["params"], strict=True)
+        ema = [state["ema_params"][n] for n in self.param_names]
+        if self.sharding is None:
+            self.model.net.load_state_dict(state["params"], strict=True)
+        else:   # every rank reads the whole file and keeps its shards
+            if set(state["params"]) != set(self.param_names):
+                raise KeyError(f"checkpoint {name} holds other parameters "
+                               f"than the network")
+            whole = [state["params"][n] for n in self.param_names]
+            with torch.no_grad():
+                for dst, src in zip(self.master,
+                                    self.sharding.shards(whole)):
+                    dst.copy_(src)
+            ema = self.sharding.shards(ema)
         with torch.no_grad():
-            for e, n in zip(self.ema, self.param_names):
-                e.copy_(state["ema_params"][n])
+            for e, src in zip(self.ema, ema):
+                e.copy_(src)
         self.optimizer.load_state_dict(state["opt_state"])
-        mesh.broadcast_([*self.params, *self.ema, *self.optimizer.mu,
-                         *self.optimizer.nu])
+        if self.sharding is None:
+            mesh.broadcast_([*self.params, *self.ema, *self.optimizer.mu,
+                             *self.optimizer.nu])
         self.step_count = int(state["step"])
         self.best_val_loss = float(state["best_val_loss"])
         self.start_epoch = int(state["epoch"]) + 1

@@ -295,6 +295,13 @@ class DiffusionBenchmark:
     Batch i's draws come from a generator on the model's device seeded
     from (``seed``, i); the reconstruction and NLL draws of real batch j
     from (``seed`` + 1, j).
+
+    Over ranks (``scope``, a ``parallel/mesh.py::Scope`` of more than
+    one): every rank of it calls :meth:`evaluate`, samples its rows of
+    each generated batch (drawing the whole batch's noise) and sends them
+    to rank 0, which alone reads the real set, extracts features and
+    scores, from the images one process would make; the others return
+    None.
     """
 
     def __init__(self, n_samples: int = 2000, batch_size: int = 128,
@@ -303,7 +310,8 @@ class DiffusionBenchmark:
                  pairing: str = "unpaired", recon_t_frac: float = 0.25,
                  sampler: str = "default",
                  sampler_steps: Optional[int] = None,
-                 device: Union[str, torch.device, None] = None):
+                 device: Union[str, torch.device, None] = None,
+                 scope=None):
         if pairing not in ("unpaired", "reconstruction"):
             raise ValueError(
                 f"pairing must be 'unpaired' or 'reconstruction' "
@@ -314,7 +322,9 @@ class DiffusionBenchmark:
                 f"'strided' (got {sampler!r})")
         self.n_samples = n_samples
         self.batch_size = batch_size
-        self.extractor = make_extractor(use_inception, seed, device=device)
+        self.scope = scope
+        self.extractor = (make_extractor(use_inception, seed, device=device)
+                          if scope is None or scope.rank == 0 else None)
         self.seed = seed
         self.metrics = metrics or {"fid": True, "inception_score": True,
                                    "ssim": True, "psnr": True}
@@ -347,9 +357,11 @@ class DiffusionBenchmark:
 
         return reconstruct
 
-    def _sample(self, model, bs: int, generator: torch.Generator):
+    def _sample(self, model, bs: int, generator: torch.Generator,
+                rows=None):
+        kw = {} if rows is None else {"rows": rows}
         if self.sampler == "default":
-            return model.generate_samples(bs, generator)
+            return model.generate_samples(bs, generator, **kw)
         method = SAMPLERS[self.sampler]
         if not hasattr(model, method):
             raise ValueError(
@@ -357,12 +369,39 @@ class DiffusionBenchmark:
                 "ε-prediction model (ddpm/ddim); use "
                 "'default' for score/energy families")
         return getattr(model, method)(bs, num_steps=self.sampler_steps or 20,
-                                      generator=generator)
+                                      generator=generator, **kw)
+
+    def generated(self, model):
+        """The generated batches in order: batch i from the generator of
+        (seed, i), sampled over the scope's ranks and gathered on rank 0
+        (yielded there only)."""
+        from ..scripts.generate import rank_samples
+        remaining, i = self.n_samples, 0
+        while remaining > 0:
+            bs = min(self.batch_size, remaining)
+            gen = _generator(model.device, self.seed, i)
+            if self.scope is None or self.scope.world == 1:
+                yield self._sample(model, bs, gen)
+            else:
+                parts = self.scope.gather(rank_samples(
+                    lambda rows: self._sample(model, bs, gen, rows),
+                    self.scope.rows(bs), model))
+                if parts is not None:
+                    yield torch.from_numpy(np.concatenate(parts)).to(
+                        model.device)
+            remaining -= bs
+            i += 1
 
     def evaluate(self, model, test_loader: Iterable,
-                 sample_dir: Optional[str] = None) -> Dict[str, float]:
+                 sample_dir: Optional[str] = None
+                 ) -> Optional[Dict[str, float]]:
         """Run the protocol with ``model``'s current weights; with
-        ``sample_dir``, save each generated batch as a PNG grid there."""
+        ``sample_dir``, save each generated batch as a PNG grid there.
+        Over ranks, the results on rank 0 and None on the others."""
+        if self.extractor is None:   # a rank that only samples
+            for _ in self.generated(model):
+                pass
+            return None
         want_ssim = self.metrics.get("ssim", True)
         want_psnr = self.metrics.get("psnr", True)
         want_nll = (self.metrics.get("nll", False)
@@ -375,28 +414,24 @@ class DiffusionBenchmark:
         real_feats: List[np.ndarray] = []
         real_batches: List[torch.Tensor] = []
         ssim_vals, psnr_vals, nll_vals = [], [], []
+        gens: List[torch.Generator] = []
         for j, batch in enumerate(test_loader):
             x = _images(batch).to(device, torch.float32)
             with f32_extraction():
                 real_feats.append(self.extractor(x)[0].cpu().numpy())
             real_batches.append(x)
-            gen = _generator(device, self.seed + 1, j)
+            gens.append(_generator(device, self.seed + 1, j))
             if recon is not None:
-                x0 = recon(x, gen)
+                x0 = recon(x, gens[j])
                 if want_ssim:
                     ssim_vals.append(float(ssim(x0, x)))
                 if want_psnr:
                     psnr_vals.append(float(psnr(x0, x)))
-            if want_nll:
-                nll_vals.extend(model.nll_bits_per_dim(x, gen).tolist())
         real = np.concatenate(real_feats) if real_feats else None
 
         fake_feats, fake_logits = [], []
-        remaining, i = self.n_samples, 0
-        while remaining > 0:
-            bs = min(self.batch_size, remaining)
-            samples = self._sample(model, bs, _generator(device, self.seed,
-                                                         i))
+        for i, samples in enumerate(self.generated(model)):
+            bs = samples.shape[0]
             if sample_dir is not None:
                 from .images import save_image
                 save_image(samples.cpu().numpy(),
@@ -412,8 +447,11 @@ class DiffusionBenchmark:
                     ssim_vals.append(float(ssim(samples[:n], ref[:n])))
                 if want_psnr:
                     psnr_vals.append(float(psnr(samples[:n], ref[:n])))
-            remaining -= bs
-            i += 1
+        # After the sampling, which the other ranks wait on; real batch j
+        # goes on with the generator its reconstruction drew from.
+        if want_nll:
+            for x, gen in zip(real_batches, gens):
+                nll_vals.extend(model.nll_bits_per_dim(x, gen).tolist())
 
         results: Dict[str, float] = {}
         if self.metrics.get("fid", True) and real is not None:

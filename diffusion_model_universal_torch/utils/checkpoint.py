@@ -13,6 +13,11 @@ checkpoints directory. The names and policies are the reference's:
 ``final_model``, the newest ``checkpoint_epoch_*`` for ``--resume latest``,
 and pruning of the periodic ones. The reference's checkpoints are Orbax
 directories, which the port neither reads nor writes: given one, it raises.
+
+Under ``distributed.model_parallel`` M the emergency checkpoint is written
+by each rank alone, as ``shard_{i}_of_{M}.pt`` files that hold shard i of
+each sharded leaf (of the parameters, the EMA and Adam's moments) and its
+axis; reading the directory joins a full set into the state above.
 """
 
 from __future__ import annotations
@@ -30,10 +35,58 @@ STATE_FILE = "state.pt"
 FORMAT = "dmu-torch-trainer-v1"
 
 
+def _load(path: Path) -> Dict[str, Any]:
+    state = torch.load(path, map_location="cpu", weights_only=False)
+    if state.get("format") != FORMAT:
+        raise ValueError(f"{path}: unknown checkpoint format "
+                         f"{state.get('format')!r}")
+    return state
+
+
+def join_shards(path: Path) -> Dict[str, Any]:
+    """The state of one process from the ``shard_{i}_of_{M}.pt`` files in
+    ``path`` (every i of M must be there): each sharded leaf the
+    concatenation of its M shards along its axis."""
+    found = {}
+    for f in path.glob("shard_*_of_*.pt"):
+        m = re.match(r"shard_(\d+)_of_(\d+)\.pt$", f.name)
+        if m:
+            found[(int(m.group(2)), int(m.group(1)))] = f
+    counts = {m for m, _ in found}
+    if len(counts) != 1:
+        raise ValueError(f"{path}: shards of model_parallel {sorted(counts)}")
+    (m,) = counts
+    missing = [i for i in range(m) if (m, i) not in found]
+    if missing:
+        raise FileNotFoundError(
+            f"{path}: shards {missing} of {m} were not written (their "
+            "ranks stopped before saving); resume from a checkpoint_epoch_*")
+    parts = [_load(found[(m, i)]) for i in range(m)]
+    first = parts[0]
+
+    def join(name, pieces):
+        axis = first["axes"][name]
+        return pieces[0] if axis is None else torch.cat(pieces, axis)
+
+    names = list(first["axes"])
+    state = {k: first[k] for k in ("step", "epoch", "best_val_loss")}
+    for key in ("params", "ema_params"):
+        state[key] = {n: join(n, [s[key][n] for s in parts]) for n in names}
+    opt = dict(first["opt_state"])
+    for key in ("mu", "nu"):
+        opt[key] = [join(n, [s["opt_state"][key][i] for s in parts])
+                    for i, n in enumerate(names)]
+    state["opt_state"] = opt
+    return state
+
+
 def read_state(path: str) -> Dict[str, Any]:
-    """Read the state of the checkpoint directory ``path``."""
+    """Read the state of the checkpoint directory ``path`` (joining its
+    shards when it holds them instead)."""
     p = Path(path)
     state_file = p / STATE_FILE
+    if not state_file.exists() and any(p.glob("shard_*_of_*.pt")):
+        return join_shards(p)
     if not state_file.exists():
         if p.is_dir() and any(p.iterdir()):
             raise ValueError(
@@ -42,11 +95,7 @@ def read_state(path: str) -> Dict[str, Any]:
                 "not read by the port. Export the weights with the JAX "
                 "package to a model-only .ckpt instead")
         raise FileNotFoundError(f"checkpoint not found: {p}")
-    state = torch.load(state_file, map_location="cpu", weights_only=False)
-    if state.get("format") != FORMAT:
-        raise ValueError(f"{state_file}: unknown checkpoint format "
-                         f"{state.get('format')!r}")
-    return state
+    return _load(state_file)
 
 
 class CheckpointManager:
@@ -57,17 +106,26 @@ class CheckpointManager:
         self.config = config or {}
         self.directory.mkdir(parents=True, exist_ok=True)
 
-    def save(self, name: str, state: Dict[str, Any]) -> str:
-        """Write ``<dir>/<name>/state.pt`` (replacing an older one whole:
+    def save(self, name: str, state: Dict[str, Any],
+             file: str = STATE_FILE) -> str:
+        """Write ``<dir>/<name>/<file>`` (replacing an older one whole:
         written to a temporary file, then renamed) and ``config.json``."""
         path = self.directory / name
         path.mkdir(parents=True, exist_ok=True)
-        tmp = path / f"{STATE_FILE}.{os.getpid()}.tmp"
+        tmp = path / f"{file}.{os.getpid()}.tmp"
         torch.save(dict(state, format=FORMAT), tmp)
-        os.replace(tmp, path / STATE_FILE)
+        os.replace(tmp, path / file)
         with open(self.directory / "config.json", "w") as f:
             json.dump(self.config, f, indent=2, default=str)
         return str(path)
+
+    def save_shard(self, name: str, index: int, model_parallel: int,
+                   state: Dict[str, Any]) -> str:
+        """Write shard ``index`` of ``model_parallel`` of checkpoint
+        ``name`` (a trainer's ``shard_state``); the replicas of one
+        shard write the same file."""
+        return self.save(name, state,
+                         file=f"shard_{index}_of_{model_parallel}.pt")
 
     def restore(self, name: str) -> Dict[str, Any]:
         return read_state(str(self.directory / name))

@@ -72,27 +72,31 @@ def estimate_sampler_bytes(batch: int, image_size: int, model_channels: int,
 def plan_sampler_chunks(num_samples: int, image_size: int,
                         model_channels: int, in_channels: int = 3,
                         dtype_bytes: int = 2, params_bytes: int = 0,
+                        n_devices: int = 1,
                         budget_bytes: Optional[int] = None,
                         ) -> Tuple[int, int]:
-    """Split ``num_samples`` into equal chunks that fit the budget of one
-    card.
+    """Split ``num_samples`` into equal chunks that fit the budget of each
+    of ``n_devices`` cards, which split every chunk.
 
     Returns ``(chunk_size, n_chunks)`` with ``chunk_size · n_chunks ≥
-    num_samples`` (the last chunk holds the rest). With no budget the plan
-    is one chunk. Raises :class:`SamplerMemoryError` when even one sample
-    exceeds the budget. The reference's arithmetic on one device.
+    num_samples`` (the last chunk holds the rest). A device holds the
+    ceiling of chunk/N rows, and a split chunk is a multiple of N. With no
+    budget the plan is one chunk. Raises :class:`SamplerMemoryError` when
+    even one sample a device exceeds the budget. The reference's
+    arithmetic.
     """
     if budget_bytes is None or num_samples <= 0:
         return num_samples, 1
+    n_devices = max(1, n_devices)
 
     def fits(b: int) -> bool:
         return estimate_sampler_bytes(
-            b, image_size, model_channels, in_channels, dtype_bytes,
-            params_bytes) <= budget_bytes
+            -(-b // n_devices), image_size, model_channels, in_channels,
+            dtype_bytes, params_bytes) <= budget_bytes
 
     if fits(num_samples):
         return num_samples, 1
-    if not fits(1):
+    if not fits(n_devices):
         need = estimate_sampler_bytes(1, image_size, model_channels,
                                       in_channels, dtype_bytes, params_bytes)
         raise SamplerMemoryError(
@@ -104,6 +108,7 @@ def plan_sampler_chunks(num_samples: int, image_size: int,
     n_chunks = 2
     while True:
         chunk = -(-num_samples // n_chunks)
+        chunk = max(n_devices, -(-chunk // n_devices) * n_devices)
         if fits(chunk):
             return chunk, -(-num_samples // chunk)
         n_chunks += 1

@@ -1,10 +1,13 @@
 """The port's layers, UNet, DDPM and weight bridge against the JAX
 package, on the CPU, in f32, at a small size (C=32, 32², T=8, B=2).
 
-Weights are made by the JAX initializers, then every leaf gets seeded
-noise (so zero-initialized ``conv2``/``time_proj`` contribute), and
-cross to the port through ``models/convert.py``. Inputs and sampler noise
-are made with numpy and fed to both packages.
+The blocks' weights are made by the JAX initializers (each init and
+apply one compiled program), the whole UNet's by the port's (JAX's
+compiled init of the UNet alone costs about 13 s of CPU); then every leaf
+gets seeded noise (so zero-initialized ``conv2``/``time_proj``
+contribute), and they cross between the packages through
+``models/convert.py``. Inputs and sampler noise are made with numpy and
+fed to both packages.
 """
 
 import pickle
@@ -86,10 +89,18 @@ def test_blocks_match_jax(name):
     temb = rng.standard_normal((B, 4 * C)).astype(np.float32)
     skip = (rng.standard_normal((B, 4, 4, cs)).astype(np.float32)
             if cs else None)
-    args = (jnp.asarray(x), jnp.asarray(temb), True) + (
+    args = (jnp.asarray(x), jnp.asarray(temb)) + (
         (jnp.asarray(skip),) if cs else ())
-    params = _perturb(jmod.init(jax.random.PRNGKey(0), *args)["params"], 2)
-    ref = np.asarray(jmod.apply({"params": params}, *args))
+
+    def init(key, x, temb, *skip):
+        return jmod.init(key, x, temb, True, *skip)
+
+    def apply(p, x, temb, *skip):
+        return jmod.apply({"params": p}, x, temb, True, *skip)
+
+    params = _perturb(jax.jit(init)(jax.random.PRNGKey(0), *args)["params"],
+                      2)
+    ref = np.asarray(jax.jit(apply)(params, *args))
     tmod.load_state_dict(unet_state_dict_from_jax(params), strict=True)
     with torch.no_grad():
         out = tmod(_nchw(x), torch.from_numpy(temb),
@@ -103,9 +114,10 @@ def test_self_attention_block_matches_jax():
     jmod = jattn.SelfAttentionBlock(64, num_heads=4)
     x = np.random.default_rng(3).standard_normal((B, 4, 4, 64)).astype(
         np.float32)
-    params = _perturb(jmod.init(jax.random.PRNGKey(1),
-                                jnp.asarray(x))["params"], 4)
-    ref = np.asarray(jmod.apply({"params": params}, jnp.asarray(x)))
+    params = _perturb(jax.jit(jmod.init)(jax.random.PRNGKey(1),
+                                         jnp.asarray(x))["params"], 4)
+    ref = np.asarray(jax.jit(lambda p, x: jmod.apply({"params": p}, x))(
+        params, jnp.asarray(x)))
     tmod = SelfAttentionBlock(64, num_heads=4)
     tmod.load_state_dict(unet_state_dict_from_jax(params), strict=True)
     with torch.no_grad():
@@ -117,12 +129,26 @@ def test_self_attention_block_matches_jax():
 
 @pytest.fixture(scope="module")
 def models():
-    """(jax DDPM, perturbed jax params, port DDPM with those weights)."""
+    """(jax DDPM, the port's initial weights perturbed as the flax tree,
+    port DDPM with those weights)."""
     jm = JaxDDPM(CFG)
-    params = _perturb(jax.jit(jm.init_params)(jax.random.PRNGKey(0)), 0)
     tm = DDPM(CFG, device="cpu")
+    params = _perturb(unet_params_to_jax(tm.net), 0)
     tm.load_params(params)
     return jm, params, tm
+
+
+def test_unet_tree_matches_jax_init(models):
+    """The flax tree the port's UNet crosses to (the fixture's weights)
+    has the leaves and shapes of JAX's own ``init_params`` tree
+    (``jax.eval_shape``: nothing compiled)."""
+    jm, params, _ = models
+
+    def shapes(tree):
+        return {tuple(k.key for k in path): tuple(leaf.shape) for path, leaf
+                in jax.tree_util.tree_flatten_with_path(tree)[0]}
+    want = shapes(jax.eval_shape(jm.init_params, jax.random.PRNGKey(0)))
+    assert shapes(params) == want and len(want) > 100
 
 
 def _inputs(seed=1):
@@ -190,17 +216,20 @@ def test_eps_fn_matches_jax_for_each_prediction_type(models,
     np.testing.assert_allclose(out.numpy(), ref, atol=tol, rtol=1e-4)
 
 
-def _jax_step(jm):
+@pytest.fixture(scope="module")
+def jax_step(models):
+    """The JAX model's posterior step, compiled once for the module."""
+    jm = models[0]
     return jax.jit(lambda p, x, t, n: jm.posterior_step_fn(p)(x, t, n))
 
 
-def test_posterior_step_matches_jax(models):
+def test_posterior_step_matches_jax(models, jax_step):
     jm, params, tm = models
     x, t = _inputs(3)
     noise = np.random.default_rng(4).standard_normal(x.shape).astype(
         np.float32)
-    ref = np.asarray(_jax_step(jm)(params, jnp.asarray(x), jnp.asarray(t),
-                                   jnp.asarray(noise)))
+    ref = np.asarray(jax_step(params, jnp.asarray(x), jnp.asarray(t),
+                              jnp.asarray(noise)))
     with torch.no_grad():
         out = tm.posterior_step_fn()(torch.from_numpy(x),
                                      torch.from_numpy(t).long(),
@@ -208,13 +237,13 @@ def test_posterior_step_matches_jax(models):
     np.testing.assert_allclose(out.numpy(), ref, atol=1e-4, rtol=1e-4)
 
 
-def test_sampler_matches_jax_on_injected_noise(models):
+def test_sampler_matches_jax_on_injected_noise(models, jax_step):
     """All T=8 ancestral steps, the same draws fed to both packages."""
     jm, params, tm = models
     rng = np.random.default_rng(5)
     draws = [rng.standard_normal((B, 32, 32, 3)).astype(np.float32)
              for _ in range(T + 1)]
-    step = _jax_step(jm)
+    step = jax_step
     x = jnp.asarray(draws[0])
     for i, t in enumerate(range(T - 1, -1, -1)):
         x = step(params, x, jnp.full((B,), t, jnp.int32),

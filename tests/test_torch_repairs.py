@@ -154,6 +154,32 @@ def test_memory_planner_matches_jax(case):
     assert memory.plan_sampler_chunks(n, budget_bytes=budget, **kw) == want
 
 
+@pytest.mark.parametrize("n_devices", [2, 3, 8])
+def test_memory_planner_over_devices_matches_jax(n_devices):
+    """``plan_sampler_chunks(..., n_devices=N)`` against the reference's
+    planner on a grid of requests and budgets: a device holds the ceiling
+    of chunk/N rows and a split chunk is a multiple of N; the same plans
+    and the same refusals (when even one sample a device does not fit)."""
+    kw = dict(image_size=32, model_channels=128, dtype_bytes=2,
+              params_bytes=127 * 10 ** 6, n_devices=n_devices)
+    one = memory.estimate_sampler_bytes(1, 32, 128, 3, 2, 127 * 10 ** 6)
+    plans = set()
+    for budget in (one - 1, one, 3 * one, 17 * one, 100 * one, 8 * GIB):
+        for n in (1, 2, 7, 16, 50, 129, 1000, 50_000):
+            try:
+                want = jax_memory.plan_sampler_chunks(
+                    n, budget_bytes=budget, **kw)
+            except jax_memory.SamplerMemoryError as e:
+                with pytest.raises(memory.SamplerMemoryError) as got:
+                    memory.plan_sampler_chunks(n, budget_bytes=budget, **kw)
+                assert str(got.value) == str(e)
+                continue
+            assert memory.plan_sampler_chunks(
+                n, budget_bytes=budget, **kw) == want, (n, budget)
+            plans.add(want)
+    assert len(plans) > 10
+
+
 def test_cpu_has_no_budget_unless_set(monkeypatch):
     monkeypatch.delenv("DMU_SAMPLER_HBM_BYTES", raising=False)
     assert memory.device_memory_budget("cpu") is None

@@ -551,7 +551,12 @@ def test_ddim_generate_cli_samplers_cfg_and_inpainting(ddim_files, capsys):
             (["--class_id", "0"], "--class_id: model is unconditional"),
             (["--sampler", "dpm++", "--sampler_steps", "1"],
              "--sampler dpm++: num_steps must be in [2, 10]"),
-            (["--num_devices", "2"], "--num_devices > 1 is not yet ported")]:
+            # --num_devices > 1, once refused, now spawns the ranks
+            # (tests/test_torch_parallel.py samples over two), after the
+            # refusals that need no model.
+            (["--num_devices", "2", "--inpaint_image",
+              str(tmp / "image.npy")],
+             "--inpaint_image requires --inpaint_mask")]:
         with pytest.raises(SystemExit) as e:
             gen_cli.main(base + ["--checkpoint", uncond] + extra)
         assert fragment in str(e.value)

@@ -10,6 +10,7 @@ resumes and generates from the EMA weights end to end.
 import hashlib
 import json
 import pickle
+import re
 import struct
 
 import jax
@@ -294,7 +295,7 @@ def test_train_cli_refuses_unported_flags(tmp_path, extra, fragment, capsys,
     it. ``--num_devices 2`` trains two gloo ranks on the CPU end to end,
     rank 0 writing the checkpoints. ``--num_gpus 3`` (the reference's
     spelling) is no longer refused as not ported (the ``fragment``); the
-    batch of 4, which 3 ranks cannot split, is
+    batch of 4, which 3 ranks (data 3 × model 1) cannot split, is
     (``tests/test_torch_parallel.py`` holds the ranks against one process
     and JAX). ``--profile``, once
     refused here, runs: one warm-up update and ``--profile_steps`` traced
@@ -310,9 +311,9 @@ def test_train_cli_refuses_unported_flags(tmp_path, extra, fragment, capsys,
             train_cli.main(args + extra)
         return
     if extra[0] == "--num_gpus":
-        with pytest.raises(SystemExit, match="batch_size 4 is not a "
-                                             "multiple of --num_devices 3"
-                           ) as err:
+        with pytest.raises(SystemExit, match=re.escape(
+                "batch_size 4 is not a multiple of --num_devices 3 (data 3 "
+                "× model 1): each rank takes B/(D·M) rows")) as err:
             train_cli.main(args + extra)
         assert fragment not in str(err.value)
         return
