@@ -48,8 +48,8 @@ on, dropout 0.1, the config's SNR-weighted MSE, Adam and EMA):
    checks that the GroupNorm backward (K2) refuses a second derivative on
    the card and that attention's grad-of-grad matches ``mha_plain``'s;
 8. runs the training CLI at full width as a subprocess on the synthetic
-   dataset (2 epochs, checkpoints, validation, a sample grid), resumes it
-   from its latest checkpoint for a third epoch, and generates from the
+   dataset (1 epoch, checkpoints, validation, a sample grid), resumes it
+   from its latest checkpoint for a second epoch, and generates from the
    final checkpoint's EMA weights, at ``CLI_T`` diffusion steps;
 9. times training steps in-process (ms/step, images/s), checks that each
    step launched K1, K2 and K3 exactly as often as counted, traces a few
@@ -98,8 +98,9 @@ Then the samplers, through the entry points a user calls:
     b. serves ``ddim_config.yaml`` (``--model_type ddim``; one DDIM-50
        request also traced with ``torch.profiler``), the same with
        ``num_classes: 10`` and ``ddpm_config.yaml`` with ``learn_sigma:
-       true`` over HTTP in bf16 at the serve batch, and times three
-       requests after a warm-up for each of ``SERVE_CASES`` (DDIM-50,
+       true`` over HTTP in bf16 at the serve batch, and times
+       ``TIMED_REQUESTS`` requests after a warm-up for each of
+       ``SERVE_CASES`` (DDIM-50,
        DPM++-20, Heun-18, strided-100; CFG 3.0 through DDIM-50 and
        DPM++-20; strided-100 with the learned variance), each of which
        must launch K1 and K3 exactly 53× and 5× its UNet forwards;
@@ -122,9 +123,10 @@ channels):
        second-order gradients; 2 levels of each energy sampler;
     b. serves each family over HTTP in bf16 at the serve batch with one
        cut, 10 levels × 10 Langevin steps (``FAMILIES``): a warm-up and
-       three timed requests, the seconds, images/s, host ms a network
-       evaluation, the published ladder's forecast and the device busy
-       share of 5 of a request's levels (``torch.profiler``); the score
+       ``TIMED_REQUESTS`` timed requests, the seconds, images/s, host ms
+       a network evaluation, the published ladder's forecast and the busy
+       share of the card over 5 of a request's levels
+       (``torch.profiler``); the score
        request must launch K1 and K3 exactly 53× and 5× its 100
        forwards, the energy request no K1, K2 or K3 (its GroupNorm is the
        plain version, as the reference's is XLA's);
@@ -219,11 +221,12 @@ Then sampling over ranks and ``distributed.model_parallel``
        of world 1: bit-equal (cuDNN deterministic);
     b. spawns ``RANK_WORLD`` gloo ranks sharing the card, held against one
        process in f32 (1e-3 + 1e-3·|ref|): ``generate``'s chunk, the
-       server's ``RANK_REQUESTS`` (DPM++-20 three times and ancestral-1000
-       at serve batch 16) over HTTP on rank 0 with rank 1 following, and
-       a ``--benchmark`` batch (the FID inputs); K1/K3 exactly 53/5 a
-       forward on each rank; the bf16 requests timed beside one process
-       (DPM++-20 here, ancestral-1000 from phase 4);
+       server's ``RANK_REQUESTS`` (DPM++-20 three times and the
+       ancestral sampler's ``RANK_T`` steps at serve batch 16) over HTTP
+       on rank 0 with rank 1 following, and a ``--benchmark`` batch (the
+       FID inputs); K1/K3 exactly 53/5 a forward on each rank; the bf16
+       requests timed beside one process (DPM++-20 here, the ancestral
+       step's time against phase 4's 1000-step request);
     c. ``model_parallel: 2`` on the same two ranks: ``MP_UPDATES`` f32
        updates at B=128 against one process (loss rtol 1e-5, norms 1e-4,
        μ 1e-7 + rtol 1e-3) with K1/K2/K3 at 100/53/9 an update a rank;
@@ -232,6 +235,30 @@ Then sampling over ranks and ``distributed.model_parallel``
        and the allocator's blocks for them;
        the checkpoint they write restored by one process bit-equal; ms an
        update in bf16 beside phase 15c's.
+
+Then ``training.scan_steps`` (``trainers/scan.py``): K = SCAN_K updates
+captured once as a CUDA graph and replayed once a chunk, at the full
+width of ``ddpm_config.yaml``:
+
+17. a. SCAN_HOLD_UPDATES f32 updates (B=4, dropout 0.1, remat; an eager
+       chunk, two replays, a ragged update) against as many eager
+       ``step`` calls on the same draws, cuDNN deterministic: alone, as
+       rank 0 of a NCCL group of world 1, and for the energy family at
+       B=2 (CD + GP's second derivatives inside the graph): bit-equal, or
+       within the eager runs' own spread or the JAX step's tolerances;
+       each replay recorded 100/53/9 K1/K2/K3 an update;
+    b. runs ``train`` with ``scan_steps`` SCAN_K (bf16, remat) for an
+       epoch of 12 updates and a resume for a second: the steps it logs
+       and validates at (SCAN_CLI_LOG / SCAN_CLI_VAL, crossed inside
+       chunks) against the reference's rule, the throughput at each log
+       event but a run's first, the checkpoints, and K1/K2/K3 run exactly
+       100/53/9 an update and 53/0/5 an eval forward (launcher calls −
+       captured + replayed);
+    c. times an update with ``scan_steps`` 1 and SCAN_K in turns (1, K,
+       K, 1) at B=128 and 2048 (``SCAN_TIME_BATCHES``), with each one's
+       device busy share, K1/K2/K3 counted in a replay's trace (exactly
+       400/212/36), the peak memory of an eager update over the state
+       and the graph's pool.
 
 The last three lines of standard output are the ``kernels`` JSON line
 (all seven kernels; K1–K3 with their 64² training rows and the launches
@@ -889,7 +916,7 @@ def profile_steps(model, steps: int = 5):
                            "sampler")
 
 
-def time_dispatch(model, steps: int = 50, reps: int = 6):
+def time_dispatch(model, steps: int = 50, reps: int = 4):
     """Wall ms per sampler step at the serve batch with every GroupNorm
     and attention call made through its autograd Function (the ops' only
     path), and with the kernels called directly: ``reps`` pairs, each
@@ -991,6 +1018,8 @@ def profile_run(run_step, steps: int, what: str, warmup: int = 3):
     kernels = sum(v[1] for v in dev.values())
     ours = {tag: sum(v[0] for k, v in dev.items() if tag in k)
             for tag in ("gn_fwd_kernel", "gn_bwd_kernel", "mha_fwd")}
+    our_counts = {tag: sum(v[1] for k, v in dev.items() if tag in k)
+                  for tag in ours}
     top = sorted(dev.items(), key=lambda kv: -kv[1][0])[:8]
     top_ops = sorted(ops.items(), key=lambda kv: -kv[1][0])[:6]
     summary = {"what": what, "steps": steps,
@@ -1000,6 +1029,8 @@ def profile_run(run_step, steps: int, what: str, warmup: int = 3):
                "device_kernels_per_step": kernels / steps,
                "host_calls_per_step": host,
                **{f"{tag}_ms_per_step": v / steps for tag, v in ours.items()},
+               "our_kernel_launches_per_step": {
+                   tag: n / steps for tag, n in our_counts.items()},
                "top_kernels": [[k[:90], ms / steps, cnt / steps]
                                for k, (ms, cnt) in top],
                "top_ops_by_device_ms": [[k[:60], ms / steps, cnt / steps]
@@ -1270,22 +1301,56 @@ def hold_double_backward():
     return errs
 
 
+class BackgroundCLI:
+    """One of the port's CLIs started as a subprocess (in ``env`` when
+    given) while the caller goes on; :meth:`result` waits for it, fails
+    on a non-zero exit and returns its standard output. Its output goes
+    to temporary files, so a long one never blocks it. Correctness runs
+    whose times nothing reads may overlap this way; timed work never
+    does."""
+
+    def __init__(self, module: str, args, what: str, timeout: int = 900,
+                 env=None):
+        self.what, self.timeout = what, timeout
+        self.files = [tempfile.TemporaryFile("w+") for _ in range(2)]
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", f"diffusion_model_universal_torch."
+             f"scripts.{module}", *args], cwd=REPO, text=True, env=env,
+            stdout=self.files[0], stderr=self.files[1])
+
+    def result(self) -> str:
+        try:
+            rc = self.proc.wait(timeout=max(
+                1.0, self.timeout - (time.perf_counter() - self.t0)))
+        except subprocess.TimeoutExpired:
+            self.stop()
+            raise
+        texts = []
+        for f in self.files:
+            f.seek(0)
+            texts.append(f.read())
+            f.close()
+        stdout, stderr = texts
+        log(f"[cli] {self.what}: exit {rc} in "
+            f"{time.perf_counter() - self.t0:.1f} s")
+        if rc != 0:
+            log(stdout[-4000:])
+            log(stderr[-4000:])
+        check(rc == 0, f"{self.what} exited {rc}")
+        return stdout
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
 def run_cli(module: str, args, what: str, timeout: int = 900,
             env=None) -> str:
     """Run one of the port's CLIs as a subprocess (in ``env`` when
     given); fails on a non-zero exit. Returns its standard output."""
-    cmd = [sys.executable, "-m", f"diffusion_model_universal_torch.scripts."
-           f"{module}", *args]
-    t0 = time.perf_counter()
-    out = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
-                         timeout=timeout, env=env)
-    secs = time.perf_counter() - t0
-    log(f"[cli] {what}: exit {out.returncode} in {secs:.1f} s")
-    if out.returncode != 0:
-        log(out.stdout[-4000:])
-        log(out.stderr[-4000:])
-    check(out.returncode == 0, f"{what} exited {out.returncode}")
-    return out.stdout
+    return BackgroundCLI(module, args, what, timeout, env).result()
 
 
 #: Phase 8's T: its sample grid and ``generate --ema`` run the ancestral
@@ -1295,17 +1360,18 @@ CLI_T = 100
 
 
 def train_cli(steps_per_epoch: int):
-    """Phase 8: the training CLI at full width (2 epochs), a resume from
-    its latest checkpoint for a third epoch, and ``generate --ema``, at
-    ``CLI_T`` diffusion steps."""
+    """Phase 8: the training CLI at full width (one epoch; two before PR
+    15, cut to make room for phase 17), a resume from its latest
+    checkpoint for a second epoch, and ``generate --ema``, at ``CLI_T``
+    diffusion steps."""
     import numpy as np
     import yaml
     from diffusion_model_universal_torch.scripts.train import params_digest
     from diffusion_model_universal_torch.utils.checkpoint import read_state
     from diffusion_model_universal_torch.utils.images import decode_png
     tmp = Path(tempfile.mkdtemp(prefix="dmu_train_"))
-    overrides = {"num_epochs": 2, "checkpoint_interval": 1,
-                 "sample_interval": 2, "val_interval": steps_per_epoch}
+    overrides = {"num_epochs": 1, "checkpoint_interval": 1,
+                 "sample_interval": 1, "val_interval": steps_per_epoch}
     log(f"[cli] ddpm_config.yaml with data.dataset=synthetic, training "
         f"overrides {overrides}, output_dir under {tmp}")
     def cli_config(**training):
@@ -1318,37 +1384,36 @@ def train_cli(steps_per_epoch: int):
         cfg_path.write_text(yaml.safe_dump(cli_config(**overrides)))
         base = ["--config", str(cfg_path), "--model_type", "ddpm",
                 "--seed", str(SEED)]
-        out = run_cli("train", base, "train 2 epochs")
+        out = run_cli("train", base, "train 1 epoch")
         launches = json.loads(out.split("Kernel launches: ")[1]
                               .splitlines()[0])
         ck = tmp / "out" / "checkpoints"
-        for name in ("checkpoint_epoch_0", "checkpoint_epoch_1",
-                     "best_model", "final_model"):
+        for name in ("checkpoint_epoch_0", "best_model", "final_model"):
             check((ck / name / "state.pt").is_file(), f"no {name}")
-        saved = read_state(str(ck / "checkpoint_epoch_1"))
-        check(saved["step"] == 2 * steps_per_epoch and saved["epoch"] == 1,
-              f"checkpoint_epoch_1 at step {saved['step']}")
-        grid = decode_png((tmp / "out" / "samples" / "epoch_1.png")
+        saved = read_state(str(ck / "checkpoint_epoch_0"))
+        check(saved["step"] == steps_per_epoch and saved["epoch"] == 0,
+              f"checkpoint_epoch_0 at step {saved['step']}")
+        grid = decode_png((tmp / "out" / "samples" / "epoch_0.png")
                           .read_bytes())
-        log(f"[cli] sample grid epoch_1.png {grid.shape}; checkpoints "
+        log(f"[cli] sample grid epoch_0.png {grid.shape}; checkpoints "
             f"{sorted(p.name for p in ck.iterdir())}; launches {launches}")
         cfg_path.write_text(yaml.safe_dump(cli_config(
-            **dict(overrides, num_epochs=3))))
+            **dict(overrides, num_epochs=2))))
         out = run_cli("train", base + ["--resume", "latest"],
-                      "resume from latest for epoch 3")
-        want = (f"Resumed from epoch 2 at step {2 * steps_per_epoch} "
+                      "resume from latest for epoch 2")
+        want = (f"Resumed from epoch 1 at step {steps_per_epoch} "
                 f"(params sha256 {params_digest(saved['params'].values())})")
         check(want in out, f"resume line missing: {want}")
         final = read_state(str(ck / "final_model"))
-        check(final["step"] == 3 * steps_per_epoch,
+        check(final["step"] == 2 * steps_per_epoch,
               f"final_model at step {final['step']}")
         losses = [json.loads(line)["train/loss"] for line in
                   (tmp / "out" / "metrics.jsonl").read_text().splitlines()
                   if "train/loss" in line]
         check(len(losses) > 0 and all(math.isfinite(v) for v in losses),
               f"logged losses {losses}")
-        log(f"[cli] resumed at epoch 2, step {2 * steps_per_epoch}, params "
-            f"bit-equal to checkpoint_epoch_1; final_model at step "
+        log(f"[cli] resumed at epoch 1, step {steps_per_epoch}, params "
+            f"bit-equal to checkpoint_epoch_0; final_model at step "
             f"{final['step']}; {len(losses)} logged losses, all finite, "
             f"first {losses[0]:.4f} last {losses[-1]:.4f}")
         gen_dir = tmp / "gen"
@@ -1871,10 +1936,20 @@ def exp_clis():
     """Phase 10d: each experiment CLI's --check, then --bench at its default
     shape, as subprocesses; each run's own launch counters (they start at 0
     in the subprocess) must show every kernel of that CLI. Returns the
-    launches summed over the four runs, by C symbol, and the bench lines."""
+    launches summed over the four runs, by C symbol, and the bench lines.
+    The two --check runs go side by side; each --bench runs alone."""
     launches, lines = {}, []
+    checks = {key: BackgroundCLI(key[0], [key[1]], f"{key[0]} {key[1]}",
+                                 timeout=600)
+              for key in EXP_SYMBOLS if key[1] == "--check"}
+    try:
+        outs = {key: run.result() for key, run in checks.items()}
+    finally:
+        for run in checks.values():
+            run.stop()
     for (module, mode), symbols in EXP_SYMBOLS.items():
-        out = run_cli(module, [mode], f"{module} {mode}", timeout=600)
+        out = outs.get((module, mode)) or run_cli(
+            module, [mode], f"{module} {mode}", timeout=600)
         got = json.loads(out.split("Kernel launches: ")[1].splitlines()[0])
         check(all(got.get(s, 0) > 0 for s in symbols),
               f"{module} {mode} launched {got}")
@@ -2149,6 +2224,9 @@ DDIM_CONFIG = (REPO / "diffusion_model_universal_torch" / "configs"
 #: Phase 11b's requests: (model, request fields, UNet forwards a request).
 #: A request launches K1 and K3 53× and 5× its forwards (CFG's two a step
 #: are counted): DDIM-50 50, DPM++-20 19, Heun-18 2·17, strided-100 100.
+#: Timed requests after the warm-up, for each case of phase 11b and each
+#: family of phase 12b (three before PR 15, cut to make room for phase 17).
+TIMED_REQUESTS = 2
 SERVE_CASES = [
     ("ddim", {}, 50),
     ("ddim", {"sampler": "dpm++", "sampler_steps": 20}, 19),
@@ -2349,9 +2427,9 @@ def hold_quiet(got, want) -> float:
 
 def serve_samplers(per_forward):
     """Phase 11b: serve the three models over HTTP in bf16 at the serve
-    batch; each case of SERVE_CASES gets a warm-up request and three timed
-    ones, each of which must launch K1 and K3 exactly 53× and 5× its UNet
-    forwards."""
+    batch; each case of SERVE_CASES gets a warm-up request and
+    TIMED_REQUESTS timed ones, each of which must launch K1 and K3 exactly
+    53× and 5× its UNet forwards."""
     import numpy as np
     import torch
     from diffusion_model_universal_torch.ops import attention as attn_ops
@@ -2383,7 +2461,7 @@ def serve_samplers(per_forward):
                                 format="npy")
                     want = {n: forwards * per_forward[n] for n in kernels}
                     times = []
-                    for seed in range(4):      # a warm-up, then three
+                    for seed in range(1 + TIMED_REQUESTS):   # a warm-up
                         for k in kernels.values():
                             k.launches = 0
                         req = urllib.request.Request(
@@ -2439,13 +2517,14 @@ def sampler_clis():
     then ``generate --ema --sampler dpm++`` from its checkpoint;
     ``generate --class_id 3`` on a saved conditional model;
     ``generate --inpaint_image/--inpaint_mask`` on .npy files; and
-    ``train`` with ``learn_sigma: true``."""
+    ``train`` with ``learn_sigma: true``. The last three do not depend on
+    the first two and run beside them (BackgroundCLI)."""
     import numpy as np
     import yaml
     from diffusion_model_universal_torch.utils.config import load_config
     from diffusion_model_universal_torch.utils.images import decode_png
     tmp = Path(tempfile.mkdtemp(prefix="dmu_sampler_cli_"))
-    out = {}
+    out, background = {}, []
     try:
         def run_config(path, name, sample_interval, **model):
             """``path`` for one epoch of 3 steps on 512 synthetic images,
@@ -2464,10 +2543,12 @@ def sampler_clis():
             p.write_text(yaml.safe_dump(cfg))
             return str(p)
 
-        def trained(name, model_type, cfg_path):
-            stdout = run_cli("train", ["--config", cfg_path, "--model_type",
-                                       model_type, "--seed", str(SEED)],
-                             f"train --model_type {model_type} ({name})")
+        def train_args(name, model_type, cfg_path):
+            return ("train", ["--config", cfg_path, "--model_type",
+                              model_type, "--seed", str(SEED)],
+                    f"train --model_type {model_type} ({name})")
+
+        def trained(name, stdout):
             launches = json.loads(stdout.split("Kernel launches: ")[1]
                                   .splitlines()[0])
             check(all(launches.get(s, 0) > 0 for s in (
@@ -2480,8 +2561,46 @@ def sampler_clis():
                   f"{name}: losses {losses}")
             return launches, losses
 
+        cond = seeded_model("conditional", DEVICE)
+        cond_ckpt = str(tmp / "conditional.ckpt")
+        cond.save(cond_ckpt)
+        del cond
+        image = np.clip(np.random.default_rng(SEED).standard_normal(
+            (32, 32, 3)), -1, 1).astype(np.float32)
+        mask = np.zeros((32, 32), np.float32)
+        mask[:, :16] = 1.0
+        np.save(tmp / "image.npy", image)
+        np.save(tmp / "mask.npy", mask)
+        # Inpainting runs the ancestral sampler's T steps: T cut to
+        # INPAINT_T (depth, not width).
+        inpaint = seeded_model("conditional", DEVICE,
+                               num_timesteps=INPAINT_T)
+        inpaint_ckpt = str(tmp / "inpaint.ckpt")
+        inpaint.save(inpaint_ckpt)
+        del inpaint
+        cfg_run = BackgroundCLI(
+            "generate", ["--config", str(DDIM_CONFIG), "--model_type",
+                         "ddim", "--checkpoint", cond_ckpt, "--class_id",
+                         "3", "--num_samples", "4", "--output_dir",
+                         str(tmp / "gen_cfg")],
+            "generate --class_id 3 (CFG 3.0, DDIM-50)")
+        inpaint_run = BackgroundCLI(
+            "generate", ["--config", str(DDIM_CONFIG), "--model_type",
+                         "ddim", "--checkpoint", inpaint_ckpt,
+                         "--inpaint_image", str(tmp / "image.npy"),
+                         "--inpaint_mask", str(tmp / "mask.npy"),
+                         "--num_samples", "4", "--output_dir",
+                         str(tmp / "gen_inpaint")],
+            f"generate --inpaint_image/--inpaint_mask, 4 samples, "
+            f"{INPAINT_T} ancestral steps")
+        learned_run = BackgroundCLI(*train_args(
+            "learned", "ddpm", run_config(CONFIG, "learned", 0,
+                                          learn_sigma=True)))
+        background = [cfg_run, inpaint_run, learned_run]
+
         ddim_cfg = run_config(DDIM_CONFIG, "ddim", 1)   # a DDIM grid
-        launches, losses = trained("ddim", "ddim", ddim_cfg)
+        launches, losses = trained("ddim", run_cli(*train_args(
+            "ddim", "ddim", ddim_cfg)))
         logged = [json.loads(line) for line in
                   (tmp / "ddim" / "metrics.jsonl").read_text().splitlines()]
         check(any(d.get("ddim/sampling_steps") == 50 and "ddim/eta" in d
@@ -2502,50 +2621,23 @@ def sampler_clis():
                              "4", "--output_dir", str(gen_dir)],
                 "generate --ema --sampler dpm++")
         check((gen_dir / "samples_grid.png").is_file(), "dpm++ grid")
-        cond = seeded_model("conditional", DEVICE)
-        cond_ckpt = str(tmp / "conditional.ckpt")
-        cond.save(cond_ckpt)
-        del cond
-        run_cli("generate", ["--config", str(DDIM_CONFIG), "--model_type",
-                             "ddim", "--checkpoint", cond_ckpt,
-                             "--class_id", "3", "--num_samples", "4",
-                             "--output_dir", str(tmp / "gen_cfg")],
-                "generate --class_id 3 (CFG 3.0, DDIM-50)")
-        image = np.clip(np.random.default_rng(SEED).standard_normal(
-            (32, 32, 3)), -1, 1).astype(np.float32)
-        mask = np.zeros((32, 32), np.float32)
-        mask[:, :16] = 1.0
-        np.save(tmp / "image.npy", image)
-        np.save(tmp / "mask.npy", mask)
-        # Inpainting runs the ancestral sampler's T steps: T cut to
-        # INPAINT_T (depth, not width).
-        inpaint = seeded_model("conditional", DEVICE,
-                               num_timesteps=INPAINT_T)
-        inpaint_ckpt = str(tmp / "inpaint.ckpt")
-        inpaint.save(inpaint_ckpt)
-        del inpaint
-        run_cli("generate", ["--config", str(DDIM_CONFIG), "--model_type",
-                             "ddim", "--checkpoint", inpaint_ckpt,
-                             "--inpaint_image", str(tmp / "image.npy"),
-                             "--inpaint_mask", str(tmp / "mask.npy"),
-                             "--num_samples", "4", "--output_dir",
-                             str(tmp / "gen_inpaint")],
-                f"generate --inpaint_image/--inpaint_mask, 4 samples, "
-                f"{INPAINT_T} ancestral steps")
+        cfg_run.result()
+        check((tmp / "gen_cfg" / "samples_grid.png").is_file(), "CFG grid")
+        inpaint_run.result()
         left = decode_png((tmp / "gen_inpaint" / "sample_0000.png")
                           .read_bytes())[:, :16]
         want = np.round((image[:, :16] + 1) * 127.5).clip(0, 255)
         check(np.abs(left.astype(np.float32) - want).max() <= 1.0,
               "inpainting did not keep the known pixels")
-        launches, losses = trained(
-            "learned", "ddpm", run_config(CONFIG, "learned", 0,
-                                          learn_sigma=True))
+        launches, losses = trained("learned", learned_run.result())
         out["train_learn_sigma"] = {"launches": launches,
                                     "steps": len(losses),
                                     "losses": [losses[0], losses[-1]]}
         log(f"[cli] DDIM and learn_sigma training, dpm++, CFG and "
             f"inpainting generation: {json.dumps(out)}")
     finally:
+        for run in background:
+            run.stop()
         shutil.rmtree(tmp, ignore_errors=True)
     return out
 
@@ -2812,8 +2904,8 @@ def profile_levels(model, levels: int):
 def serve_families(per_forward):
     """Phase 12b: serve each family over HTTP in bf16 at the serve batch,
     at its published width with one cut (FAMILIES): a warm-up request and
-    three timed ones; the score request must launch K1 and K3 exactly 53×
-    and 5× its UNet forwards, the energy request no K1, K2 or K3. Then
+    TIMED_REQUESTS timed ones; the score request must launch K1 and K3
+    exactly 53× and 5× its UNet forwards, the energy request no K1, K2 or K3. Then
     PROFILE_LEVELS levels of the served model's sampler traced with
     torch.profiler."""
     import numpy as np
@@ -2843,7 +2935,7 @@ def serve_families(per_forward):
             want = {n: evals * per.get(n, 0) for n in kernels}
             times = []
             try:
-                for seed in range(4):      # a warm-up, then three
+                for seed in range(1 + TIMED_REQUESTS):   # a warm-up
                     for k in kernels.values():
                         k.launches = 0
                     req = urllib.request.Request(
@@ -2900,11 +2992,11 @@ def family_clis():
     synthetic set, then ``generate --ema`` from its checkpoint, for each
     family; the YAML copies cut the ladder (FAMILY_CLI_CUTS). The score
     training must launch K1, K2 and K3; the energy training none of
-    them."""
+    them. The two families' runs go side by side (BackgroundCLI)."""
     import yaml
     from diffusion_model_universal_torch.utils.config import load_config
     tmp = Path(tempfile.mkdtemp(prefix="dmu_family_cli_"))
-    out = {}
+    out, paths, runs = {}, {}, {}
     try:
         for family, cut in FAMILY_CLI_CUTS.items():
             cfg = load_config(str(FAMILIES[family][0]))
@@ -2917,12 +3009,14 @@ def family_clis():
             cfg["output"] = dict(cfg["output"], output_dir=str(tmp / family))
             check(cfg["training"]["batch_size"] == FAMILY_TRAIN_BATCH,
                   f"{family}: training.batch_size")
-            path = tmp / f"{family}.yaml"
+            paths[family] = path = tmp / f"{family}.yaml"
             path.write_text(yaml.safe_dump(cfg))
-            stdout = run_cli("train", ["--config", str(path), "--model_type",
-                                       family, "--seed", str(SEED)],
-                             f"train --model_type {family} (3 steps, B=64, "
-                             f"cut {cut})")
+            runs[family] = BackgroundCLI(
+                "train", ["--config", str(path), "--model_type", family,
+                          "--seed", str(SEED)],
+                f"train --model_type {family} (3 steps, B=64, cut {cut})")
+        for family, cut in FAMILY_CLI_CUTS.items():
+            stdout = runs[family].result()
             launches = json.loads(stdout.split("Kernel launches: ")[1]
                                   .splitlines()[0])
             ours = {s: launches.get(s, 0) for s in (
@@ -2945,20 +3039,24 @@ def family_clis():
                   f"{family}: no step-0 {prefix} log")
             check((tmp / family / "samples" / "epoch_0.png").is_file(),
                   f"{family}: no sample grid")
-            gen_dir = tmp / f"gen_{family}"
-            run_cli("generate", ["--config", str(path), "--model_type",
-                                 family, "--checkpoint",
-                                 str(tmp / family / "checkpoints"
-                                     / "final_model"), "--ema",
-                                 "--num_samples", "4", "--output_dir",
-                                 str(gen_dir)],
-                    f"generate --model_type {family} --ema")
-            check((gen_dir / "samples_grid.png").is_file(),
-                  f"{family}: no generated grid")
+            runs[family] = BackgroundCLI(
+                "generate", ["--config", str(paths[family]), "--model_type",
+                             family, "--checkpoint",
+                             str(tmp / family / "checkpoints"
+                                 / "final_model"), "--ema",
+                             "--num_samples", "4", "--output_dir",
+                             str(tmp / f"gen_{family}")],
+                f"generate --model_type {family} --ema")
             out[family] = {"launches": ours, "loss": losses[0], "cut": cut}
+        for family in FAMILY_CLI_CUTS:
+            runs[family].result()
+            check((tmp / f"gen_{family}" / "samples_grid.png").is_file(),
+                  f"{family}: no generated grid")
         log(f"[cli] score-based and energy-based train and generate: "
             f"{json.dumps(out)}")
     finally:
+        for run in runs.values():
+            run.stop()
         shutil.rmtree(tmp, ignore_errors=True)
     return out
 
@@ -4289,6 +4387,10 @@ RANK_REQUESTS = ([{"num_samples": SERVE_BATCH, "seed": s, "sampler": "dpm++",
 #: generate's request in 16a and 16b: one chunk of SERVE_BATCH, DPM++-20.
 RANK_GENERATE = ["--num_samples", str(SERVE_BATCH), "--sampler", "dpm++",
                  "--sampler_steps", "20", "--seed", "7", "--grid_only"]
+#: Phase 16's T: its ancestral requests over ranks (and the one-process
+#: reference) run T steps (the published 1000, cut to make room for phase
+#: 17; the DPM++-20 requests and the updates do not depend on T).
+RANK_T = 100
 MP_UPDATES = 3              # f32 updates of 16c held against one process
 MP_TIME_UPDATES = 5         # timed bf16 updates of 16c, after 2 warm-ups
 MB = 1e6
@@ -4667,7 +4769,8 @@ def rank_parallel(phase4_requests, dp_summary, per_forward):
     t0 = time.perf_counter()
     tmp = Path(tempfile.mkdtemp(prefix="dmu_ranks16_"))
     try:
-        cfg = load_config(str(CONFIG))["model_config"]
+        cfg = dict(load_config(str(CONFIG))["model_config"],
+                   num_timesteps=RANK_T)
         ckpts, cfg_path = rank_checkpoints(cfg, tmp)
         log("[ranks] phase 16a: generate and a model_parallel: 1 update at "
             "world 1 on NCCL, in-process")
@@ -4723,19 +4826,27 @@ def rank_parallel(phase4_requests, dp_summary, per_forward):
         log(f"[ranks] 16b launches a rank (K1/K2/K3 = {per_forward['gn']}/0/"
             f"{per_forward['mha']} a forward; {forwards} forwards): "
             f"{launches}")
+        phase4_t = canonicalize_model_config(load_config(str(CONFIG))[
+            "model_config"])["num_timesteps"]
         secs = {"ranks_bf16": [s for _, s in r0["serve_bfloat16"]["results"]],
                 "one_process_bf16_dpm": [s for _, s in
                                          ref["serve_bfloat16"]],
                 "one_process_bf16_ancestral_phase4": [
                     x["seconds"] for x in phase4_requests
                     if "sampler" not in x["request"]]}
+        # Phase 4's request runs the published T: compare a step's time.
+        secs["ancestral_ms_a_step"] = {
+            "ranks": secs["ranks_bf16"][3] / T * 1e3,
+            "one_process_phase4": [s / phase4_t * 1e3 for s in secs[
+                "one_process_bf16_ancestral_phase4"]]}
         log(f"[ranks] 16b bf16 request seconds, {RANK_WORLD} gloo ranks "
             f"sharing the card: DPM++-20 "
             f"{[round(s, 4) for s in secs['ranks_bf16'][:3]]}, "
             f"ancestral-{T} {secs['ranks_bf16'][3]:.3f}; one process: "
             f"DPM++-20 {[round(s, 4) for s in secs['one_process_bf16_dpm']]}"
-            f", ancestral-{T} (phase 4, the same config and batch) "
+            f", ancestral-{phase4_t} (phase 4, the same batch) "
             f"{[round(s, 3) for s in secs['one_process_bf16_ancestral_phase4']]}"
+            f"; ms an ancestral step {json.dumps(secs['ancestral_ms_a_step'])}"
             f"; {card_line() if DEVICE == 'cuda' else 'cpu'}")
 
         mp = [x["mp"] for x in ranks]
@@ -4839,6 +4950,420 @@ def rank_parallel(phase4_requests, dp_summary, per_forward):
             "ms_per_update": ms, "seconds": seconds}
 
 
+# -- training.scan_steps (phase 17) -------------------------------------------
+
+SCAN_K = 4                  # ddpm_config.yaml's suggested scan_steps
+SCAN_HOLD_BATCH = 4         # 17a's f32 batch
+SCAN_ENERGY_BATCH = 2       # 17a's energy batch
+#: 17a's updates: an eager chunk, two replays and a ragged update.
+SCAN_HOLD_UPDATES = 3 * SCAN_K + 1
+SCAN_CLI_LOG = 5            # 17b: log_interval, crossed inside chunks
+SCAN_CLI_VAL = 7            # 17b: val_interval, crossed inside chunks
+SCAN_TIME_UPDATES = 8       # 17c: updates a timed turn (two chunks)
+SCAN_TIME_BATCHES = (TRAIN_BATCH, 2048)   # 2048: bench.py's batch
+#: The JAX step's tolerances (tests/test_torch_train.py): loss, μ.
+SCAN_TOL = {"loss": 1e-5, "mu": 1e-3}
+
+
+def jax_scan_events(steps_per_epoch: int, epochs: int, k: int,
+                    log_interval: int, val_interval: int, step: int = 0):
+    """The steps at which the reference's scan loop
+    (``J/trainers/trainer.py`` ``train``) logs and validates, from
+    ``step``: a chunk logs where ``step % log_interval < K`` and validates
+    where ``step % val_interval < K`` after its K updates; a tail update
+    logs at its step before the update and validates at the count after
+    it."""
+    logs, vals = [], []
+    for _ in range(epochs):
+        for _ in range(steps_per_epoch // k):
+            step += k
+            if step % log_interval < k:
+                logs.append(step)
+            if val_interval and step % val_interval < k:
+                vals.append(step)
+        for _ in range(steps_per_epoch % k):
+            if step % log_interval == 0:
+                logs.append(step)
+            step += 1
+            if val_interval and step % val_interval == 0:
+                vals.append(step)
+    return logs, vals
+
+
+def scan_hold_config(out_dir: str, family: str, k: int):
+    """17a's config: ``family``'s published width in f32 (dropout and
+    remat as published), the synthetic set holding SCAN_HOLD_UPDATES
+    batches, ``scan_steps`` k."""
+    from diffusion_model_universal_torch.utils.config import load_config
+    path = CONFIG if family == "ddpm" else FAMILIES[family][0]
+    batch = SCAN_HOLD_BATCH if family == "ddpm" else SCAN_ENERGY_BATCH
+    cfg = load_config(str(path))
+    cfg["model_config"] = dict(cfg["model_config"], compute_dtype="float32")
+    # 80% of the set is the train split.
+    cfg["data"] = dict(cfg["data"], dataset="synthetic",
+                       num_samples=-(-SCAN_HOLD_UPDATES * batch * 5 // 4))
+    cfg["training"] = dict(cfg["training"], batch_size=batch, scan_steps=k,
+                           num_epochs=1, val_interval=0, sample_interval=0,
+                           checkpoint_interval=0)
+    cfg["output"] = dict(cfg["output"], output_dir=str(Path(out_dir) / "o"))
+    return cfg
+
+
+def scan_hold_run(run_cfg, family: str):
+    """The first epoch of ``run_cfg``: its full chunks through
+    ``scan_chunk`` and the rest through ``step`` (every update with
+    ``scan_steps`` 1). Returns each update's loss, the state after them
+    (parameters, EMA, μ, ν, Adam's counters) on the host, and the graphs'
+    summary."""
+    import torch
+    from diffusion_model_universal_torch.datasets import get_dataset
+    from diffusion_model_universal_torch.models import MODEL_REGISTRY
+    from diffusion_model_universal_torch.parallel import mesh
+    from diffusion_model_universal_torch.trainers import TRAINER_REGISTRY
+    model = MODEL_REGISTRY[family](run_cfg["model_config"], device=DEVICE,
+                                   seed=SEED, trainable=True)
+    tr = TRAINER_REGISTRY[family](model, *get_dataset(
+        run_cfg, device=model.device), run_cfg, seed=SEED)
+    batches = list(tr.train_loader)
+    check(len(batches) == SCAN_HOLD_UPDATES, f"17a: {len(batches)} batches")
+    k = tr.scan_steps
+    losses = []
+    for chunk in tr._grouped(batches, k):
+        if k > 1 and len(chunk) == k:
+            losses.extend(tr.scan_chunk(chunk).unbind(0))
+        else:
+            losses.extend(tr.step(b)["loss"] for b in chunk)
+    torch.cuda.synchronize()
+    out = {"loss": torch.stack(losses).cpu(),
+           "state": [v.detach().float().cpu() for v in (
+               *tr.params, *tr.ema, *tr.optimizer.nu)],
+           "mu": [v.detach().float().cpu() for v in tr.optimizer.mu],
+           "counters": tr.optimizer.counters.tolist(),
+           "step": tr.step_count,
+           "graphs": tr.graphs.summary() if tr.graphs else None,
+           "backend": mesh.backend()}
+    tr.cleanup()
+    return out
+
+
+def scan_diff(got, want):
+    """Max |diff| of the losses, of the state and of μ; and whether the
+    losses and μ are within the JAX step's tolerances."""
+    dl = float((got["loss"] - want["loss"]).abs().max())
+    ds = max(float((a - b).abs().max()) for a, b in zip(got["state"],
+                                                        want["state"]))
+    dm = max(float((a - b).abs().max()) for a, b in zip(got["mu"],
+                                                        want["mu"]))
+    within = (bool(((got["loss"] - want["loss"]).abs()
+                    <= SCAN_TOL["loss"] * want["loss"].abs()).all())
+              and all(bool(((a - b).abs() <= 1e-7 + SCAN_TOL["mu"]
+                            * b.abs()).all())
+                      for a, b in zip(got["mu"], want["mu"])))
+    return {"loss": dl, "state": ds, "mu": dm,
+            "bit_equal": dl == ds == dm == 0.0
+            and got["counters"] == want["counters"],
+            "within_step_tolerances": within}
+
+
+def scan_holds():
+    """17a: SCAN_HOLD_UPDATES f32 updates at full width (dropout 0.1,
+    remat) with ``scan_steps`` SCAN_K (an eager chunk, then a captured
+    graph replayed twice, then a ragged update) against as many eager
+    ``step`` calls on the same draws: alone, as rank 0 of a NCCL group
+    of world 1, and for the energy family (CD + GP's second derivatives
+    inside the graph) at B=2. Bit-equal, else within the eager runs'
+    own spread or the JAX step's tolerances."""
+    import gc
+    import torch
+    from diffusion_model_universal_torch.parallel import mesh
+    tmp = tempfile.mkdtemp(prefix="dmu_scan_hold_")
+    prev = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        True, False)
+    out = {}
+    try:
+        for family in ("ddpm", "energy_based"):
+            eager = scan_hold_run(scan_hold_config(tmp, family, 1), family)
+            scan = scan_hold_run(scan_hold_config(tmp, family, SCAN_K),
+                                 family)
+            runs = {"alone": scan}
+            if family == "ddpm":
+                mesh.init_process_group(0, 1, torch.device(DEVICE, 0),
+                                        f"tcp://localhost:{free_port()}")
+                try:
+                    runs["nccl_world1"] = scan_hold_run(
+                        scan_hold_config(tmp, family, SCAN_K), family)
+                finally:
+                    mesh.shutdown()
+                check(runs["nccl_world1"]["backend"] == "nccl",
+                      f"17a backend {runs['nccl_world1']['backend']}")
+            for name, run in runs.items():
+                d = scan_diff(run, eager)
+                g = run["graphs"]
+                check(run["step"] == eager["step"] == SCAN_HOLD_UPDATES
+                      and run["counters"][0] == SCAN_HOLD_UPDATES,
+                      f"17a {family} {name}: steps {run['step']}, count "
+                      f"{run['counters']}")
+                check(g["captures"] == 1 and g["replays"] == 2,
+                      f"17a {family} {name}: graphs {g}")
+                if family == "ddpm":
+                    per = g["launches_per_replay"][0]
+                    want = {s: SCAN_K * LAUNCHES_PER_STEP[k] for k, s in (
+                        ("gn", "dmu_group_norm_silu_fwd"),
+                        ("gn_bwd", "dmu_group_norm_silu_bwd"),
+                        ("mha", "dmu_mha_fwd"))}
+                    got = {s: per.get(s, 0) for s in want}
+                    check(got == want, f"17a launches a replay {got} != "
+                                       f"{want}")
+                if not d["bit_equal"] and "spread" not in out.get(family, {}):
+                    # How far two eager runs differ, and the graph from the
+                    # second of them.
+                    again = scan_hold_run(scan_hold_config(tmp, family, 1),
+                                          family)
+                    out.setdefault(family, {})["spread"] = scan_diff(again,
+                                                                     eager)
+                    d["against_second_eager_run"] = scan_diff(run, again)
+                spread = out.get(family, {}).get("spread")
+                ok = d["bit_equal"] or d["within_step_tolerances"] or (
+                    spread is not None and d["loss"] <= spread["loss"]
+                    and d["mu"] <= spread["mu"])
+                log(f"[scan] 17a {family} {name}: {SCAN_HOLD_UPDATES} f32 "
+                    f"updates, scan_steps {SCAN_K} vs eager: max |diff| "
+                    f"loss {d['loss']:.3e}, params/EMA/ν {d['state']:.3e}, "
+                    f"μ {d['mu']:.3e} ({'bit-equal' if d['bit_equal'] else 'NOT bit-equal'}"
+                    f"; within the step's tolerances: "
+                    f"{d['within_step_tolerances']}; two eager runs: "
+                    f"{spread}; against the second: "
+                    f"{d.get('against_second_eager_run')}); graphs {g}")
+                check(ok, f"17a {family} {name}: the graph strays from the "
+                          f"eager updates {d}")
+                out.setdefault(family, {})[name] = d
+        return out
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            prev
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()    # the trainers and their graphs hold each other
+        torch.cuda.empty_cache()
+
+
+def executed_launches(stdout: str):
+    """(launcher calls, kernels run) of a ``train`` run from its
+    ``Kernel launches`` and ``Graph replays`` lines: run = calls −
+    captured + replayed."""
+    calls = json.loads(stdout.split("Kernel launches: ")[1].splitlines()[0])
+    graphs = json.loads(stdout.split("Graph replays: ")[1].splitlines()[0])
+    run = {name: n - graphs["captured"].get(name, 0)
+           + graphs["replayed"].get(name, 0) for name, n in calls.items()}
+    return calls, run, graphs
+
+
+def scan_cli():
+    """17b: ``train`` at full width with ``scan_steps`` SCAN_K (bf16,
+    remat) on the synthetic set: an epoch of 12 updates (an eager chunk,
+    the captured one, a replay), then a resume for a second epoch.
+    Logging and validation every SCAN_CLI_LOG / SCAN_CLI_VAL steps cross
+    inside chunks and must fire at the reference's steps; throughput at
+    each log event but a run's first; the checkpoints; K1/K2/K3 run
+    exactly 100/53/9 an update plus 53/0/5 an eval forward, counted from
+    the launchers and the replays (17c counts them in a replay's
+    trace)."""
+    import yaml
+    from diffusion_model_universal_torch.datasets import get_dataset
+    from diffusion_model_universal_torch.scripts.train import params_digest
+    from diffusion_model_universal_torch.utils.checkpoint import read_state
+    tmp = Path(tempfile.mkdtemp(prefix="dmu_scan_cli_"))
+    try:
+        cfg = train_config(str(tmp), scan_steps=SCAN_K, num_epochs=1,
+                           val_interval=SCAN_CLI_VAL, sample_interval=0,
+                           checkpoint_interval=1)
+        cfg["logging"] = dict(cfg["logging"], log_interval=SCAN_CLI_LOG,
+                              track_time_metrics=True)
+        train, val, test = get_dataset(cfg, device="cpu")
+        spe = len(train)
+        check(spe == 12, f"17b: {spe} updates an epoch")
+        path = tmp / "scan.yaml"
+        path.write_text(yaml.safe_dump(cfg))
+        base = ["--config", str(path), "--model_type", "ddpm", "--seed",
+                str(SEED)]
+        out1 = run_cli("train", base, f"train scan_steps {SCAN_K}, 1 epoch")
+        cfg["training"]["num_epochs"] = 2
+        path.write_text(yaml.safe_dump(cfg))
+        ck = tmp / "out" / "checkpoints"
+        saved = read_state(str(ck / "checkpoint_epoch_0"))
+        out2 = run_cli("train", base + ["--resume", "latest"],
+                       f"resume scan_steps {SCAN_K} for epoch 2")
+        want_line = (f"Resumed from epoch 1 at step {spe} (params "
+                     f"sha256 {params_digest(saved['params'].values())})")
+        check(want_line in out2, f"17b resume line missing: {want_line}")
+        final = read_state(str(ck / "final_model"))
+        check(saved["step"] == spe and final["step"] == 2 * spe,
+              f"17b checkpoints at steps {saved['step']}, {final['step']}")
+        rows = [json.loads(line) for line in
+                (tmp / "out" / "metrics.jsonl").read_text().splitlines()]
+        logs1, vals1 = jax_scan_events(spe, 1, SCAN_K, SCAN_CLI_LOG,
+                                       SCAN_CLI_VAL)
+        logs2, vals2 = jax_scan_events(spe, 1, SCAN_K, SCAN_CLI_LOG,
+                                       SCAN_CLI_VAL, step=spe)
+        logged = [r["step"] for r in rows if "train/loss" in r]
+        validated = [r["step"] for r in rows if "val/loss" in r]
+        rated = [r["step"] for r in rows
+                 if "performance/samples_per_second" in r]
+        check(logged == logs1 + logs2 and validated == vals1 + vals2,
+              f"17b logged at {logged}, validated at {validated}; the "
+              f"reference's rule: {logs1 + logs2}, {vals1 + vals2}")
+        check(rated == logs1[1:] + logs2[1:],
+              f"17b throughput at {rated}")
+        check(all(math.isfinite(r["train/loss"]) for r in rows
+                  if "train/loss" in r), "17b logged losses")
+        evals = (len(vals1) * len(val) + len(test),
+                 len(vals2) * len(val) + len(test))
+        result = {"steps_per_epoch": spe, "logged": logged,
+                  "validated": validated, "throughput_at": rated,
+                  "runs": []}
+        for stdout, n_eval in ((out1, evals[0]), (out2, evals[1])):
+            updates = spe
+            calls, run, graphs = executed_launches(stdout)
+            want = {"dmu_group_norm_silu_fwd": 100 * updates + 53 * n_eval,
+                    "dmu_group_norm_silu_bwd": 53 * updates,
+                    "dmu_mha_fwd": 9 * updates + 5 * n_eval}
+            got = {s: run.get(s, 0) for s in want}
+            log(f"[scan] 17b run: {updates} updates, {n_eval} eval "
+                f"forwards; launcher calls {calls}; graphs {graphs}; run "
+                f"{got}, counted {want}")
+            check(got == want, f"17b kernels run {got} != {want}")
+            result["runs"].append({"updates": updates, "eval_forwards":
+                                   n_eval, "calls": calls, "graphs": graphs,
+                                   "run": got})
+        log(f"[scan] 17b logged at {logged}, validated at {validated}, "
+            f"throughput at {rated}; checkpoints at steps {saved['step']} "
+            f"and {final['step']}")
+        return result
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def scan_timing():
+    """17c (bf16, remat, dropout 0.1), at each of SCAN_TIME_BATCHES on one
+    pair of trainers: ms an update and images/s with ``scan_steps`` 1 and
+    SCAN_K in turns (1, K, K, 1), SCAN_TIME_UPDATES a turn, host clock
+    between synchronizes; the device busy share of each (torch.profiler)
+    and K1/K2/K3 counted in a replay's trace (traced again, up to three
+    times, when the trace misses events); the peak allocated bytes of an
+    eager update over the state, and the graph's pool."""
+    import gc
+    import torch
+    from diffusion_model_universal_torch.models import DDPM
+    from diffusion_model_universal_torch.trainers import DDPMTrainer
+    tmp = tempfile.mkdtemp(prefix="dmu_scan_time_")
+    want = {"gn_fwd_kernel": 100 * SCAN_K, "gn_bwd_kernel": 53 * SCAN_K,
+            "mha_fwd": 9 * SCAN_K}
+    trainers, results = {}, []
+    try:
+        for k in (1, SCAN_K):
+            model = DDPM(model_config(), device=DEVICE, seed=SEED,
+                         trainable=True)
+            trainers[k] = DDPMTrainer(model, [None] * 16, None, None,
+                                      train_config(tmp, scan_steps=k),
+                                      seed=SEED)
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 40)
+        for batch in SCAN_TIME_BATCHES:
+            x = torch.rand((batch, 32, 32, 3), generator=gen,
+                           device=DEVICE) * 2 - 1
+            one, scan = trainers[1], trainers[SCAN_K]
+            chunk = [x] * SCAN_K
+            mem = {}
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            one.step(x)
+            torch.cuda.synchronize()
+            mem["eager_update_peak_over_state_gib"] = (
+                torch.cuda.max_memory_allocated() - base) / 2 ** 30
+            scan.scan_chunk(chunk)          # the shape's eager chunk
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            scan.scan_chunk(chunk)          # captured, then replayed
+            torch.cuda.synchronize()
+            # What stays reserved is the graph's pool (its blocks are not
+            # released while the graph lives) and its static inputs.
+            torch.cuda.empty_cache()
+            mem["graph_pool_gib"] = (
+                torch.cuda.memory_reserved() - reserved) / 2 ** 30
+            mem["capture_peak_over_state_gib"] = (
+                torch.cuda.max_memory_allocated() - base) / 2 ** 30
+            ms = {1: [], SCAN_K: []}
+            for k in (1, SCAN_K, SCAN_K, 1):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(SCAN_TIME_UPDATES // k):
+                    if k == 1:
+                        one.step(x)
+                    else:
+                        scan.scan_chunk(chunk)
+                torch.cuda.synchronize()
+                ms[k].append((time.perf_counter() - t0) * 1e3
+                             / SCAN_TIME_UPDATES)
+            prof = {1: profile_run(lambda: one.step(x), SCAN_K,
+                                   f"training step B={batch}", warmup=1)}
+            attempts = []
+            for attempt in range(3):
+                prof[SCAN_K] = profile_run(
+                    lambda: scan.scan_chunk(chunk), 1,
+                    f"replay of {SCAN_K} steps B={batch}", warmup=1)
+                attempts.append(prof[SCAN_K] and prof[SCAN_K][
+                    "our_kernel_launches_per_step"])
+                if attempts[-1] == want:
+                    break
+            check(attempts[-1] == want,
+                  f"17c traced a replay {attempts} != {want}")
+            out = {"batch": batch, "memory": mem,
+                   "ms_per_update": {str(k): v for k, v in ms.items()},
+                   "images_per_s": {str(k): [batch * 1e3 / m for m in v]
+                                    for k, v in ms.items()},
+                   "busy_share": {str(k): p["device_busy_share"]
+                                  for k, p in prof.items()},
+                   "device_ms_per_update": {
+                       str(k): p["device_busy_ms_per_step"] / k
+                       for k, p in prof.items()},
+                   "traced_per_replay": attempts[-1],
+                   "trace_attempts": attempts}
+            check(mem["graph_pool_gib"] < 2 * max(
+                mem["eager_update_peak_over_state_gib"], 1e-3),
+                  f"17c: the graph's pool holds {mem['graph_pool_gib']:.3f} "
+                  f"GiB against an eager update's "
+                  f"{mem['eager_update_peak_over_state_gib']:.3f}: more than "
+                  f"one update's activations")
+            log(f"[scan] 17c B={batch}: {json.dumps(out)}")
+            results.append(out)
+            del x, chunk
+        results.append({"graphs": trainers[SCAN_K].graphs.summary()})
+        return results
+    finally:
+        for tr in trainers.values():
+            tr.cleanup()
+        trainers.clear()
+        gc.collect()    # the trainer and its graphs hold each other
+        torch.cuda.empty_cache()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def scan_steps_phase():
+    """Phase 17: ``training.scan_steps`` (17a holds, 17b the CLI, 17c
+    times)."""
+    t0 = time.perf_counter()
+    holds = scan_holds()
+    cli = scan_cli()
+    timing = scan_timing()
+    out = {"holds": holds, "cli": cli, "timing": timing,
+           "seconds": time.perf_counter() - t0}
+    log(f"[scan] phase 17 in {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4856,8 +5381,16 @@ def main() -> int:
     log(f"[device] {kind}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}; nvidia-smi: {smi}")
     t_start = time.perf_counter()
+    marks = [("start", t_start)]
+
+    def mark(name: str) -> None:
+        """Log the seconds since the previous mark (a phase's time)."""
+        now = time.perf_counter()
+        log(f"[time] {name}: {now - marks[-1][1]:.1f} s")
+        marks.append((name, now))
 
     build_kernels()
+    mark("build")
     cfg = model_config()
     model = make_f32_model(cfg)
     log(f"[model] ddpm_config.yaml: C={cfg['model_channels']}, "
@@ -4874,13 +5407,16 @@ def main() -> int:
     hold_edges()
     unet_err = hold_unet(model)
     unet128 = hold_unet_128(cfg)
+    mark("phases 2-3")
 
     serve_model, requests, launches = serve(model, cfg, per_forward)
     del model
+    mark("phase 4")
     gn_rows, mha_rows = time_kernels(gn_calls, mha_calls)
     profile = profile_steps(serve_model)
     dispatch = time_dispatch(serve_model)
     del serve_model
+    mark("phase 5")
 
     train_dir = tempfile.mkdtemp(prefix="dmu_trainer_")
     try:
@@ -4904,7 +5440,9 @@ def main() -> int:
         step_check = hold_train_step(cfg)
         log("[hold] second derivatives on the card:")
         step_check["double_backward"] = hold_double_backward()
+        mark("phases 6-7")
         cli = train_cli(len(train_loader))
+        mark("phase 8")
         train_time = time_training(trainer, batch)
         train_profile = profile_run(lambda: trainer.step(batch), 5,
                                     f"training step B={TRAIN_BATCH}")
@@ -4915,16 +5453,28 @@ def main() -> int:
     finally:
         shutil.rmtree(train_dir, ignore_errors=True)
 
+    mark("phase 9")
     exp_entries, exp_summary = experiment_kernels()
+    mark("phase 10")
     sampler_summary = samplers(per_forward)
+    mark("phase 11")
     family_summary = families(per_forward)
+    mark("phase 12")
     harness_summary = harness()
+    mark("phase 13")
     options_summary = data_and_options(cfg)
+    mark("phase 14")
     dp_summary = data_parallel()
+    mark("phase 15")
     rank_summary = rank_parallel(requests, dp_summary, per_forward)
+    mark("phase 16")
+    scan_summary = scan_steps_phase()
+    mark("phase 17")
 
     symbols = {"gn": "dmu_group_norm_silu_fwd",
                "gn_bwd": "dmu_group_norm_silu_bwd", "mha": "dmu_mha_fwd"}
+    trace_tags = {"gn": "gn_fwd_kernel", "gn_bwd": "gn_bwd_kernel",
+                  "mha": "mha_fwd"}
 
     def by_sampler(kind):
         return {**{f"{r['model']} {json.dumps(r['request'])}":
@@ -4962,7 +5512,14 @@ def main() -> int:
                    for path, n in paths.items()},
                 **{f"model_parallel_gloo_rank{r}_{MP_UPDATES}_updates":
                    n[kind] for r, n in enumerate(
-                       rank_summary["mp_launches_per_rank"])}}
+                       rank_summary["mp_launches_per_rank"])},
+                **{f"scan_steps_train_cli_{name}_run": run["run"][
+                    symbols[kind]] for name, run in zip(
+                        ("first", "resumed"), scan_summary["cli"]["runs"])},
+                **{f"scan_steps_replay_B{t['batch']}_traced": t[
+                    "traced_per_replay"][trace_tags[kind]]
+                   for t in scan_summary["timing"] if "traced_per_replay"
+                   in t}}
 
     def celeba64(kind, errs):
         rows = options_summary["celeba64_rows"][kind]
@@ -5032,6 +5589,9 @@ def main() -> int:
                                                  "kernel_errs")},
                "data_parallel": dp_summary,
                "rank_parallel": rank_summary,
+               "scan_steps": scan_summary,
+               "phase_seconds": {name: t - prev for (_, prev), (name, t)
+                                 in zip(marks, marks[1:])},
                "seconds": time.perf_counter() - t_start}
     log(f"[summary] {json.dumps(summary)}")
     print(json.dumps({"kernels": entries}))

@@ -128,11 +128,16 @@ class BaseDiffusionModel:
 
     def _run_net(self, train: bool, *args) -> torch.Tensor:
         """``net(*args)`` with dropout on when ``train``, under autocast
-        for a trainable bf16 model."""
+        for a trainable bf16 model (its cache of weight casts off while a
+        CUDA graph is captured, so no cast made in the capture outlives
+        it)."""
         if self.net.training != train:
             self.net.train(train)
+        capturing = (self.device.type == "cuda"
+                     and torch.cuda.is_current_stream_capturing())
         with torch.autocast(self.device.type, dtype=self.compute_dtype,
-                            enabled=self.autocast):
+                            enabled=self.autocast,
+                            cache_enabled=not capturing):
             return self.net(*args)
 
     # -- sampler draws ----------------------------------------------------

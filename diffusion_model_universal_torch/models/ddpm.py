@@ -107,19 +107,45 @@ class DDPM(BaseDiffusionModel):
         timesteps ``t`` (f32, NHWC); ``train`` turns dropout on."""
         return self._run_net(train, x, t, y)
 
+    def loss_draws(self, x: torch.Tensor,
+                   generator: Optional[torch.Generator] = None,
+                   y: Optional[torch.Tensor] = None, rows: Rows = None,
+                   t: Optional[torch.Tensor] = None,
+                   noise: Optional[torch.Tensor] = None,
+                   cfg_u: Optional[torch.Tensor] = None
+                   ) -> Dict[str, torch.Tensor]:
+        """The random inputs of :meth:`loss_function` on ``x`` (the global
+        batch's under ``rows``): those given, the others drawn from
+        ``generator`` in the loss's order (t, ε, then for a conditional
+        model with labels the uniform ``cfg_u`` of the label drop)."""
+        n, _ = row_draws(x.shape[0], rows)
+        if t is None:
+            t = torch.randint(0, self.num_timesteps, (n,),
+                              generator=generator, device=x.device)
+        if noise is None:
+            noise = torch.randn((n, *x.shape[1:]), generator=generator,
+                                device=x.device, dtype=x.dtype)
+        draws = {"t": t, "noise": noise}
+        if y is not None and self.num_classes > 0:
+            draws["cfg_u"] = (cfg_u if cfg_u is not None else torch.rand(
+                (n,), generator=generator, device=x.device))
+        return draws
+
     def loss_function(self, x: torch.Tensor,
                       t: Optional[torch.Tensor] = None,
                       noise: Optional[torch.Tensor] = None,
                       generator: Optional[torch.Generator] = None,
                       y: Optional[torch.Tensor] = None,
                       per_sample: bool = False,
-                      rows: Rows = None) -> torch.Tensor:
+                      rows: Rows = None,
+                      cfg_u: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Training loss of NHWC images ``x``: t ~ U[0, T), ε ~ N(0, I),
         x_t = q_sample(x, t, ε), the network (dropout on) against the
         parameterization's target. ``t`` and ``noise`` may be given, so a
         test can feed the reference's draws; otherwise they come from
-        ``generator``. Conditional models replace a ``cfg_drop_prob``
-        fraction of the labels ``y`` by the NULL token.
+        ``generator`` (:meth:`loss_draws`). Conditional models replace a
+        ``cfg_drop_prob`` fraction of the labels ``y`` by the NULL token
+        (where the uniform draw ``cfg_u`` is below it).
 
         ``per_sample``: return [B] losses, each as the loss of a batch of
         one (how the reference's eval weights samples). ``rows``: ``x``
@@ -130,18 +156,13 @@ class DDPM(BaseDiffusionModel):
         prediction half plus ``vlb_weight`` × the VLB in bits/dim, whose
         model mean is detached so that it trains only the variance
         half."""
-        n, keep = row_draws(x.shape[0], rows)
-        if t is None:
-            t = torch.randint(0, self.num_timesteps, (n,),
-                              generator=generator, device=x.device)
-        if noise is None:
-            noise = torch.randn((n, *x.shape[1:]), generator=generator,
-                                device=x.device, dtype=x.dtype)
+        _, keep = row_draws(x.shape[0], rows)
+        draws = self.loss_draws(x, generator, y, rows, t, noise, cfg_u)
+        t, noise = draws["t"], draws["noise"]
         t_all, t, noise = t, t[keep], noise[keep]
         noisy_x = q_sample(self.schedule, x, t, noise)
-        if y is not None and self.num_classes > 0:
-            drop = torch.rand((n,), generator=generator,
-                              device=x.device)[keep] < self.cfg_drop_prob
+        if "cfg_u" in draws:
+            drop = draws["cfg_u"][keep] < self.cfg_drop_prob
             y = torch.where(drop, torch.full_like(y, self.num_classes), y)
         pred = self.apply(noisy_x, t, y, train=True)
         target = prediction_target(self.schedule, x, noise, t,

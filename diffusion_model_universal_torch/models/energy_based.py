@@ -23,7 +23,7 @@ whose tensors cannot be saved for a backward. Every draw can be injected
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Union
+from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -188,6 +188,38 @@ class EnergyBasedDiffusion(BaseDiffusionModel):
         return sigma[:, None, None, None] * self.energy_grad(x, t,
                                                              create_graph)
 
+    def loss_draws(self, x: torch.Tensor,
+                   generator: Optional[torch.Generator] = None,
+                   y: Optional[torch.Tensor] = None, rows: Rows = None,
+                   t: Optional[torch.Tensor] = None,
+                   noise: Optional[torch.Tensor] = None,
+                   langevin_noise: Optional[Sequence[torch.Tensor]] = None,
+                   alpha: Optional[torch.Tensor] = None
+                   ) -> Dict[str, Any]:
+        """The random inputs of :meth:`loss_function` on ``x`` (the global
+        batch's under ``rows``): those given, the others drawn from
+        ``generator`` in the loss's order (t, ε; for "cd" one Langevin
+        draw a step, then α when the loss is CD + GP)."""
+        n, _ = row_draws(x.shape[0], rows)
+        if t is None:
+            t = torch.randint(0, self.num_timesteps, (n,),
+                              generator=generator, device=x.device)
+        if noise is None:
+            noise = torch.randn((n, *x.shape[1:]), generator=generator,
+                                device=x.device, dtype=x.dtype)
+        draws: Dict[str, Any] = {"t": t, "noise": noise}
+        if self.training_objective == "dsm":
+            return draws
+        if langevin_noise is None:
+            draw = self._drawer((n, *x.shape[1:]), generator, None)
+            langevin_noise = [draw() for _ in range(self.langevin_steps)]
+        draws["langevin_noise"] = list(langevin_noise)
+        if self.loss_fn is None:
+            draws["alpha"] = (alpha if alpha is not None else torch.rand(
+                (n, 1, 1, 1), generator=generator, device=x.device,
+                dtype=x.dtype))
+        return draws
+
     def loss_function(self, x: torch.Tensor,
                       t: Optional[torch.Tensor] = None,
                       noise: Optional[torch.Tensor] = None,
@@ -208,12 +240,9 @@ class EnergyBasedDiffusion(BaseDiffusionModel):
         the global batch's (:func:`.base.row_draws`)."""
         b = x.shape[0]
         n, keep = row_draws(b, rows)
-        if t is None:
-            t = torch.randint(0, self.num_timesteps, (n,),
-                              generator=generator, device=x.device)
-        if noise is None:
-            noise = torch.randn((n, *x.shape[1:]), generator=generator,
-                                device=x.device, dtype=x.dtype)
+        draws = self.loss_draws(x, generator, y, rows, t, noise,
+                                langevin_noise, alpha)
+        t, noise = draws["t"], draws["noise"]
         t_all, t, noise = t, t[keep], noise[keep]
         x_noisy = q_sample(self.schedule, x, t, noise)
         if self.training_objective == "dsm":
@@ -221,7 +250,7 @@ class EnergyBasedDiffusion(BaseDiffusionModel):
             err = (eps - noise) ** 2
             return err.reshape(b, -1).mean(dim=1) if per_sample \
                 else err.mean()
-        draw = self._drawer((n, *x.shape[1:]), generator, langevin_noise,
+        draw = self._drawer((n, *x.shape[1:]), None, draws["langevin_noise"],
                             keep)
         x_fake = self._langevin(x_noisy, t, draw)
 
@@ -229,10 +258,8 @@ class EnergyBasedDiffusion(BaseDiffusionModel):
             return self.energy_scale * self.apply(z, t)
 
         if self.loss_fn is None:
-            if alpha is None:
-                alpha = torch.rand((n, 1, 1, 1), generator=generator,
-                                   device=x.device, dtype=x.dtype)
-            return energy_based_loss(energy_fn, x, x_fake, alpha[keep],
+            return energy_based_loss(energy_fn, x, x_fake,
+                                     draws["alpha"][keep],
                                      self.regularization_weight, per_sample)
         real, fake = energy_fn(x), energy_fn(x_fake)
         if per_sample:

@@ -95,6 +95,24 @@ class ScoreBasedDiffusion(BaseDiffusionModel):
             out = out / sigma[:, None, None, None].to(out.dtype)
         return out
 
+    def loss_draws(self, x: torch.Tensor,
+                   generator: Optional[torch.Generator] = None,
+                   y: Optional[torch.Tensor] = None, rows: Rows = None,
+                   sigma: Optional[torch.Tensor] = None,
+                   noise: Optional[torch.Tensor] = None
+                   ) -> Dict[str, torch.Tensor]:
+        """The random inputs of :meth:`loss_function` on ``x`` (the global
+        batch's under ``rows``): those given, the others drawn from
+        ``generator`` in the loss's order (σ from u ~ U[0, 1), then ε)."""
+        n, _ = row_draws(x.shape[0], rows)
+        if sigma is None:
+            u = torch.rand((n,), generator=generator, device=x.device)
+            sigma = continuous_sigma(self.sigma_min, self.sigma_max, u)
+        if noise is None:
+            noise = torch.randn((n, *x.shape[1:]), generator=generator,
+                                device=x.device, dtype=x.dtype)
+        return {"sigma": sigma, "noise": noise}
+
     def loss_function(self, x: torch.Tensor,
                       sigma: Optional[torch.Tensor] = None,
                       noise: Optional[torch.Tensor] = None,
@@ -109,14 +127,9 @@ class ScoreBasedDiffusion(BaseDiffusionModel):
         is those rows of a global batch, and ``sigma`` and ``noise``,
         drawn or given, are the global batch's (:func:`.base.row_draws`).
         """
-        n, keep = row_draws(x.shape[0], rows)
-        if sigma is None:
-            u = torch.rand((n,), generator=generator, device=x.device)
-            sigma = continuous_sigma(self.sigma_min, self.sigma_max, u)
-        if noise is None:
-            noise = torch.randn((n, *x.shape[1:]), generator=generator,
-                                device=x.device, dtype=x.dtype)
-        sigma, noise = sigma[keep], noise[keep]
+        _, keep = row_draws(x.shape[0], rows)
+        draws = self.loss_draws(x, generator, y, rows, sigma, noise)
+        sigma, noise = draws["sigma"][keep], draws["noise"][keep]
         s = sigma[:, None, None, None]
         score = self.apply(x + s * noise, sigma, train=True)
         if self.loss_fn is None:

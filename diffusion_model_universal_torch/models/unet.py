@@ -74,6 +74,7 @@ class UNet(nn.Module):
         self.num_classes = num_classes
         self.remat = remat or remat_policy is not None
         self._remat_context = resolve_remat_policy(remat_policy)
+        self._remat_rng = RematRNG() if dropout > 0.0 else None
         self.continuous_sigma = continuous_sigma
         self.time_embedding = (SigmaEmbedding(c, temb) if continuous_sigma
                                else TimeEmbedding(c, temb))
@@ -130,26 +131,129 @@ class UNet(nn.Module):
         h = self.initial_conv(h)
         stage = self._stage
         skips = []
-        for block in (self.down0, self.down1, self.down2, self.down3,
-                      self.down4):
-            h = stage(block, h, t_emb)
+        for i, block in enumerate((self.down0, self.down1, self.down2,
+                                   self.down3, self.down4)):
+            h = stage(i, block, h, t_emb)
             skips.append(h)
         h = self.mid_res1(h, t_emb)
         h = self.mid_attn(h)
         h = self.mid_res2(h, t_emb)
-        for block, skip in zip((self.up0, self.up1, self.up2, self.up3,
-                                self.up4), reversed(skips)):
-            h = stage(block, h, t_emb, skip)
+        for i, (block, skip) in enumerate(zip(
+                (self.up0, self.up1, self.up2, self.up3, self.up4),
+                reversed(skips))):
+            h = stage(5 + i, block, h, t_emb, skip)
         h = self.output_conv(self.out_norm(h))
         return h.permute(0, 2, 3, 1).float()
 
-    def _stage(self, block: nn.Module, *args) -> torch.Tensor:
+    def _stage(self, index: int, block: nn.Module, *args) -> torch.Tensor:
         if self.remat and torch.is_grad_enabled():
-            # Non-reentrant checkpointing; dropout masks are replayed from
-            # the saved RNG state (preserve_rng_state, the default).
-            return checkpoint(block, *args, use_reentrant=False,
-                              context_fn=self._remat_context)
+            # Non-reentrant checkpointing. On the CPU the recompute's
+            # dropout masks are replayed from the saved RNG state
+            # (preserve_rng_state); on CUDA, where saving that state cannot
+            # be captured in a CUDA graph, from the stage's own pair of
+            # generators (RematRNG), and a stage without dropout draws
+            # nothing.
+            fn, preserve = block, not args[0].is_cuda
+            if not preserve and self._remat_rng is not None:
+                fn = self._remat_rng.bind(index, block, args[0].device)
+            return checkpoint(fn, *args, use_reentrant=False,
+                              context_fn=self._remat_context,
+                              preserve_rng_state=preserve)
         return block(*args)
+
+    def remat_generators(self):
+        """The CUDA generators of the remat'd stages' dropout (registered
+        with a CUDA graph that captures a training step)."""
+        return [] if self._remat_rng is None else self._remat_rng.generators()
+
+    def remat_rng_state(self):
+        """The stages' dropout RNG state (host tensors), for
+        :meth:`set_remat_rng_state`."""
+        return None if self._remat_rng is None else self._remat_rng.state()
+
+    def set_remat_rng_state(self, state) -> None:
+        if self._remat_rng is not None and state is not None:
+            self._remat_rng.set_state(state)
+
+
+class RematRNG:
+    """The dropout RNG of the checkpointed stages on CUDA, safe to capture
+    in a CUDA graph.
+
+    ``torch.utils.checkpoint`` replays a stage's dropout masks by saving
+    the CUDA generator's state at the forward and restoring it for the
+    recompute, which cannot be done inside a graph capture. Instead each
+    stage draws its forward's masks from one generator and its
+    recompute's from a second one with the same seed and offset: both
+    advance by the same draws, so the recompute draws the forward's masks.
+    The default generator is pointed at the stage's generator for the call
+    (``graphsafe_set_state``), so ``nn.Dropout`` draws from it; the two
+    generators of every stage are registered with a graph that captures a
+    step, and a replay advances them as the eager steps would. Outside a
+    capture the recompute's generator is set to the forward's before each
+    forward, so a forward without a backward does not part them.
+
+    The pairs are seeded from the default generator's seed (per stage),
+    and seeded again when that seed changes (``torch.manual_seed``).
+    """
+
+    def __init__(self):
+        self._pairs = {}
+        self._seed = None
+
+    def generators(self):
+        return [g for pair in self._pairs.values() for g in pair]
+
+    def state(self):
+        """The seed and each stage's position, on the host."""
+        return self._seed, {i: fwd.get_state()
+                            for i, (fwd, _) in self._pairs.items()}
+
+    def set_state(self, state) -> None:
+        """Back to :meth:`state`: a stage that had drawn nothing then
+        starts afresh."""
+        self._seed, positions = state
+        self._pairs = {i: pair for i, pair in self._pairs.items()
+                       if i in positions}
+        for i, position in positions.items():
+            for g in self._pairs[i]:
+                g.set_state(position)
+
+    def bind(self, index: int, block: nn.Module, device: torch.device):
+        """``block`` as the checkpointed function of stage ``index``: its
+        first call (the forward) draws from the forward's generator, later
+        calls (the recompute) from the recompute's."""
+        default = torch.cuda.default_generators[
+            device.index if device.index is not None
+            else torch.cuda.current_device()]
+        capturing = torch.cuda.is_current_stream_capturing()
+        if not capturing and default.initial_seed() != self._seed:
+            self._pairs.clear()
+            self._seed = default.initial_seed()
+        pair = self._pairs.get(index)
+        if pair is None:
+            if capturing:
+                raise RuntimeError(
+                    "a remat stage's dropout generators are made by an "
+                    "eager step; run one before capturing a CUDA graph")
+            seed = (self._seed * 1_000_003 + 7919 * (index + 1)) % 2 ** 63
+            pair = self._pairs[index] = tuple(
+                torch.Generator(device=device).manual_seed(seed)
+                for _ in range(2))
+        elif not capturing:
+            pair[1].set_state(pair[0].get_state())
+        calls = [0]
+
+        def run(*args):
+            gen = pair[min(calls[0], 1)]
+            calls[0] += 1
+            prev = default.graphsafe_get_state()
+            default.graphsafe_set_state(gen)
+            try:
+                return block(*args)
+            finally:
+                default.graphsafe_set_state(prev)
+        return run
 
 
 def _save_convolutions(ctx, op, *args, **kwargs) -> CheckpointPolicy:

@@ -28,7 +28,15 @@ prints ``Benchmark: {json}``.
 ``--profile`` first traces ``--profile_steps`` real updates (after one
 warm-up update) with ``torch.profiler`` into DIR (default
 ``output_dir/profile``) and prints ``Profiler trace written to DIR``;
-training then goes on from there.
+training then goes on from there. With ``training.scan_steps`` K > 1 it
+traces whole chunks: ceil(N/K) of them, after the warm-up chunks (on the
+card the eager one and the captured one), so the trace holds replays.
+
+``training.scan_steps`` K > 1 runs each K updates as one chunk
+(``trainers/trainer.py``, ``trainers/scan.py``): on the card one replay of
+a captured CUDA graph, on the CPU K eager updates; logging and
+validation fire at the chunk that crosses their interval, and the
+epoch's ragged tail runs as single updates.
 
 Data parallelism (``parallel/mesh.py``), in the reference's two modes:
 
@@ -62,7 +70,10 @@ accepted and unused).
 On the card the run ends by printing each kernel's launches in the run
 (``Kernel launches``, ``Kernel launches (rank r of N)`` under data
 parallelism), after those of the benchmark alone (``Benchmark kernel
-launches``).
+launches``). These count the launchers' calls, which a graph replay does
+not make: with ``scan_steps`` > 1 a ``Graph replays`` line follows, with
+the captures and replays and the launches the captures recorded and the
+replays ran, by kernel (the kernels run = calls − captured + replayed).
 """
 
 from __future__ import annotations
@@ -294,6 +305,9 @@ def run(args, config, device, split=None) -> int:
             else ""
         print(f"Kernel launches{who}: {json.dumps(launch_counts())}",
               flush=True)
+        if trainer.graphs is not None:
+            print(f"Graph replays{who}: "
+                  f"{json.dumps(trainer.graphs.summary())}", flush=True)
     return 0
 
 

@@ -14,7 +14,7 @@ stored in another dtype (``adam_mu_dtype``).
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -110,6 +110,15 @@ class Adam:
     ``mu_dtype``), and only then is μ rounded to ``mu_dtype`` for
     storage.
 
+    Nothing in an update reads the host: the per-update scalars, √(1−b2ᶜ)
+    and −lr(c−1)/(1−b1ᶜ) for count c after the update, come from a table
+    the host fills (:meth:`scalar_table`), and the non-finite skip is a
+    select on the device, with ``count``, ``notfinite_count`` and
+    ``total_notfinite`` kept there (reading one waits for the card). So
+    one update, or K of them captured in a CUDA graph, runs without a
+    sync. Without the skip the host knows the count; with it the host
+    reads it once per table.
+
     ``sharding`` (``parallel/mesh.py::Sharding``, under
     ``model_parallel``): ``params`` are this rank's shards of the sharded
     leaves (whole for the rest), so are μ and ν; :meth:`state_dict` and
@@ -126,56 +135,122 @@ class Adam:
         self.b1, self.b2, self.eps = b1, b2, eps
         self.grad_clip = float(grad_clip or 0.0)
         self.max_consecutive_errors = int(max_consecutive_errors)
-        self.count = 0
-        self.notfinite_count = 0
-        self.total_notfinite = 0
+        self.device = (self.params[0].device if self.params
+                       else torch.device("cpu"))
+        #: count, notfinite_count, total_notfinite.
+        self.counters = torch.zeros(3, dtype=torch.int64, device=self.device)
+        #: Updates issued; equal to count without the skip.
+        self._issued = 0
         self.mu_dtype = mu_dtype
         self.mu = [torch.zeros_like(p, dtype=mu_dtype)
                    for p in self.params]
         self.nu = [torch.zeros_like(p, dtype=torch.float32)
                    for p in self.params]
 
+    @property
+    def count(self) -> int:
+        return int(self.counters[0])
+
+    @property
+    def notfinite_count(self) -> int:
+        return int(self.counters[1])
+
+    @property
+    def total_notfinite(self) -> int:
+        return int(self.counters[2])
+
+    def scalar_table(self, n: int) -> torch.Tensor:
+        """[n, 2] f32 on the host: row j holds √(1−b2ᶜ) and −lr(c−1)/(1−b1ᶜ)
+        for c = count + 1 + j, the scalars of the (j+1)-th update from now
+        (row j of an update that finds ``count`` advanced by j since the
+        table was made). Reads the count from the card under the skip."""
+        c0 = (int(self.counters[0]) if self.max_consecutive_errors
+              else self._issued)
+        rows = []
+        for c in range(c0 + 1, c0 + 1 + n):
+            rows.append((math.sqrt(1 - self.b2 ** c),
+                         -self.schedule(c - 1) / (1 - self.b1 ** c)))
+        return torch.tensor(rows, dtype=torch.float32)
+
+    def advance(self, n: int) -> None:
+        """Account on the host for ``n`` updates applied from a table."""
+        self._issued += n
+
+    def row(self, table: torch.Tensor, start: torch.Tensor) -> torch.Tensor:
+        """The row of ``table`` (made when the count was ``start``, a
+        device scalar) for the next update, chosen on the device."""
+        return table.index_select(0, (self.counters[0] - start).view(1))[0]
+
     @torch.no_grad()
-    def step(self, grads: List[torch.Tensor],
-             grad_norm: torch.Tensor) -> bool:
+    def step(self, grads: List[torch.Tensor], grad_norm: torch.Tensor,
+             scalars: Optional[torch.Tensor] = None):
         """Apply one update from ``grads`` (clipped in place) given their
-        global norm; returns False when the update was skipped."""
+        global norm. ``scalars``: this update's row of a
+        :meth:`scalar_table` on the device (default: made here from the
+        host's count). Returns True, or under the skip a device bool that
+        is False when the update was skipped."""
+        if scalars is None:
+            scalars = to_device(self.scalar_table(1), self.device)[0]
+            self._issued += 1
+        sqrt_bc2, step_size = scalars[0], scalars[1]
+        apply = None
         if self.max_consecutive_errors:
-            if bool(torch.isfinite(grad_norm)):
-                self.notfinite_count = 0
-            else:
-                self.notfinite_count += 1
-                self.total_notfinite += 1
-                if self.notfinite_count <= self.max_consecutive_errors:
-                    return False
+            # optax.apply_if_finite as a select: a skipped update sees zero
+            # gradients (so nothing below turns non-finite) and keeps the
+            # old parameters and moments.
+            finite = torch.isfinite(grad_norm)
+            nf = torch.where(finite, torch.zeros_like(self.counters[1]),
+                             self.counters[1] + 1)
+            apply = finite | (nf > self.max_consecutive_errors)
+            self.counters[1:].copy_(torch.stack(
+                [nf, self.counters[2] + (~finite).long()]))
+            for g in grads:
+                g.masked_fill_(~apply, 0.0)
+            grad_norm = torch.where(apply, grad_norm,
+                                    torch.zeros_like(grad_norm))
         if self.grad_clip:
             keep = grad_norm < self.grad_clip
             one = torch.ones_like(grad_norm)
             torch._foreach_div_(grads, torch.where(keep, one, grad_norm))
             torch._foreach_mul_(grads, torch.where(
                 keep, one, one * self.grad_clip))
-        lr = self.schedule(self.count)
-        self.count += 1
-        if self.mu_dtype == torch.float32:
+        if self.mu_dtype == torch.float32 and apply is None:
             mu = self.mu
             torch._foreach_mul_(mu, self.b1)
+        elif self.mu_dtype == torch.float32:
+            mu = torch._foreach_mul(self.mu, self.b1)
         else:
             # b1 rounded to μ's dtype, as JAX's weakly typed b1 is; the
             # product stays f32, as the compiled optax update keeps it.
             b1 = float(torch.tensor(self.b1, dtype=self.mu_dtype))
             mu = torch._foreach_mul([m.float() for m in self.mu], b1)
         torch._foreach_add_(mu, grads, alpha=1 - self.b1)
-        torch._foreach_mul_(self.nu, self.b2)
-        torch._foreach_addcmul_(self.nu, grads, grads, value=1 - self.b2)
-        bc1 = 1 - self.b1 ** self.count
-        bc2 = 1 - self.b2 ** self.count
-        denom = torch._foreach_sqrt(self.nu)
-        torch._foreach_div_(denom, math.sqrt(bc2))
+        if apply is None:
+            nu = self.nu
+            torch._foreach_mul_(nu, self.b2)
+        else:
+            nu = torch._foreach_mul(self.nu, self.b2)
+        torch._foreach_addcmul_(nu, grads, grads, value=1 - self.b2)
+        denom = torch._foreach_sqrt(nu)
+        torch._foreach_div_(denom, sqrt_bc2)
         torch._foreach_add_(denom, self.eps)
-        torch._foreach_addcdiv_(self.params, mu, denom, value=-lr / bc1)
+        update = torch._foreach_div(mu, denom)
+        del denom
+        torch._foreach_mul_(update, step_size)
+        if apply is None:
+            torch._foreach_add_(self.params, update)
+            self.counters[0] += 1
+        else:
+            torch._foreach_add_(update, self.params)
+            for dst, src in zip(self.params + self.nu, update + nu):
+                torch.where(apply, src, dst, out=dst)
+            if mu is not self.mu:
+                mu = [torch.where(apply, m, old.float()) for m, old in
+                      zip(mu, self.mu)]
+            self.counters[0] += apply.long()
         if mu is not self.mu:
             torch._foreach_copy_(self.mu, mu)
-        return True
+        return True if apply is None else apply
 
     def state_dict(self, gather: bool = True) -> Dict[str, Any]:
         """The state with whole moments (gathered from every shard under
@@ -184,8 +259,9 @@ class Adam:
         mu, nu = self.mu, self.nu
         if self.sharding is not None and gather:
             mu, nu = self.sharding.whole(mu), self.sharding.whole(nu)
-        return {"count": self.count, "notfinite_count": self.notfinite_count,
-                "total_notfinite": self.total_notfinite,
+        count, notfinite, total = self.counters.tolist()
+        return {"count": count, "notfinite_count": notfinite,
+                "total_notfinite": total,
                 "mu": [m.detach().cpu().clone() for m in mu],
                 "nu": [n.detach().cpu().clone() for n in nu]}
 
@@ -193,15 +269,24 @@ class Adam:
         if len(state["mu"]) != len(self.mu):
             raise ValueError(f"optimizer state has {len(state['mu'])} "
                              f"moments for {len(self.mu)} parameters")
-        self.count = int(state["count"])
-        self.notfinite_count = int(state["notfinite_count"])
-        self.total_notfinite = int(state["total_notfinite"])
+        self.counters.copy_(torch.tensor(
+            [int(state["count"]), int(state["notfinite_count"]),
+             int(state["total_notfinite"])]))
+        self._issued = int(state["count"])
         mu, nu = state["mu"], state["nu"]
         if self.sharding is not None:   # this rank's shards of the whole
             mu, nu = self.sharding.shards(mu), self.sharding.shards(nu)
         with torch.no_grad():
             for dst, src in zip(self.mu + self.nu, list(mu) + list(nu)):
                 dst.copy_(src)
+
+
+def to_device(host: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A small host table on ``device`` without waiting for the card: on
+    CUDA through pinned memory and an asynchronous copy."""
+    if device.type != "cuda":
+        return host.to(device)
+    return host.pin_memory().to(device, non_blocking=True)
 
 
 def make_optimizer(params: List[torch.Tensor], training_cfg: Dict[str, Any],

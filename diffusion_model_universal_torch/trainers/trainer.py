@@ -66,7 +66,20 @@ ranks may be gone): each rank that raises writes its own shards
 process's state when a full set of M is there. The batch's rows stay
 split over all D·M ranks. With M = 1 none of this runs.
 
-Not ported yet (it raises): ``scan_steps > 1``.
+``training.scan_steps`` K > 1 (``trainers/scan.py``): the epoch runs in
+chunks of K updates, each chunk one call of :meth:`scan_chunk`: on the
+CPU K eager updates, on CUDA one replay of a CUDA graph that captured K
+updates (the first chunk of a batch shape runs eagerly and the next is
+captured). Each update's draws are made before the chunk from the
+generator of its own step, so K scanned updates equal K calls of
+:meth:`step`, as the reference's in-program ``fold_in(base_key, i)``
+makes its scan equal its single steps. As in the reference: logging and
+validation fire at the chunk that crosses their interval, the
+throughput is taken between log events, the preemption agreement runs
+once a chunk, the ragged tail of an epoch runs as single updates, the
+chunk returns only its per-step losses, and K > 1 excludes
+``grad_accum_steps`` > 1. On CUDA it is refused over gloo and with
+``model_parallel`` > 1 (:func:`scan.scan_refusal`).
 """
 
 from __future__ import annotations
@@ -79,12 +92,12 @@ from typing import Any, Dict, Iterable, Iterator, List, Optional
 import numpy as np
 import torch
 
-from .. import NOT_PORTED
 from ..parallel import mesh
 from ..utils.checkpoint import CheckpointManager
 from ..utils.images import frames_to_grid, save_image
 from ..utils.logging_utils import MetricLogger
-from .optim import dtype_from_config, make_optimizer
+from .optim import dtype_from_config, make_optimizer, to_device
+from .scan import SCAN_ACCUM_EXCLUSIVE, StepGraphs, scan_refusal
 
 _SEED_STRIDE = 1_000_003
 #: Moves micro-batch i's generator seed away from any step's.
@@ -117,12 +130,13 @@ class DiffusionTrainer:
         tcfg = self.training_cfg = self.config.get("training", {}) or {}
         log_cfg = self.config.get("logging", {}) or {}
         self.seed = seed
-        if int(tcfg.get("scan_steps", 1)) > 1:
-            raise ValueError(f"training.scan_steps > 1 is {NOT_PORTED}")
         self.grad_accum = int(tcfg.get("grad_accum_steps", 1))
         if self.grad_accum < 1:
             raise ValueError(f"training.grad_accum_steps must be >= 1, got "
                              f"{self.grad_accum}")
+        self.scan_steps = int(tcfg.get("scan_steps", 1))
+        if self.scan_steps > 1 and self.grad_accum > 1:
+            raise ValueError(SCAN_ACCUM_EXCLUSIVE)
         self.ema_dtype = dtype_from_config(tcfg, "ema_dtype")
         self.track_histograms = bool(log_cfg.get("track_histograms", False))
 
@@ -154,6 +168,10 @@ class DiffusionTrainer:
         mesh.broadcast_(self.params)
         model_parallel = int((self.config.get("distributed") or {}).get(
             "model_parallel", 1))
+        refusal = scan_refusal(self.scan_steps, self.device.type,
+                               mesh.backend(), model_parallel)
+        if refusal:
+            raise ValueError(refusal)
         self.sharding = None
         # The f32 weights Adam updates: this rank's shards of the sharded
         # leaves under model parallelism, else the network's parameters.
@@ -177,6 +195,8 @@ class DiffusionTrainer:
             self.sharding.free_(self.params)
         self.step_count = 0
         self._gen = torch.Generator(device=self.device)
+        self.graphs = (StepGraphs(self) if self.scan_steps > 1
+                       and self.device.type == "cuda" else None)
 
         output_cfg = self.config.get("output", {}) or {}
         self.output_dir = Path(output_cfg.get("output_dir",
@@ -229,21 +249,23 @@ class DiffusionTrainer:
         return (self.rank * b, (self.rank + 1) * b, self.world_size * b)
 
     def _loss_and_grads(self, micro_batches: List[Any], step: int,
-                        draws: Optional[List[Dict[str, Any]]] = None):
+                        draws: Optional[List[Dict[str, Any]]] = None,
+                        drawn: bool = False):
         """The mean loss and mean gradients of ``micro_batches`` (gradients
         summed in f32, then scaled by 1/A, as the reference's
         accumulation), micro-batch i drawing from ``_generator(step,
-        micro=i)`` unless ``draws[i]`` gives its draws (the global
-        batch's, under data parallelism). Under data parallelism, each
-        micro-batch's are weighted by the rank's share of its rows and
-        summed over the ranks."""
+        micro=i)`` what ``draws[i]`` does not give (the global batch's,
+        under data parallelism; ``drawn``: all of it, and no generator is
+        touched). Under data parallelism, each micro-batch's are weighted
+        by the rank's share of its rows and summed over the ranks."""
         loss_sum, grads_sum = None, None
         for i, batch in enumerate(micro_batches):
             x, y = self._split_batch(batch)
             rows = self._rows(batch, x.shape[0])
             loss = self.model.loss_function(
-                x, generator=self._generator(step, micro=i), y=y, rows=rows,
-                **(draws[i] if draws else {}))
+                x, generator=None if drawn else self._generator(step,
+                                                                micro=i),
+                y=y, rows=rows, **(draws[i] if draws else {}))
             # A parameter the loss does not reach (the energy DSM
             # objective differentiates ∇ₓE, to which the last bias adds
             # nothing) gets a zero gradient, as the reference's does.
@@ -285,31 +307,107 @@ class DiffusionTrainer:
         micro-batch with its own draws (``draws[i]``, keywords as in
         :meth:`step`, may inject them). Returns what :meth:`step`
         returns."""
+        scalars = to_device(torch.cat([self.optimizer.scalar_table(1),
+                                       self._ema_table(self.step_count, 1)],
+                                      dim=1)[0], self.device)
         with self.whole_params():
-            loss, grads = self._loss_and_grads(micro_batches,
-                                               self.step_count, draws)
-            norms = torch._foreach_norm(grads)
-            grad_norm = torch.linalg.vector_norm(torch.stack(norms))
-            self.optimizer.step(grads if self.sharding is None
-                                else self.sharding.shards(grads), grad_norm)
-            self._update_ema()
+            loss, grad_norm, norms = self._update(
+                micro_batches, self.step_count, draws, scalars[:2],
+                scalars[2:])
+        self.optimizer.advance(1)
         self.step_count += 1
         return {"loss": loss, "grad_norm": grad_norm,
                 "layer_grad_norms": dict(zip(self.param_names, norms))}
 
+    def _update(self, micro_batches, step, draws, adam, ema,
+                drawn: bool = False):
+        """One update's loss, gradients, norms, Adam and EMA, with the
+        update's scalars on the device (``adam``: a row of
+        ``optimizer.scalar_table``, ``ema``: of :meth:`_ema_table`): the
+        body of an eager update and of each update of a captured chunk.
+        Returns the loss, the global and the per-layer gradient norms."""
+        loss, grads = self._loss_and_grads(micro_batches, step, draws,
+                                           drawn)
+        norms = torch._foreach_norm(grads)
+        grad_norm = torch.linalg.vector_norm(torch.stack(norms))
+        self.optimizer.step(grads if self.sharding is None
+                            else self.sharding.shards(grads), grad_norm,
+                            adam)
+        self._update_ema(ema)
+        return loss, grad_norm, norms
+
+    def _ema_table(self, step: int, n: int) -> torch.Tensor:
+        """[n, 2] f32 on the host: the EMA decay d and 1 − d of updates
+        ``step`` … ``step + n − 1``; with warmup d = min(decay,
+        (1+t)/(10+t)), t counting completed updates (the first uses
+        d = 1/10)."""
+        rows = []
+        for t in range(step, step + n):
+            d = self.ema_decay
+            if self.ema_warmup:
+                d = min(d, (1.0 + t) / (10.0 + t))
+            rows.append((d, 1.0 - d))
+        return torch.tensor(rows, dtype=torch.float32)
+
     @torch.no_grad()
-    def _update_ema(self) -> None:
-        d = self.ema_decay
-        if self.ema_warmup:
-            # t counts completed updates: the first uses d = 1/10.
-            t = float(self.step_count)
-            d = min(d, (1.0 + t) / (10.0 + t))
+    def _update_ema(self, scalars: Optional[torch.Tensor] = None) -> None:
+        """ema ← d·ema + (1−d)·θ in f32, with ``scalars`` (d, 1 − d) on the
+        device (default: the row of the current step)."""
+        if scalars is None:
+            scalars = to_device(self._ema_table(self.step_count, 1),
+                                self.device)[0]
         ema = (self.ema if self.ema_dtype == torch.float32
                else [e.float() for e in self.ema])
-        torch._foreach_mul_(ema, d)
-        torch._foreach_add_(ema, self.master, alpha=1.0 - d)
+        torch._foreach_mul_(ema, scalars[0])
+        torch._foreach_add_(ema, torch._foreach_mul(self.master, scalars[1]))
         if ema is not self.ema:
             torch._foreach_copy_(self.ema, ema)
+
+    # ------------------------------------------------------------------
+    def _step_draws(self, batch, step: int) -> Dict[str, Any]:
+        """Every draw of update ``step``'s loss on ``batch``, made now from
+        the step's generator as :meth:`step` would make them."""
+        x, y = self._split_batch(batch)
+        return self.model.loss_draws(x, generator=self._generator(step),
+                                     y=y, rows=self._rows(batch, x.shape[0]))
+
+    def scan_chunk(self, chunk: List[Any]) -> torch.Tensor:
+        """``len(chunk)`` updates, one a batch, as one (the reference's
+        ``_scan_chunk``): the draws and scalars made first on the host,
+        then the chunk eagerly on the CPU, or through :attr:`graphs` on
+        CUDA. Returns the per-step losses [K]; grad-norm metrics stay on
+        the single-step path."""
+        k, step0 = len(chunk), self.step_count
+        draws = [self._step_draws(batch, step0 + i)
+                 for i, batch in enumerate(chunk)]
+        adam = self.optimizer.scalar_table(k)
+        ema = self._ema_table(step0, k)
+        if self.graphs is not None:
+            losses = self.graphs.run(chunk, draws, adam, ema)
+        else:
+            losses = self._scan_body(chunk, draws,
+                                     to_device(adam, self.device),
+                                     to_device(ema, self.device))
+        self.optimizer.advance(k)
+        self.step_count += k
+        return losses
+
+    def _scan_body(self, batches, draws, adam: torch.Tensor,
+                   ema: torch.Tensor) -> torch.Tensor:
+        """K updates on the device with nothing read by the host: update
+        i on ``batches[i]`` with ``draws[i]``, its Adam row chosen on the
+        device by how far the count moved since the chunk began (a
+        skipped update does not move it), its EMA row i. What a CUDA
+        graph captures."""
+        start = self.optimizer.counters[0].clone()
+        losses = []
+        with self.whole_params():
+            for i, (batch, d) in enumerate(zip(batches, draws)):
+                loss, _, _ = self._update(
+                    [batch], 0, [d], self.optimizer.row(adam, start),
+                    ema[i], drawn=True)
+                losses.append(loss)
+        return torch.stack(losses)
 
     def param_norm(self) -> torch.Tensor:
         """‖θ‖ over every parameter (under model parallelism a gather:
@@ -344,21 +442,34 @@ class DiffusionTrainer:
         Chrome trace."""
         from ..utils.profiling import trace
         log_dir = log_dir or str(self.output_dir / "profile")
-        updates = self._updates(self.train_loader)
+        k = self.scan_steps
+        if k > 1:
+            # Whole chunks: on CUDA an eager one and the one captured
+            # before the window, then ceil(steps / K) replays.
+            size, run, updates = k, self.scan_chunk, self._grouped(
+                self.train_loader, k)
+            warmup = 2 if self.graphs is not None else 1
+            count = -(-steps // k)
+        else:
+            size, run, updates = 1, self.accum_step, self._updates(
+                self.train_loader)
+            warmup, count = 1, steps
 
         def update():
             chunk = next(updates, None)
-            if chunk is None:
-                raise ValueError(f"profiling {steps} updates after a "
-                                 f"warm-up needs {steps + 1}; an epoch has "
-                                 f"{self.steps_per_epoch}")
-            self.accum_step(chunk)
+            if chunk is None or (k > 1 and len(chunk) < size):
+                raise ValueError(
+                    f"profiling {count * size} updates after {warmup * size}"
+                    f" of warm-up needs {(count + warmup) * size}; an epoch "
+                    f"has {self.steps_per_epoch}")
+            run(chunk)
 
         try:
-            update()
+            for _ in range(warmup):
+                update()
             with (trace(log_dir, device=self.device) if self.is_main
                   else contextlib.nullcontext()):
-                for _ in range(steps):
+                for _ in range(count):
                     update()
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
@@ -390,19 +501,34 @@ class DiffusionTrainer:
     def _updates(self, loader: Iterable) -> Iterator[List[Any]]:
         """The loader's batches in groups of ``grad_accum_steps``, the
         last group the ragged tail."""
+        return self._grouped(loader, self.grad_accum)
+
+    @staticmethod
+    def _grouped(loader: Iterable, size: int) -> Iterator[List[Any]]:
+        """The loader's batches in groups of ``size``, the last group the
+        ragged tail."""
         chunk: List[Any] = []
         for batch in loader:
             chunk.append(batch)
-            if len(chunk) == self.grad_accum:
+            if len(chunk) == size:
                 yield chunk
                 chunk = []
         if chunk:
             yield chunk
 
     def _rng_state(self):
+        """The dropout RNG state: the host's, the card's and the remat
+        stages' (``UNet.remat_rng_state``)."""
+        net = getattr(self.model.net, "remat_rng_state", None)
         return (torch.get_rng_state(),
                 torch.cuda.get_rng_state(self.device)
-                if self.device.type == "cuda" else None)
+                if self.device.type == "cuda" else None,
+                net() if net else None)
+
+    def _set_net_rng(self, state) -> None:
+        set_state = getattr(self.model.net, "set_remat_rng_state", None)
+        if set_state is not None:
+            set_state(state)
 
     def histogram_metrics(self, micro_batches: List[Any], step: int,
                           rng_state) -> Dict[str, Any]:
@@ -413,11 +539,16 @@ class DiffusionTrainer:
         update started from; and β/α/ᾱ."""
         devices = [self.device] if self.device.type == "cuda" else []
         with self.whole_params():
+            held = self._rng_state()[2]
             with torch.random.fork_rng(devices=devices):
                 torch.set_rng_state(rng_state[0])
                 if rng_state[1] is not None:
                     torch.cuda.set_rng_state(rng_state[1], self.device)
-                _, grads = self._loss_and_grads(micro_batches, step)
+                self._set_net_rng(rng_state[2])
+                try:
+                    _, grads = self._loss_and_grads(micro_batches, step)
+                finally:
+                    self._set_net_rng(held)
             out = self.logger.model_histograms(
                 dict(zip(self.param_names, grads)),
                 dict(zip(self.param_names, self.params)))
@@ -464,13 +595,21 @@ class DiffusionTrainer:
         self.preempted = False
         prev_handler = self._install_preemption_handler()
         epoch = self.start_epoch
+        # The scan path's throughput is taken between log events, and
+        # across epochs (an epoch with one log event still gets a rate).
+        self._last_log = None
         try:
             for epoch in range(self.start_epoch,
                                self.start_epoch + num_epochs):
                 self.train_loader.set_epoch(epoch)
                 epoch_losses = []
                 t_epoch = time.perf_counter()
-                for chunk in self._updates(self.train_loader):
+                if self.scan_steps > 1 and self._scan_epoch(epoch,
+                                                            epoch_losses):
+                    history["preempted"] = 1.0
+                    return history
+                for chunk in (() if self.scan_steps > 1
+                              else self._updates(self.train_loader)):
                     t0 = time.perf_counter()
                     step = self.step_count
                     logged = step % self.log_interval == 0
@@ -485,14 +624,12 @@ class DiffusionTrainer:
                     if self.val_interval and \
                             self.step_count % self.val_interval == 0:
                         self._validate_and_save_best(self.step_count, epoch)
-                    if self._preemption_agreed():
-                        self._save_epoch_checkpoint(epoch)
+                    if self._preempt_save(epoch):
                         history["preempted"] = 1.0
-                        self.logger.log({"train/preempted": 1.0},
-                                        self.step_count)
                         return history
                 if epoch_losses:
-                    mean_loss = float(torch.stack(epoch_losses).mean())
+                    mean_loss = float(torch.cat(
+                        [v.reshape(-1) for v in epoch_losses]).mean())
                     history["train_loss"] = mean_loss
                     self.logger.log({
                         "epoch/train_loss": mean_loss,
@@ -525,6 +662,65 @@ class DiffusionTrainer:
         # Continue with fresh shuffles when train() is called again.
         self.start_epoch += num_epochs
         return history
+
+    def _scan_epoch(self, epoch: int, epoch_losses: List[torch.Tensor]
+                    ) -> bool:
+        """One epoch in chunks of ``scan_steps`` K (the reference's scan
+        loop): a log at the chunk where ``step % log_interval < K``, with
+        the loss of its steps and the throughput since the last log event;
+        validation where ``step % val_interval < K``; the preemption
+        agreement once a chunk; the ragged tail as single updates, each
+        with the single step's rule. Appends the losses to
+        ``epoch_losses``; returns True when preempted (the checkpoint
+        saved)."""
+        k = self.scan_steps
+        for chunk in self._grouped(self.train_loader, k):
+            if len(chunk) < k:   # the ragged tail
+                for batch in chunk:
+                    step = self.step_count
+                    metrics = self.accum_step([batch])
+                    epoch_losses.append(metrics["loss"])
+                    if self.is_main and step % self.log_interval == 0:
+                        self.logger.log({
+                            "train/loss": float(metrics["loss"]),
+                            "train/learning_rate":
+                                float(self.lr_schedule(step))}, step)
+                    if self.val_interval and \
+                            self.step_count % self.val_interval == 0:
+                        self._validate_and_save_best(self.step_count, epoch)
+                    if self._preempt_save(epoch):
+                        return True
+                break
+            losses = self.scan_chunk(chunk)
+            epoch_losses.append(losses)
+            step = self.step_count
+            if self.is_main and step % self.log_interval < k:
+                log = {"train/loss": float(losses.mean()),
+                       "train/learning_rate": float(self.lr_schedule(step))}
+                # float() above waited for the chunk, so the time between
+                # log events over their steps is the amortized rate.
+                now = time.perf_counter()
+                if self.track_time and self._last_log is not None:
+                    t_prev, step_prev = self._last_log
+                    log.update(self.logger.performance_metrics(
+                        max(now - t_prev, 1e-9) / (step - step_prev),
+                        self._batch_count(chunk[-1:]), self.device))
+                self._last_log = (now, step)
+                self.logger.log(log, step)
+            if self.val_interval and step % self.val_interval < k:
+                self._validate_and_save_best(step, epoch)
+            if self._preempt_save(epoch):
+                return True
+        return False
+
+    def _preempt_save(self, epoch: int) -> bool:
+        """At a step boundary: when any rank was preempted, save the
+        epoch's checkpoint and log it; returns whether it did."""
+        if not self._preemption_agreed():
+            return False
+        self._save_epoch_checkpoint(epoch)
+        self.logger.log({"train/preempted": 1.0}, self.step_count)
+        return True
 
     def _validate_and_save_best(self, step: int, epoch: int) -> None:
         val_loss = self.validate()

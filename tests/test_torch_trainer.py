@@ -361,13 +361,17 @@ def _write_mnist(root):
     ("data", "dataset", "mnist", "mnist"),
     ("data", "dataset", "celeba", "celeba")])
 def test_unported_options_raise(tmp_path, section, key, value, fragment):
-    """``scan_steps > 1`` is refused. The other options, once refused here,
-    run and differ from their defaults (``tests/test_torch_datasets.py``
-    and ``tests/test_torch_train_options.py`` hold them against JAX)."""
+    """Every option once refused here runs now and differs from its
+    default (``tests/test_torch_datasets.py``,
+    ``tests/test_torch_train_options.py`` and ``tests/test_torch_scan.py``
+    hold them against JAX). ``scan_steps > 1`` is refused only beside
+    ``grad_accum_steps > 1``, with the reference's message."""
     cfg = _config(tmp_path, 1)
     cfg[section][key] = value
     if key == "scan_steps":
-        with pytest.raises(ValueError, match=f"{fragment}.*not yet ported"):
+        cfg["training"]["grad_accum_steps"] = 2
+        with pytest.raises(ValueError,
+                           match=f"{fragment}.*mutually exclusive"):
             DDPMTrainer(DDPM(cfg["model_config"], device="cpu",
                              trainable=True),
                         *get_dataset(cfg, device="cpu"), cfg)
