@@ -50,7 +50,8 @@ on, dropout 0.1, the config's SNR-weighted MSE, Adam and EMA):
 8. runs the training CLI at full width as a subprocess on the synthetic
    dataset (1 epoch, checkpoints, validation, a sample grid), resumes it
    from its latest checkpoint for a second epoch, and generates from the
-   final checkpoint's EMA weights, at ``CLI_T`` diffusion steps;
+   final checkpoint's EMA weights, at ``CLI_T`` diffusion steps (beside
+   phase 11a, whose holds it does not time);
 9. times training steps in-process (ms/step, images/s), checks that each
    step launched K1, K2 and K3 exactly as often as counted, traces a few
    steps with ``torch.profiler``, and times every kernel at the training
@@ -260,9 +261,35 @@ width of ``ddpm_config.yaml``:
        400/212/36), the peak memory of an eager update over the state
        and the graph's pool.
 
+Then spatial parallelism's forward path (``parallel/spatial.py``:
+``distributed.spatial_parallel``, each image's rows split over the
+ranks of a spatial group), at the full width of ``ddpm_config.yaml``:
+
+18. a. holds K1's split form, (a) the partial sums of a rank's rows and
+       (b) the apply from the group's summed sums, against their plain
+       twins at every sharded shape of the f32 forwards at 32² and 64²
+       (B=2), in f32 and bf16; spawns ``SP_RANKS`` gloo ranks sharing
+       the card as one spatial group, whose f32 UNet forwards (rows
+       split at 32/16/8 rows, and at 64² down to ``down3``'s attention
+       at 8²) must equal one process's within 1e-3 + 1e-3·|ref|, with
+       exactly the launches of K1 whole (stages under 8 rows), (a), (b)
+       (one each a sharded GroupNorm) and K3 (5) a forward on each rank;
+    b. on the same ranks, ``train --eval_only --benchmark``'s path
+       through the trainer and ``run_benchmark`` (bf16 autocast, dropout
+       0.1, ``SP_SAMPLES`` synthetic images, eval batches of 16, 16
+       DPM++-20 samples, InceptionV3 with seeded weights): the test loss
+       against one process (f32 within 1e-5 relative, bf16 within 1e-4),
+       FID and IS within 1e-3 relative, each kernel's launches exactly
+       (test batches + 19) × a forward's, and the seconds of a harness
+       batch on the ranks beside one process (sharing one card, not
+       scaling);
+    c. times (a) and (b) at the harness's sharded shapes (bf16, B=16,
+       32²) beside their plain twins, ``F.group_norm`` on the whole
+       tensor (for (b)) and their bounds.
+
 The last three lines of standard output are the ``kernels`` JSON line
-(all seven kernels; K1–K3 with their 64² training rows and the launches
-of each path, phase 15's per rank),
+(all seven kernels and K1's split form (a) and (b); K1–K3 with their 64²
+training rows and the launches of each path, phase 15's per rank),
 the card's name and power limit from ``nvidia-smi``, and the result
 line ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
 before the result line. Needs a CUDA card; exits non-zero without one.
@@ -874,9 +901,13 @@ def time_kernels(gn_calls, mha_calls, dtype_name="bfloat16"):
 
 def totals(rows):
     """Sums over the shapes, each weighted by its calls (per forward, or
-    per training step): the numbers of that much of the kernel's work."""
+    per training step): the numbers of that much of the kernel's work
+    (no library time where a shape has none)."""
     tot = {k: sum(r[k] * r["per_forward"] for r in rows)
-           for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+           for k in ("ms", "plain_ms", "bound_ms")}
+    tot["library_ms"] = (None if any(r["library_ms"] is None for r in rows)
+                         else sum(r["library_ms"] * r["per_forward"]
+                                  for r in rows))
     t_bytes = sum(r["bound_ms"] * r["per_forward"] for r in rows
                   if r["bound_by"] == "bytes")
     tot["bound_by"] = ("bytes" if t_bytes * 2 >= tot["bound_ms"]
@@ -1344,6 +1375,30 @@ class BackgroundCLI:
         if self.proc.poll() is None:
             self.proc.kill()
             self.proc.wait()
+
+
+def beside(fn, *args):
+    """Start ``fn(*args)`` on a thread while the caller goes on (CLIs and
+    holds whose times nothing reads, as :class:`BackgroundCLI`'s); the
+    function returned waits for it and returns its result, or raises
+    what it raised."""
+    box = {}
+
+    def run():
+        try:
+            box["out"] = fn(*args)
+        except BaseException as e:  # re-raised in the caller's thread
+            box["err"] = e
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+
+    def join():
+        thread.join()
+        if "err" in box:
+            raise box["err"]
+        return box["out"]
+    return join
 
 
 def run_cli(module: str, args, what: str, timeout: int = 900,
@@ -2642,25 +2697,28 @@ def sampler_clis():
     return out
 
 
-def samplers(per_forward):
+def samplers(per_forward, wait):
     """Phase 11: DDIM, the fast samplers, CFG, inpainting and learned
-    variance through their entry points."""
+    variance through their entry points. ``wait``: the join of work
+    begun beside 11a, whose result is returned as ``"waited"``; it ends
+    before 11b's timing."""
     t0 = time.perf_counter()
+    clis = beside(sampler_clis)   # 11c beside 11a, before 11b's timing
     log("[hold] phase 11a: the samplers on the card against the CPU:")
     errs = hold_samplers()
+    cli = clis()
+    waited = wait()
     t1 = time.perf_counter()
     log("[serve] phase 11b: the samplers over HTTP, bf16, batch "
         f"{SERVE_BATCH}:")
     rows, profile = serve_samplers(per_forward)
     t2 = time.perf_counter()
-    cli = sampler_clis()
-    t3 = time.perf_counter()
-    secs = {"11a": t1 - t0, "11b": t2 - t1, "11c": t3 - t2,
-            "total": t3 - t0}
-    log(f"[phase 11] samplers: {secs['total']:.1f} s (11a {secs['11a']:.1f}"
-        f", 11b {secs['11b']:.1f}, 11c {secs['11c']:.1f})")
+    secs = {"11a+11c+8": t1 - t0, "11b": t2 - t1, "total": t2 - t0}
+    log(f"[phase 11] samplers: {secs['total']:.1f} s (11a beside 11c and "
+        f"phase 8 {secs['11a+11c+8']:.1f}, 11b {secs['11b']:.1f})")
     return {"card_vs_cpu_max_abs_err": errs, "serve": rows,
-            "profile_ddim50": profile, "cli": cli, "seconds": secs}
+            "profile_ddim50": profile, "cli": cli, "seconds": secs,
+            "waited": waited}
 
 
 # -- the score-based and energy-based families (phase 12) -------------------
@@ -3065,20 +3123,19 @@ def families(per_forward):
     """Phase 12: the score-based and energy-based families through their
     entry points."""
     t0 = time.perf_counter()
+    clis = beside(family_clis)    # 12c beside 12a, before 12b's timing
     log("[hold] phase 12a: the score and energy families on the card "
         "against the CPU:")
     errs = hold_families()
+    cli = clis()
     t1 = time.perf_counter()
     log("[serve] phase 12b: the score and energy families over HTTP, "
         f"bf16, batch {SERVE_BATCH}:")
     rows = serve_families(per_forward)
     t2 = time.perf_counter()
-    cli = family_clis()
-    t3 = time.perf_counter()
-    secs = {"12a": t1 - t0, "12b": t2 - t1, "12c": t3 - t2,
-            "total": t3 - t0}
-    log(f"[phase 12] families: {secs['total']:.1f} s (12a {secs['12a']:.1f}"
-        f", 12b {secs['12b']:.1f}, 12c {secs['12c']:.1f})")
+    secs = {"12a+12c": t1 - t0, "12b": t2 - t1, "total": t2 - t0}
+    log(f"[phase 12] families: {secs['total']:.1f} s (12a beside 12c "
+        f"{secs['12a+12c']:.1f}, 12b {secs['12b']:.1f})")
     return {"card_vs_cpu_max_abs_err": errs, "serve": rows, "cli": cli,
             "seconds": secs}
 
@@ -3348,11 +3405,12 @@ def harness():
     try:
         weights = str(tmp / "inception_seeded.npz")
         save_inception_npz(net, weights)
+        clis = beside(benchmark_cli, weights)   # 13b beside 13a
         log("[hold] phase 13a: the harness's networks on the card against "
             "the CPU, f32:")
         errs = hold_harness(net.state_dict())
         t1 = time.perf_counter()
-        cli = benchmark_cli(weights)
+        cli = clis()
         t2 = time.perf_counter()
         os.environ["DMU_INCEPTION_WEIGHTS"] = weights
         try:
@@ -3366,7 +3424,7 @@ def harness():
     secs = {"13a": t1 - t0, "13b": t2 - t1, "13c": t3 - t2,
             "total": t3 - t0}
     log(f"[phase 13] harness: {secs['total']:.1f} s (13a {secs['13a']:.1f}, "
-        f"13b {secs['13b']:.1f}, 13c {secs['13c']:.1f})")
+        f"13b beyond it {secs['13b']:.1f}, 13c {secs['13c']:.1f})")
     return {"card_vs_cpu_max_abs_err": errs, "cli": cli,
             "benchmark_batch": batch, "inception": inception,
             "seconds": secs}
@@ -3964,13 +4022,14 @@ def data_and_options(cfg):
     """Phase 14: MNIST and CelebA, the transforms and the trainer's
     options."""
     t0 = time.perf_counter()
+    clis = beside(mnist_cli)      # 14b beside 14a, before 14c's timing
     log("[hold] phase 14a: transforms, 64² kernels and the options' steps "
         "on the card against the CPU:")
     errs = {"transforms": hold_transforms()}
     calls64, kernel_errs = hold_celeba_kernels(cfg)
     errs["steps"] = hold_option_steps(cfg)
     t1 = time.perf_counter()
-    cli = mnist_cli()
+    cli = clis()
     t2 = time.perf_counter()
     celeba = celeba_training(cfg)
     t3 = time.perf_counter()
@@ -3981,8 +4040,8 @@ def data_and_options(cfg):
     secs = {"14a": t1 - t0, "14b": t2 - t1, "14c": t3 - t2, "14d": t4 - t3,
             "total": t4 - t0}
     log(f"[phase 14] data and options: {secs['total']:.1f} s (14a "
-        f"{secs['14a']:.1f}, 14b {secs['14b']:.1f}, 14c {secs['14c']:.1f}, "
-        f"14d {secs['14d']:.1f})")
+        f"{secs['14a']:.1f}, 14b beyond it {secs['14b']:.1f}, 14c "
+        f"{secs['14c']:.1f}, 14d {secs['14d']:.1f})")
     return {"card_vs_cpu": errs, "kernel_errs": kernel_errs, "cli": cli,
             "celeba": celeba, "times": times,
             "celeba64_rows": {"gn": k1, "gn_bwd": k2, "mha": k3},
@@ -4015,14 +4074,29 @@ def dp_config(out_dir: str, **model_extra):
     return cfg
 
 
-def dp_trainer(run_cfg, device, split=None):
+def fill_zero_leaves(net) -> None:
+    """Give ``net``'s zero-initialized leaves (each residual block's
+    ``conv2``, which follows its dropout, ``time_proj``, biases, β) small
+    values made from ``SEED``, so that every layer reaches the output."""
+    import torch
+    gen = torch.Generator().manual_seed(SEED + 1)
+    with torch.no_grad():
+        for p in net.parameters():
+            if not p.any():
+                p.copy_(0.02 * torch.randn(p.shape, generator=gen))
+
+
+def dp_trainer(run_cfg, device, split=None, fill_zero=False):
     """A DDPMTrainer of ``run_cfg`` on ``device`` (a rank's rows of each
-    batch with ``split``)."""
+    batch with ``split``; the model's zero leaves filled with
+    ``fill_zero``)."""
     from diffusion_model_universal_torch.datasets import get_dataset
     from diffusion_model_universal_torch.models import DDPM
     from diffusion_model_universal_torch.trainers import DDPMTrainer
     model = DDPM(run_cfg["model_config"], device=device, seed=SEED,
                  trainable=True)
+    if fill_zero:
+        fill_zero_leaves(model.net)
     loaders = get_dataset(run_cfg, device=model.device, split=split)
     return DDPMTrainer(model, *loaders, run_cfg, seed=SEED)
 
@@ -5355,13 +5429,546 @@ def scan_steps_phase():
     """Phase 17: ``training.scan_steps`` (17a holds, 17b the CLI, 17c
     times)."""
     t0 = time.perf_counter()
+    clis = beside(scan_cli)       # 17b beside 17a, before 17c's timing
     holds = scan_holds()
-    cli = scan_cli()
+    cli = clis()
     timing = scan_timing()
     out = {"holds": holds, "cli": cli, "timing": timing,
            "seconds": time.perf_counter() - t0}
     log(f"[scan] phase 17 in {out['seconds']:.1f} s")
     return out
+
+
+# -- phase 18: spatial parallelism's forward path ------------------------
+
+SP_RANKS = 2                # gloo ranks sharing the card: one spatial group
+SP_BATCH = 2                # 18a's f32 forwards
+SP_SIZES = (32, 64)         # 64²: down3's attention at 8² is sharded
+SP_SAMPLES = 160            # 18b's synthetic set: 128 train, 16 val, 16 test
+SP_BENCH = {"n_samples": SERVE_BATCH, "batch_size": SERVE_BATCH,
+            "sampler": "dpm++", "sampler_steps": 20}
+SP_FORWARDS_A_BATCH = 19    # UNet forwards of a DPM++-20 batch
+#: 18b's test loss against one process: in f32 to 1e-5 relative; in bf16
+#: (the config's autocast) each rank's convs, GroupNorm sums and the
+#: attention projection run on other shapes and orders than one
+#: process's, and bf16 rounds their differences (7.4e-6–3.5e-5 relative
+#: measured on an H100, with dropout and without), so to 1e-4; each of
+#: ``SP_FAULTS``, planted in the ranks, must read above it (3.1e-4–3.1e-3
+#: measured there).
+SP_LOSS_RTOL = {"float32": 1e-5, "bfloat16": 1e-4}
+SP_FAULTS = ("per-rank dropout masks", "zeroed halos",
+             "per-rank GroupNorm statistics")
+SP_SCORE_RTOL = 1e-3
+SP_KERNELS = {"sums": "dmu_group_norm_partial_sums",
+              "apply": "dmu_group_norm_apply_sums",
+              "gn": "dmu_group_norm_silu_fwd", "mha": "dmu_mha_fwd",
+              "gn_bwd": "dmu_group_norm_silu_bwd"}
+
+
+def sp_model(size: int, device, cfg):
+    """The model section ``cfg`` (ddpm_config.yaml's: C=128) in f32 at
+    ``image_size`` ``size``, its weights made from ``SEED`` (the same in
+    every process), the zero-initialized leaves filled."""
+    from diffusion_model_universal_torch.models import DDPM
+    cfg = dict(cfg, image_size=size, compute_dtype="float32")
+    model = DDPM(cfg, device=device, seed=SEED)
+    fill_zero_leaves(model.net)
+    return model
+
+
+def sp_inputs(size: int, device):
+    import torch
+    gen = torch.Generator().manual_seed(SEED + size)
+    x = torch.randn((SP_BATCH, size, size, 3), generator=gen)
+    return x.to(device), torch.tensor([999, 250], device=device)
+
+
+def sp_eval_config(out_dir: str, spatial_parallel: int):
+    """18b: ddpm_config.yaml (bf16 autocast, dropout 0.1) on the synthetic
+    set of ``SP_SAMPLES``, eval batches of the serve batch, the
+    ``SP_BENCH`` harness, over spatial groups of ``spatial_parallel``."""
+    cfg = train_config(out_dir, batch_size=SERVE_BATCH, num_epochs=1,
+                       val_interval=0, sample_interval=0,
+                       checkpoint_interval=0)
+    cfg["data"]["num_samples"] = SP_SAMPLES
+    cfg["benchmark"] = dict(SP_BENCH)
+    cfg["distributed"] = {"spatial_parallel": spatial_parallel}
+    cfg["output"] = dict(cfg["output"], output_dir=str(
+        Path(out_dir) / f"sp{spatial_parallel}"))
+    return cfg
+
+
+def sp_counts(device, fn):
+    """``fn()`` and every kernel's launches it made (the counters zeroed
+    just before, read just after)."""
+    import torch
+    from diffusion_model_universal_torch.ops._build import (KERNELS,
+                                                            launch_counts)
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+    for k in KERNELS.values():
+        k.launches = 0
+    out = fn()
+    if cuda:
+        torch.cuda.synchronize()
+    counts = launch_counts()
+    return out, {k: counts.get(s, 0) for k, s in SP_KERNELS.items()}
+
+
+def sp_eval(cfg, device):
+    """18b on this process (one process, or a rank of a spatial group):
+    ``train --eval_only --benchmark``'s test loss and harness through the
+    trainer and ``run_benchmark`` (the weights made from ``SEED``, the
+    zero-initialized leaves filled, so dropout reaches the loss), their
+    launches, and the host seconds of one more harness batch."""
+    import torch
+    from diffusion_model_universal_torch.parallel import mesh
+    from diffusion_model_universal_torch.scripts import train as train_cli
+    from diffusion_model_universal_torch.utils import benchmarks
+    s = cfg["distributed"]["spatial_parallel"]
+    split = (mesh.rank() // s, mesh.world_size() // s)
+    tr = dp_trainer(cfg, device, split=split, fill_zero=True)
+    scope = mesh.sampling_scope(spatial=s)
+
+    def main_path():
+        loss = tr.test()
+        results = train_cli.run_benchmark(tr, cfg, tr.test_loader, True,
+                                          scope)
+        return loss, results
+
+    draws = sp_rng_state(device)
+    (loss, results), launches = sp_counts(device, main_path)
+    f32 = dp_trainer(dict(cfg, model_config=dict(
+        cfg["model_config"], compute_dtype="float32")), device, split=split,
+        fill_zero=True)
+    loss_f32 = f32.test()
+    f32.cleanup()
+    del f32
+    controls = sp_controls(cfg, device, tr, draws, split)
+    bench = benchmarks.DiffusionBenchmark(
+        n_samples=SERVE_BATCH, batch_size=SERVE_BATCH, sampler="dpm++",
+        sampler_steps=20, device=device, scope=scope)
+    seconds, _ = host_seconds(lambda: list(bench.generated(tr.model)), tr)
+    out = {"loss": {"bfloat16": loss, "float32": loss_f32},
+           "controls": controls, "results": results, "launches": launches,
+           "batch_seconds": seconds, "test_batches": len(tr.test_loader)}
+    tr.cleanup()
+    return out
+
+
+def sp_rng_state(device):
+    """The default generators' states (the CPU's, ``device``'s card's)."""
+    import torch
+    device = torch.device(device)
+    return (torch.get_rng_state(), torch.cuda.get_rng_state(device)
+            if device.type == "cuda" else None)
+
+
+def sp_set_rng_state(device, state) -> None:
+    import torch
+    cpu, card = state
+    torch.set_rng_state(cpu)
+    if card is not None:
+        torch.cuda.set_rng_state(card, torch.device(device))
+
+
+def sp_faults():
+    """``SP_FAULTS``, each as a patch of this process (the repository's
+    code is unchanged): a rank that draws dropout's mask for its own rows
+    (rank 1 then keeps rank 0's pattern), that pads its rows with zeros in
+    place of its neighbours' halo rows, and that normalizes with its own
+    rows' GroupNorm statistics."""
+    import torch
+    import torch.nn.functional as F
+    from unittest import mock
+    from diffusion_model_universal_torch.models.layers import resnet
+    from diffusion_model_universal_torch.parallel import spatial
+
+    def zero_halo(self, x, k):
+        zero = x.new_zeros(x[:, :, :k].shape)
+        return torch.cat([zero, x, zero], dim=2).contiguous(
+            memory_format=torch.channels_last)
+
+    return dict(zip(SP_FAULTS, (
+        mock.patch.object(resnet, "dropout_rows",
+                          lambda h, p, group: F.dropout(h, p, training=True)),
+        mock.patch.object(spatial.RowGroup, "halo", zero_halo),
+        mock.patch.object(spatial.RowGroup, "sum_",
+                          lambda self, t: t.mul_(self.size)))))
+
+
+def sp_controls(cfg, device, tr, draws, split):
+    """18b's controls of its bf16 limit: the test loss of a model with
+    dropout 0 (rounding alone, in every process) and, on a spatial group,
+    the trainer ``tr``'s test loss again from the default generators'
+    ``draws`` (``"none"``) and under each of ``sp_faults``."""
+    import contextlib
+    plain = dp_trainer(dict(cfg, model_config=dict(
+        cfg["model_config"], dropout=0.0)), device, split=split,
+        fill_zero=True)
+    out = {"dropout 0": plain.test()}
+    plain.cleanup()
+    del plain
+    if cfg["distributed"]["spatial_parallel"] > 1:
+        for name, patch in {"none": contextlib.nullcontext(),
+                            **sp_faults()}.items():
+            sp_set_rng_state(device, draws)
+            with patch:
+                out[name] = tr.test()
+    return out
+
+
+def host_seconds(fn, tr):
+    """(host seconds of ``fn()`` with the EMA weights, to the end of its
+    work on the card; its result)."""
+    import torch
+    cuda = tr.device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with tr.ema_weights():
+        out = fn()
+    if cuda:
+        torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def sp_rank(device, out_dir: str, eval_cfg) -> int:
+    """Phase 18 on one rank of a spatial group of ``SP_RANKS``: the f32
+    UNet forward at each of ``SP_SIZES`` with its rows split (18a), with
+    its launches, then 18b; writes ``out_dir/rank{r}.pt``."""
+    import torch
+    from diffusion_model_universal_torch.parallel import mesh, spatial
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    group = spatial.make_row_groups(SP_RANKS, mesh.rank(), mesh.world_size())
+    out = {"forward": {}, "launches": {}}
+    for size in SP_SIZES:
+        model = sp_model(size, device, eval_cfg["model_config"])
+        model.net.set_row_group(group)
+        x, t = sp_inputs(size, device)
+        with torch.no_grad():
+            y, counts = sp_counts(device, lambda: model.net(x, t))
+        out["forward"][size] = y.cpu()
+        out["launches"][size] = counts
+        del model
+    out["eval"] = sp_eval(eval_cfg, device)
+    torch.save(out, os.path.join(out_dir, f"rank{mesh.rank()}.pt"))
+    return 0
+
+
+def sp_gn_calls(model, size: int, batch: int):
+    """The GroupNorm calls of one whole forward at ``batch``: {(B, H, W,
+    C, G, time bias, SiLU): calls}."""
+    import torch
+    from diffusion_model_universal_torch.ops import group_norm as gn_ops
+    calls, gn = {}, gn_ops.group_norm_silu
+
+    def rec(x, scale, bias, groups, time_bias=None, eps=1e-5,
+            apply_silu=True):
+        key = (*x.shape, groups, time_bias is not None, apply_silu)
+        calls[key] = calls.get(key, 0) + 1
+        return gn(x, scale, bias, groups, time_bias, eps, apply_silu)
+
+    gn_ops.group_norm_silu = rec
+    try:
+        x = torch.zeros((batch, size, size, 3), device=DEVICE)
+        t = torch.full((batch,), 999, device=DEVICE, dtype=torch.long)
+        with torch.no_grad():
+            model.net(x, t)
+        torch.cuda.synchronize()
+    finally:
+        gn_ops.group_norm_silu = gn
+    return calls
+
+
+def sp_split(calls):
+    """(split calls {key of a rank's rows: calls}, whole calls) of a
+    forward's GroupNorm ``calls``: a call of at least 8 rows is split over
+    ``SP_RANKS`` ranks (the reference's ``_shard_activation`` rule)."""
+    split, whole = {}, 0
+    for (b, h, w, c, g, tb, silu), n in calls.items():
+        if h >= 8:
+            key = (b, h // SP_RANKS, w, c, g, tb, silu)
+            split[key] = split.get(key, 0) + n
+        else:
+            whole += n
+    return split, whole
+
+
+def sp_split_inputs(key, dtype, gen):
+    import torch
+    b, h, w, c, g, tb, silu = key
+    x = (torch.randn((b, h, w, c), generator=gen, device=DEVICE) * 1.5
+         + 0.3).to(dtype)
+    t = (torch.randn((b, c), generator=gen, device=DEVICE) if tb else None)
+    scale = torch.rand(c, generator=gen, device=DEVICE) + 0.5
+    bias = torch.randn(c, generator=gen, device=DEVICE) * 0.5
+    return x, t, scale, bias
+
+
+def sp_label(key) -> str:
+    b, h, w, c, g, tb, silu = key
+    return (f"[{b}, {h}, {w}, {c}] G={g}{' +tb' if tb else ''}"
+            f"{' +silu' if silu else ''} (rows of {h * SP_RANKS})")
+
+
+def hold_split_kernels(split_calls):
+    """K1's split form (a) and (b) against their plain twins at every
+    sharded shape of ``split_calls`` in f32 and bf16: (a)'s sums within
+    1e-5·rows·W abs + 1e-5 rel (f32 sums of up to 2048 terms, summed in
+    another order), (b) within ``TOL``; the apply from twice the sums
+    over twice the rows, as a group of two ranks gives it."""
+    import torch
+    from diffusion_model_universal_torch.ops import group_norm as gn_ops
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 18)
+    errs = {"sums": {}, "apply": {}}
+    for key in sorted(split_calls):
+        b, h, w, c, g, tb, silu = key
+        for dname in ("float32", "bfloat16"):
+            x, t, scale, bias = sp_split_inputs(key, getattr(torch, dname),
+                                                gen)
+            sums = gn_ops.gn_partial_sums_cuda(x, t)
+            want = gn_ops.gn_partial_sums_plain(x, t)
+            errs["sums"][sp_label(key), dname] = hold(
+                f"K1 split (a) {dname} {sp_label(key)}", sums, want,
+                1e-5 * h * w, 1e-5)
+            whole = 2 * want
+            got = gn_ops.gn_apply_sums_cuda(x, whole, scale, bias, g,
+                                            2 * h * w, t, apply_silu=silu)
+            ref = gn_ops.gn_apply_sums_plain(x, whole, scale, bias, g,
+                                             2 * h * w, t, apply_silu=silu)
+            errs["apply"][sp_label(key), dname] = hold(
+                f"K1 split (b) {dname} {sp_label(key)}", got, ref,
+                TOL[dname])
+    return errs
+
+
+def time_split_kernels(split_calls, dtype_name="bfloat16"):
+    """Per-shape ms of K1's split form (a) and (b) at ``split_calls`` (a
+    rank's calls a forward), beside their plain twins, the library call
+    (for (b): ``F.group_norm`` (+SiLU) of the whole tensor, one process's
+    work) and their bounds."""
+    import torch
+    import torch.nn.functional as F
+    from diffusion_model_universal_torch.ops import group_norm as gn_ops
+    dtype = getattr(torch, dtype_name)
+    isz = torch.tensor([], dtype=dtype).element_size()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 19)
+    rows = {"sums": [], "apply": []}
+    for key in sorted(split_calls):
+        b, h, w, c, g, tb, silu = key
+        x, t, scale, bias = sp_split_inputs(key, dtype, gen)
+        sums = 2 * gn_ops.gn_partial_sums_plain(x, t)
+        whole = torch.cat([x, x], dim=1).permute(0, 3, 1, 2)
+        sl, bl = scale.to(dtype), bias.to(dtype)
+        tb4 = t[:, :, None, None].to(dtype) if tb else None
+
+        def library():
+            y = F.group_norm(whole + tb4 if tb else whole, g, sl, bl, 1e-5)
+            return F.silu(y) if silu else y
+
+        n = b * h * w * c
+        sum_bytes = b * 2 * c * 4 + (b * c * 4 if tb else 0)
+        for kind, kern, plain, lib, nbytes, ops in (
+                ("sums", lambda: gn_ops.gn_partial_sums_cuda(x, t),
+                 lambda: gn_ops.gn_partial_sums_plain(x, t), None,
+                 n * isz + sum_bytes, 3 * n),
+                ("apply", lambda: gn_ops.gn_apply_sums_cuda(
+                    x, sums, scale, bias, g, 2 * h * w, t, apply_silu=silu),
+                 lambda: gn_ops.gn_apply_sums_plain(
+                    x, sums, scale, bias, g, 2 * h * w, t, apply_silu=silu),
+                 library, 2 * n * isz + sum_bytes + 2 * c * 4,
+                 n * (2 + (4 if silu else 0)))):
+            bms, by = bound(nbytes, ops, dtype_name)
+            rows[kind].append({
+                "shape": sp_label(key), "per_forward": split_calls[key],
+                "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain),
+                "library_ms": cuda_ms(lib) if lib else None,
+                "bound_ms": bms, "bound_by": by})
+    for kind, rs in rows.items():
+        for r in rs:
+            lib = (f"{r['library_ms'] * 1e3:.2f} us" if r["library_ms"]
+                   is not None else "none")
+            log(f"[time] K1 split ({kind}) {dtype_name} {r['shape']} "
+                f"×{r['per_forward']}: kernel {r['ms'] * 1e3:.2f} us, plain "
+                f"{r['plain_ms'] * 1e3:.2f} us, library {lib}, bound "
+                f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})")
+    return rows
+
+
+def spatial_forward():
+    """Phase 18: spatial parallelism's forward path on ``SP_RANKS`` gloo
+    ranks sharing the card (a measure of sharing, not of scaling)."""
+    import torch
+    from diffusion_model_universal_torch.parallel import mesh
+    from diffusion_model_universal_torch.utils.inception import (
+        InceptionV3, init_inception_, save_inception_npz)
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="dmu_spatial18_"))
+    held = os.environ.get("DMU_INCEPTION_WEIGHTS")
+    try:
+        # The harness's InceptionV3 with seeded weights (phase 13's),
+        # read by every process from the environment.
+        weights = str(tmp / "inception_seeded.npz")
+        save_inception_npz(init_inception_(
+            InceptionV3(), torch.Generator().manual_seed(SEED)), weights)
+        os.environ["DMU_INCEPTION_WEIGHTS"] = weights
+        refs, per_forward = {}, {}
+        cfgs = {s: sp_eval_config(str(tmp), s) for s in (1, SP_RANKS)}
+        for size in SP_SIZES:
+            model = sp_model(size, DEVICE, cfgs[1]["model_config"])
+            x, t = sp_inputs(size, DEVICE)
+            with torch.no_grad():
+                refs[size] = model.net(x, t).cpu()
+            split, whole = sp_split(sp_gn_calls(model, size, SP_BATCH))
+            per_forward[size] = {"split": split, "whole": whole}
+            if size == 32:
+                bench_split, bench_whole = sp_split(sp_gn_calls(
+                    model, 32, SERVE_BATCH))
+            del model
+        log("[spatial] 18a: K1's split form against its plain twins at "
+            "every sharded shape of the f32 forwards at 32² and 64² and "
+            f"of the harness's forward (B={SERVE_BATCH}, 32²):")
+        hold_calls = dict(bench_split)
+        for size in SP_SIZES:
+            hold_calls.update(per_forward[size]["split"])
+        errs = hold_split_kernels(hold_calls)
+        log("[spatial] 18b: train --eval_only --benchmark in one process "
+            "(bf16, the reference of the ranks)")
+        one = sp_eval(cfgs[1], torch.device(DEVICE))
+        t1 = time.perf_counter()
+        log(f"[spatial] {SP_RANKS} gloo ranks sharing the card, one "
+            f"spatial group ({t1 - t0:.1f} s of references and holds)")
+        rc = mesh.spawn(sp_rank, SP_RANKS, args=(str(tmp), cfgs[SP_RANKS]),
+            device_type=DEVICE, backend="gloo", rendezvous_dir=str(tmp))
+        t2 = time.perf_counter()
+        check(rc == 0, f"the launcher returned {rc}")
+        ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False)
+                 for r in range(SP_RANKS)]
+        log(f"[spatial] the ranks returned in {t2 - t1:.1f} s")
+        fwd_errs, launches = {}, {}
+        for size in SP_SIZES:
+            split = per_forward[size]["split"]
+            want = {"sums": sum(split.values()),
+                    "apply": sum(split.values()),
+                    "gn": per_forward[size]["whole"], "mha": 5, "gn_bwd": 0}
+            for r, res in enumerate(ranks):
+                fwd_errs[size, r] = hold(
+                    f"UNet f32 {size}² B={SP_BATCH}, rank {r} of "
+                    f"{SP_RANKS} (rows split) vs one process",
+                    res["forward"][size], refs[size], UNET_TOL)
+                check(DEVICE != "cuda" or res["launches"][size] == want,
+                      f"{size}² forward launches on rank {r}: "
+                      f"{res['launches'][size]} != {want}")
+            launches[size] = ranks[0]["launches"][size]
+            log(f"  {size}² forward: launches a rank {launches[size]} "
+                f"(expected {want})")
+        ev = ranks[0]["eval"]
+        forwards = ev["test_batches"] + SP_FORWARDS_A_BATCH
+        n_split = sum(bench_split.values())
+        want_eval = {"sums": forwards * n_split, "apply": forwards * n_split,
+                     "gn": forwards * bench_whole, "mha": forwards * 5,
+                     "gn_bwd": 0}
+        for r, res in enumerate(ranks):
+            check(DEVICE != "cuda" or res["eval"]["launches"] == want_eval,
+                  f"18b launches on rank {r}: {res['eval']['launches']} != "
+                  f"{want_eval}")
+            check(res["eval"]["loss"] == ranks[0]["eval"]["loss"],
+                  "the ranks' test losses differ")
+        check(all(r["eval"]["results"] is None for r in ranks[1:]),
+              "a rank other than 0 returned benchmark results")
+        loss_err = {}
+        for dname, tol in SP_LOSS_RTOL.items():
+            got, want = ev["loss"][dname], one["loss"][dname]
+            loss_err[dname] = err = abs(got - want) / abs(want)
+            log(f"  test loss {dname} {got:.9g} ({SP_RANKS} ranks) vs "
+                f"{want:.9g} (one process): rel {err:.3e} (tol {tol:g}) "
+                f"{'ok' if err <= tol else 'FAIL'}")
+            check(err <= tol, f"18b {dname} test loss vs one process")
+        controls = sp_check_controls(ev, one)
+        score_errs = {}
+        for k in ("fid", "is_mean"):
+            got, want = ev["results"][k], one["results"][k]
+            score_errs[k] = abs(got - want) / abs(want)
+            log(f"  {k}: {got:.9g} vs {want:.9g}: rel {score_errs[k]:.3e} "
+                f"(tol {SP_SCORE_RTOL:g})")
+            check(math.isfinite(got) and score_errs[k] <= SP_SCORE_RTOL,
+                  f"18b {k} vs one process")
+        log(f"  a harness batch ({SERVE_BATCH} samples, DPM++-20): "
+            f"{ev['batch_seconds']:.3f} s on {SP_RANKS} ranks sharing the "
+            f"card, {one['batch_seconds']:.3f} s in one process")
+        t3 = time.perf_counter()
+        log("[spatial] 18c: K1's split form timed at the harness's sharded "
+            "shapes (bf16, B=16, 32²)")
+        rows = time_split_kernels(bench_split)
+        return {
+            "forward_max_abs_err": {f"{s}² rank {r}": v
+                                    for (s, r), v in fwd_errs.items()},
+            "forward_launches_per_rank": {f"{s}²": v
+                                          for s, v in launches.items()},
+            "eval": {"ranks": {k: ev[k] for k in ("loss", "results",
+                                                  "batch_seconds",
+                                                  "launches")},
+                     "one_process": {k: one[k] for k in (
+                         "loss", "results", "batch_seconds", "launches")},
+                     "loss_rel_err": loss_err, "score_rel_err": score_errs,
+                     "controls_rel_err": controls},
+            "kernel_errs": errs, "kernel_rows": rows,
+            "main_path_launches": ev["launches"],
+            "seconds": {"references_and_holds": t1 - t0, "ranks": t2 - t1,
+                        "checks": t3 - t2,
+                        "timing": time.perf_counter() - t3}}
+    finally:
+        if held is None:
+            os.environ.pop("DMU_INCEPTION_WEIGHTS", None)
+        else:
+            os.environ["DMU_INCEPTION_WEIGHTS"] = held
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def sp_check_controls(ev, one):
+    """18b's bf16 limit against its controls (``sp_controls``): the
+    ranks' repeat from the same draws equals their test loss; with
+    dropout 0 the ranks read within the limit of one process (rounding
+    alone); each planted fault reads beyond it. Their relative gaps."""
+    tol, ctl = SP_LOSS_RTOL["bfloat16"], ev["controls"]
+    check(ctl["none"] == ev["loss"]["bfloat16"],
+          "18b: the ranks' test loss from the same draws differs")
+    want = one["loss"]["bfloat16"]
+    gaps = {"dropout 0": abs(ctl["dropout 0"] - one["controls"]["dropout 0"])
+            / abs(one["controls"]["dropout 0"])}
+    gaps.update({name: abs(ctl[name] - want) / abs(want)
+                 for name in SP_FAULTS})
+    for name, gap in gaps.items():
+        fault = name in SP_FAULTS
+        ok = gap > tol if fault else gap <= tol
+        log(f"  bf16 test loss, {'planted fault' if fault else 'control'} "
+            f"{name}: rel {gap:.3e} vs one process "
+            f"({'above' if fault else 'within'} the limit {tol:g}) "
+            f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"18b: {name} reads {gap:.3e} against the bf16 limit "
+                  f"{tol:g}")
+    return gaps
+
+
+def sp_entries(sp):
+    """The ``kernels`` line's entries of K1's split form (a) and (b)."""
+    work = (f"one rank's share of a UNet forward at B={SERVE_BATCH}, 32², "
+            f"bf16, rows split over {SP_RANKS} ranks: every sharded shape "
+            "times its calls per forward")
+    return [kernel_entry(
+        name, "diffusion_model_universal_torch/csrc/group_norm.cu",
+        GN_REPLACES, sp["kernel_rows"][kind],
+        sp["main_path_launches"][kind], sp["kernel_errs"][kind], work,
+        symbol=SP_KERNELS[kind], tol=tol, launches_per_forward_per_rank={
+            size: v[kind] for size, v in
+            sp["forward_launches_per_rank"].items()})
+        for kind, name, tol in (
+            ("sums", "group_norm_partial_sums",
+             "1e-5·(rows·W) abs + 1e-5 rel (f32 sums in another order)"),
+            ("apply", "group_norm_apply_sums", TOL))]
 
 
 def main() -> int:
@@ -5441,8 +6048,7 @@ def main() -> int:
         log("[hold] second derivatives on the card:")
         step_check["double_backward"] = hold_double_backward()
         mark("phases 6-7")
-        cli = train_cli(len(train_loader))
-        mark("phase 8")
+        steps_per_epoch = len(train_loader)
         train_time = time_training(trainer, batch)
         train_profile = profile_run(lambda: trainer.step(batch), 5,
                                     f"training step B={TRAIN_BATCH}")
@@ -5456,8 +6062,11 @@ def main() -> int:
     mark("phase 9")
     exp_entries, exp_summary = experiment_kernels()
     mark("phase 10")
-    sampler_summary = samplers(per_forward)
-    mark("phase 11")
+    # Phase 8's CLIs, whose times nothing reads, run beside 11a and 11c.
+    phase8 = beside(train_cli, steps_per_epoch)
+    sampler_summary = samplers(per_forward, phase8)
+    cli = sampler_summary.pop("waited")
+    mark("phases 8 and 11")
     family_summary = families(per_forward)
     mark("phase 12")
     harness_summary = harness()
@@ -5470,6 +6079,8 @@ def main() -> int:
     mark("phase 16")
     scan_summary = scan_steps_phase()
     mark("phase 17")
+    spatial_summary = spatial_forward()
+    mark("phase 18")
 
     symbols = {"gn": "dmu_group_norm_silu_fwd",
                "gn_bwd": "dmu_group_norm_silu_bwd", "mha": "dmu_mha_fwd"}
@@ -5573,6 +6184,7 @@ def main() -> int:
                             "shapes": k3_train},
                      celeba64_train=celeba64("mha", kerrs["mha"])),
         *exp_entries,
+        *sp_entries(spatial_summary),
     ]
     summary = {"requests": requests, "unet_max_abs_err": unet_err,
                "unet128": unet128,
@@ -5590,6 +6202,9 @@ def main() -> int:
                "data_parallel": dp_summary,
                "rank_parallel": rank_summary,
                "scan_steps": scan_summary,
+               "spatial_forward": {k: v for k, v in spatial_summary.items()
+                                   if k not in ("kernel_errs",
+                                                "kernel_rows")},
                "phase_seconds": {name: t - prev for (_, prev), (name, t)
                                  in zip(marks, marks[1:])},
                "seconds": time.perf_counter() - t_start}

@@ -975,6 +975,123 @@ int launch(GnArgs& a, int is_bf16, int vec_bytes, int threads, int smem,
   return (int)cudaGetLastError();
 }
 
+
+// ---- K1's split form (spatial parallelism) -------------------------------
+// Each image's rows are split over the ranks of a spatial group, so a
+// rank's call holds S of its rows. Entry (a) sums, per (sample, channel),
+// v = x + tb over those rows, with the time bias folded in at the rank's own
+// row count as the plain twin (ops/group_norm.py::gn_partial_sums_plain)
+// folds it:
+//   sums[b][0][c] = Sx + S*tb,  sums[b][1][c] = Sxx + 2*tb*Sx + S*tb*tb
+// (f32 [B, 2, C]); summed over the group, the folds give the whole image's.
+// The group all-reduces the sums between the two launches. Entry (b) forms
+// each group's statistics from the summed sums (n = whole rows * W * C/G),
+// a = rstd*gamma, b = beta + (tb - mean)*a, and applies x*a + b (+SiLU) in
+// f32, stored in x's dtype, as K1 does.
+// Bound: memory. (a) reads x once and writes [B, 2, C]; (b) reads x and
+// writes out once.
+// Design: simple and deterministic. (a): a block takes 32 channels of one
+// sample (a warp reads 32 consecutive channels of a row) with 16 thread
+// rows walking the sample's rows; the 16 partials of a channel are summed
+// in a fixed order. (b): a block forms a and b for all C channels of its
+// sample in shared memory, then walks its run of rows element by element.
+
+constexpr int kSumCols = 32;        // channels a block of (a)
+constexpr int kSumRows = 16;        // thread rows of a block of (a)
+constexpr int kApplyThreads = 256;  // threads a block of (b)
+constexpr int kApplyElems = 2048;   // about this many elements a block of (b)
+
+template <bool BF>
+__device__ __forceinline__ float load_elem(const void* p, long long i) {
+  if constexpr (BF)
+    return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(p)[i]);
+  else
+    return reinterpret_cast<const float*>(p)[i];
+}
+
+template <bool BF>
+__device__ __forceinline__ void store_elem(void* p, long long i, float y) {
+  if constexpr (BF)
+    reinterpret_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16(y);
+  else
+    reinterpret_cast<float*>(p)[i] = y;
+}
+
+template <bool BF>
+__global__ void __launch_bounds__(kSumCols* kSumRows)
+    gn_partial_sums_kernel(const void* x, const float* tb, float* sums, int S,
+                           int C) {
+  __shared__ float red[2][kSumRows][kSumCols];
+  const int tx = threadIdx.x % kSumCols, ty = threadIdx.x / kSumCols;
+  const int c = blockIdx.x * kSumCols + tx;
+  const int b = blockIdx.y;
+  float s1 = 0.f, s2 = 0.f;
+  if (c < C) {
+    const long long base = (long long)b * S * C + c;
+    for (int s = ty; s < S; s += kSumRows) {
+      const float v = load_elem<BF>(x, base + (long long)s * C);
+      s1 += v;
+      s2 = fmaf(v, v, s2);
+    }
+  }
+  red[0][ty][tx] = s1;
+  red[1][ty][tx] = s2;
+  __syncthreads();
+  if (ty != 0 || c >= C) return;
+  float t1 = 0.f, t2 = 0.f;
+  for (int r = 0; r < kSumRows; ++r) {
+    t1 += red[0][r][tx];
+    t2 += red[1][r][tx];
+  }
+  if (tb) {
+    const float t = tb[(long long)b * C + c], hw = (float)S;
+    t2 = __fadd_rn(__fadd_rn(t2, __fmul_rn(__fmul_rn(2.f, t), t1)),
+                   __fmul_rn(__fmul_rn(hw, t), t));
+    t1 = __fadd_rn(t1, __fmul_rn(hw, t));
+  }
+  sums[(long long)b * 2 * C + c] = t1;
+  sums[((long long)b * 2 + 1) * C + c] = t2;
+}
+
+template <bool BF>
+__global__ void __launch_bounds__(kApplyThreads)
+    gn_apply_sums_kernel(const void* x, const float* sums, const float* tb,
+                         const float* gamma, const float* beta, void* out,
+                         int S, int C, int G, float n, float eps, int use_silu,
+                         int rows_per_block) {
+  extern __shared__ float ab[];   // a[C] | b[C]
+  const int b = blockIdx.y;
+  const int cg = C / G;
+  const float* sb = sums + (long long)b * 2 * C;
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    const int g0 = c / cg * cg;
+    float gs = 0.f, gq = 0.f;
+    for (int j = 0; j < cg; ++j) {
+      gs += sb[g0 + j];
+      gq += sb[C + g0 + j];
+    }
+    const float mean = __fdiv_rn(gs, n);
+    const float var =
+        fmaxf(__fsub_rn(__fdiv_rn(gq, n), __fmul_rn(mean, mean)), 0.f);
+    const float a = __fmul_rn(rsqrtf(__fadd_rn(var, eps)), gamma[c]);
+    float bb = __fsub_rn(beta[c], __fmul_rn(mean, a));
+    if (tb) bb = __fadd_rn(bb, __fmul_rn(tb[(long long)b * C + c], a));
+    ab[c] = a;
+    ab[C + c] = bb;
+  }
+  __syncthreads();
+  const long long lo = (long long)blockIdx.x * rows_per_block * C;
+  const long long end = (long long)(blockIdx.x + 1) * rows_per_block;
+  const long long hi = (end < S ? end : (long long)S) * C;
+  const long long base = (long long)b * S * C;
+  for (long long i = lo + threadIdx.x; i < hi; i += blockDim.x) {
+    const int c = (int)(i % C);
+    float y = fmaf(load_elem<BF>(x, base + i), ab[c], ab[C + c]);
+    if (use_silu) y = silu(y);
+    store_elem<BF>(out, base + i, y);
+  }
+}
+
 }  // namespace
 
 // K1. The eight arguments before the stream are gn_launch_plan's: bytes per
@@ -1048,6 +1165,49 @@ extern "C" int dmu_group_norm_silu_bwd(
   a.keep = keep;
   a.team = team;
   return launch<true>(a, is_bf16, vec_bytes, threads, smem_bytes, stream);
+}
+
+// K1's split form, (a): sums (f32 [B, 2, C]) of x [B, S, C] (f32 or bf16)
+// over its S rows, tb (f32 [B, C] or null) folded in at S.
+extern "C" int dmu_group_norm_partial_sums(const void* x, const float* tb,
+                                           float* sums, int B, int S, int C,
+                                           int is_bf16, void* stream) {
+  if (B <= 0 || S <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
+  const dim3 grid((C + kSumCols - 1) / kSumCols, B);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    gn_partial_sums_kernel<true><<<grid, kSumCols * kSumRows, 0, st>>>(
+        x, tb, sums, S, C);
+  else
+    gn_partial_sums_kernel<false><<<grid, kSumCols * kSumRows, 0, st>>>(
+        x, tb, sums, S, C);
+  return (int)cudaGetLastError();
+}
+
+// K1's split form, (b): out = x*a + b (+SiLU) of x [B, S, C] with a and b
+// from the group's summed sums (f32 [B, 2, C]) over n elements a group
+// (whole rows * W * C/G), gamma and beta (f32 [C]) and tb (f32 [B, C] or
+// null).
+extern "C" int dmu_group_norm_apply_sums(const void* x, const float* sums,
+                                         const float* tb, const float* gamma,
+                                         const float* beta, void* out, int B,
+                                         int S, int C, int G, float n,
+                                         float eps, int apply_silu,
+                                         int is_bf16, void* stream) {
+  if (B <= 0 || S <= 0 || C <= 0 || G <= 0 || C % G != 0 || n <= 0.f ||
+      2LL * C * 4 > 48 * 1024)
+    return (int)cudaErrorInvalidValue;
+  const int rows = kApplyElems / C > 0 ? kApplyElems / C : 1;
+  const dim3 grid((S + rows - 1) / rows, B);
+  const size_t smem = 2 * (size_t)C * sizeof(float);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    gn_apply_sums_kernel<true><<<grid, kApplyThreads, smem, st>>>(
+        x, sums, tb, gamma, beta, out, S, C, G, n, eps, apply_silu, rows);
+  else
+    gn_apply_sums_kernel<false><<<grid, kApplyThreads, smem, st>>>(
+        x, sums, tb, gamma, beta, out, S, C, G, n, eps, apply_silu, rows);
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* dmu_error_string(int err) {

@@ -47,6 +47,40 @@ def host_center_crop(images: np.ndarray, size: int) -> np.ndarray:
     return images[:, top:top + size, left:left + size, :]
 
 
+def crop_resize_bilinear(images: np.ndarray, crop: int,
+                         out_size: int) -> np.ndarray:
+    """Center-crop uint8 NHWC images to min(crop, H, W) and resize them to
+    ``out_size``² by align-corners-false bilinear sampling with no
+    antialiasing, rounded by adding 0.5 and truncating: the arithmetic of
+    the reference's C++ loader (``crop_resize_one`` in its
+    ``native/batch_loader.cpp``), in f32 and in the same order of
+    operations (no fused multiply-add), so the bytes are the same."""
+    f32 = np.float32
+    _, sh, sw, _ = images.shape
+    top, left = max((sh - crop) // 2, 0), max((sw - crop) // 2, 0)
+    eff = min(crop, sh, sw)
+    scale = f32(eff) / f32(out_size)
+
+    def taps(n):
+        f = (np.arange(n, dtype=f32) + f32(0.5)) * scale - f32(0.5)
+        i0 = np.where(f < 0, 0, f.astype(np.int64))
+        i1 = np.minimum(i0 + 1, eff - 1)
+        wt = np.maximum(f - i0.astype(f32), f32(0))
+        return i0, i1, wt
+
+    y0, y1, wy = taps(out_size)
+    x0, x1, wx = taps(out_size)
+    src = images[:, top:top + eff, left:left + eff]
+    rows0, rows1 = src[:, y0], src[:, y1]
+    v00, v01 = rows0[:, :, x0].astype(f32), rows0[:, :, x1].astype(f32)
+    v10, v11 = rows1[:, :, x0].astype(f32), rows1[:, :, x1].astype(f32)
+    wx = wx[None, None, :, None]
+    v0 = v00 + (v01 - v00) * wx
+    v1 = v10 + (v11 - v10) * wx
+    v = v0 + (v1 - v0) * wy[None, :, None, None]
+    return (v + f32(0.5)).astype(np.uint8)
+
+
 def host_resize(images: np.ndarray, size: int,
                 chunk: int = 4096) -> np.ndarray:
     """Bilinear resize of uint8 NHWC images to ``size``² by

@@ -185,12 +185,18 @@ def load_celeba(data_dir: str, image_size: int = 64
 
 def decode_jpegs_crop_resize(paths, crop: int, out_size: int,
                              num_threads: int = 16,
-                             chunk: int = 2048) -> np.ndarray:
-    """Decode JPEGs to [N, out_size, out_size, 3] uint8: each image
-    center-cropped to min(crop, w, h), then resized by
-    :func:`..pipeline.host_resize`. PIL decodes on a thread pool (libjpeg
-    releases the interpreter lock); a chunk of ``chunk`` images is held
-    decoded at a time."""
+                             chunk: int = 2048,
+                             antialias: bool = False) -> np.ndarray:
+    """Decode JPEGs to [N, out_size, out_size, 3] uint8, as the
+    reference's JPEG ingest: an image of the first image's size is
+    center-cropped to min(crop, w, h) and resized by
+    :func:`..pipeline.crop_resize_bilinear` (the reference's C++ loader's
+    bilinear, its default path), or with ``antialias`` by
+    :func:`..pipeline.host_resize` (the reference's path when its loader
+    cannot load); an image of another size is cropped and resized by PIL
+    with ``BILINEAR``. PIL decodes on a thread pool (libjpeg releases the
+    interpreter lock); a chunk of ``chunk`` images is held decoded at a
+    time."""
     from concurrent.futures import ThreadPoolExecutor
 
     try:
@@ -201,22 +207,39 @@ def decode_jpegs_crop_resize(paths, crop: int, out_size: int,
             f"celeba_{out_size}.npz instead (scripts/build_celeba_cache.py "
             "writes it where PIL is installed)") from e
 
-    from .pipeline import host_center_crop, host_resize
+    from .pipeline import crop_resize_bilinear, host_center_crop, host_resize
 
-    def decode(path) -> np.ndarray:
+    n = len(paths)
+    out = np.empty((n, out_size, out_size, 3), np.uint8)
+    if n == 0:
+        return out
+    with Image.open(paths[0]) as im0:
+        w0, h0 = im0.size
+    c0 = min(crop, w0, h0)
+
+    def decode(path):
         with Image.open(path) as img:
-            a = np.asarray(img.convert("RGB"), np.uint8)
-        c = min(crop, a.shape[0], a.shape[1])
-        return host_center_crop(a[None], c)[0]
+            img = img.convert("RGB")
+            if img.size == (w0, h0):
+                return np.asarray(img, np.uint8), False
+            w, h = img.size
+            c = min(crop, w, h)
+            left, top = (w - c) // 2, (h - c) // 2
+            small = img.crop((left, top, left + c, top + c)).resize(
+                (out_size, out_size), Image.BILINEAR)
+            return np.asarray(small, np.uint8), True
 
-    out = np.empty((len(paths), out_size, out_size, 3), np.uint8)
     with ThreadPoolExecutor(max_workers=num_threads) as pool:
-        for start in range(0, len(paths), chunk):
-            crops = list(pool.map(decode, paths[start:start + chunk]))
-            by_size = {}
-            for i, a in enumerate(crops):
-                by_size.setdefault(a.shape, []).append(i)
-            for idx in by_size.values():
-                out[[start + i for i in idx]] = host_resize(
-                    np.stack([crops[i] for i in idx]), out_size)
+        for start in range(0, n, chunk):
+            decoded = list(pool.map(decode, paths[start:start + chunk]))
+            same = [i for i, (_, odd) in enumerate(decoded) if not odd]
+            for i, (a, odd) in enumerate(decoded):
+                if odd:
+                    out[start + i] = a
+            if same:
+                raw = np.stack([decoded[i][0] for i in same])
+                out[[start + i for i in same]] = (
+                    host_resize(host_center_crop(raw, c0), out_size)
+                    if antialias else
+                    crop_resize_bilinear(raw, c0, out_size))
     return out

@@ -1,7 +1,14 @@
 """Spatial self-attention block (counterpart of the reference's
 ``models/layers/attention.py``): flatten H×W to tokens in (h, w) order,
 Linear Q/K/V, multi-head attention, output Linear, then a post-residual
-GroupNorm with no activation."""
+GroupNorm with no activation.
+
+On row blocks of a spatial group (``parallel.spatial.split``) the block
+gathers its input's rows, computes Q, K, V and the attention over the
+whole sequence on every rank of the group (K3 as one process runs it),
+keeps the rank's rows of the attention's output, and applies the output
+Linear, the residual and the post-residual GroupNorm (K1's split form)
+to those rows."""
 
 from __future__ import annotations
 
@@ -10,6 +17,7 @@ from torch import nn
 
 from ...ops import attention as attn_ops
 from ...ops import group_norm as gn_ops
+from ...parallel import spatial
 
 
 class SelfAttentionBlock(nn.Module):
@@ -33,11 +41,16 @@ class SelfAttentionBlock(nn.Module):
         self.norm_bias = nn.Parameter(torch.zeros(embedding_dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, c, h, w = x.shape
-        s, n = h * w, self.num_heads
+        group = spatial.active()
         x_nhwc = x.contiguous(
             memory_format=torch.channels_last).permute(0, 2, 3, 1)
-        tokens = x_nhwc.reshape(b, s, c)
+        whole = x_nhwc
+        if group is not None:
+            spatial.refuse_grad(x, self.query.weight)
+            whole = group.gather(x).permute(0, 2, 3, 1)
+        b, h, w, c = whole.shape
+        s, n = h * w, self.num_heads
+        tokens = whole.reshape(b, s, c)
 
         def split(z):  # [B, S, N·D] -> [B, N, S, D] view
             return z.view(b, s, n, c // n).transpose(1, 2)
@@ -45,8 +58,18 @@ class SelfAttentionBlock(nn.Module):
         out = attn_ops.multi_head_attention(split(self.query(tokens)),
                                             split(self.key(tokens)),
                                             split(self.value(tokens)))
-        out = self.proj(out.transpose(1, 2).reshape(b, s, c))
-        y = gn_ops.group_norm_silu(out.view(b, h, w, c) + x_nhwc,
-                                   self.norm_scale, self.norm_bias,
-                                   self.num_groups, apply_silu=False)
+        out = out.transpose(1, 2).reshape(b, h, w, c)
+        if group is not None:
+            lo, hi = group.rows(h)
+            out = out[:, lo:hi]
+        h = out.shape[1]
+        out = self.proj(out.reshape(b, h * w, c))
+        y = out.view(b, h, w, c) + x_nhwc
+        if group is not None:
+            y = gn_ops.group_norm_silu_split(
+                y, self.norm_scale, self.norm_bias, self.num_groups, group,
+                apply_silu=False)
+        else:
+            y = gn_ops.group_norm_silu(y, self.norm_scale, self.norm_bias,
+                                       self.num_groups, apply_silu=False)
         return y.permute(0, 3, 1, 2)

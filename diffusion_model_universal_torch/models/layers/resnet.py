@@ -6,6 +6,17 @@ Activations are NCHW tensors in ``torch.channels_last`` memory, so
 reads it without a copy. Submodules are named after the reference's flax
 parameter tree (``norm1``, ``conv1``, ``time_proj``, ...), which keeps the
 weight bridge in :mod:`..convert` mechanical.
+
+Inside ``parallel.spatial.split(group)`` each layer takes this rank's
+rows of images whose rows are split over ``group`` (forward only): a
+3×3 conv reads one halo row of each neighbour (the height's padding is
+the halo, only the width is padded in cuDNN), the 4×4 stride-2 down conv
+one row each side, the 4×4 transposed up conv one row each side with its
+output cropped to the rank's 2·h rows, the 1×1 shortcut none; GroupNorm
+sums its partial statistics over the group (K1's split form); dropout
+draws the whole activation's mask and keeps the rank's rows; a down conv
+whose output would have fewer than ``MIN_ROWS`` rows gathers its input
+and runs whole.
 """
 
 from __future__ import annotations
@@ -17,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops import group_norm as gn_ops
+from ...parallel import spatial
 from .attention import SelfAttentionBlock
 
 
@@ -29,6 +41,37 @@ def to_nhwc(x: torch.Tensor) -> torch.Tensor:
 def to_nchw(x: torch.Tensor) -> torch.Tensor:
     """Contiguous NHWC → an NCHW view in channels_last memory."""
     return x.permute(0, 3, 1, 2)
+
+
+def conv_same(x: torch.Tensor, weight: torch.Tensor,
+              bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A stride-1 SAME conv of an odd square kernel; on row blocks of a
+    spatial group, with ``k // 2`` halo rows of each neighbour in place
+    of the height's padding."""
+    pad = weight.shape[-1] // 2
+    group = spatial.active()
+    if group is None or pad == 0:
+        return F.conv2d(x, weight, bias, padding=pad)
+    spatial.refuse_grad(x, weight)
+    return F.conv2d(group.halo(x, pad), weight, bias, padding=(0, pad))
+
+
+def dropout_rows(h: torch.Tensor, p: float, group) -> torch.Tensor:
+    """Dropout of this rank's rows ``h`` of a split activation with the
+    mask one process would draw for the whole one: the mask is drawn for
+    a whole activation of ``h``'s dtype and memory layout from the default
+    generator (every rank of the group draws alike) and cut to the rank's
+    rows. On the CPU ``F.dropout`` multiplies by its scaled mask, and on
+    CUDA its fused kernel scales in f32 and rounds once; both are kept."""
+    b, c, rows, w = h.shape
+    whole = torch.ones((b, c, rows * group.size, w), dtype=h.dtype,
+                       device=h.device).contiguous(
+                           memory_format=torch.channels_last)
+    lo, hi = group.rows(whole.shape[2])
+    mask = F.dropout(whole, p, training=True)[:, :, lo:hi]
+    if h.device.type == "cpu":
+        return h * mask
+    return (h.float() * (mask != 0) * (1.0 / (1.0 - p))).to(h.dtype)
 
 
 class GroupNormSiLU(nn.Module):
@@ -50,6 +93,12 @@ class GroupNormSiLU(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_channels))
 
     def _norm(self, x, weight, bias, groups, time_bias):
+        group = spatial.active()
+        if group is not None:
+            spatial.refuse_grad(x, weight, bias, time_bias)
+            return to_nchw(gn_ops.group_norm_silu_split(
+                to_nhwc(x), weight, bias, groups, group,
+                time_bias=time_bias, apply_silu=self.apply_silu))
         return to_nchw(gn_ops.group_norm_silu(
             to_nhwc(x), weight, bias, groups, time_bias=time_bias,
             apply_silu=self.apply_silu))
@@ -90,11 +139,10 @@ class SplitConv(nn.Module):
     def forward(self, x: torch.Tensor,
                 skip: Optional[torch.Tensor] = None) -> torch.Tensor:
         if skip is None:
-            return F.conv2d(x, self.weight, self.bias, padding=self.padding)
+            return conv_same(x, self.weight, self.bias)
         ch = x.shape[1]
-        return (F.conv2d(x, self.weight[:, :ch], self.bias,
-                         padding=self.padding)
-                + F.conv2d(skip, self.weight[:, ch:], padding=self.padding))
+        return (conv_same(x, self.weight[:, :ch], self.bias)
+                + conv_same(skip, self.weight[:, ch:]))
 
 
 class ResidualBlock(nn.Module):
@@ -140,7 +188,9 @@ class ResidualBlock(nn.Module):
         # added to h first.
         h = self.norm2(h, time_bias=self.time_proj(t_emb))
         if self.dropout is not None:
-            h = self.dropout(h)
+            group = spatial.active()
+            h = (self.dropout(h) if group is None or not self.training
+                 else dropout_rows(h, self.dropout.p, group))
         h = self.conv2(h)
         if self.shortcut is not None:
             x = self.shortcut(x, skip)
@@ -148,14 +198,24 @@ class ResidualBlock(nn.Module):
 
 
 class Downsample(nn.Module):
-    """Stride-2 4×4 conv, padding 1."""
+    """Stride-2 4×4 conv, padding 1. On row blocks of a spatial group:
+    output row o reads input rows 2o−1 … 2o+2, so one halo row each side;
+    an output of fewer than ``MIN_ROWS`` rows is computed whole from the
+    gathered input (and returned whole)."""
 
     def __init__(self, channels: int, conv_bias: bool = False):
         super().__init__()
         self.conv = nn.Conv2d(channels, channels, 4, 2, 1, bias=conv_bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(x)
+        group = spatial.active()
+        if group is None:
+            return self.conv(x)
+        spatial.refuse_grad(x, self.conv.weight)
+        if x.shape[2] * group.size // 2 < spatial.MIN_ROWS:
+            return self.conv(group.gather(x))
+        return F.conv2d(group.halo(x, 1), self.conv.weight, self.conv.bias,
+                        stride=2, padding=(0, 1))
 
 
 class Upsample(nn.Module):
@@ -169,7 +229,18 @@ class Upsample(nn.Module):
                                        bias=conv_bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(x)
+        group = spatial.active()
+        if group is None:
+            return self.conv(x)
+        # Output row o = 2i − 1 + k of input row i and tap k, so rows
+        # [2·lo, 2·hi) read input rows lo−1 … hi: one halo row each side.
+        # Unpadded in height, the 2h+6 rows start at global row 2·lo − 3.
+        spatial.refuse_grad(x, self.conv.weight)
+        h = x.shape[2]
+        y = F.conv_transpose2d(group.halo(x, 1), self.conv.weight,
+                               self.conv.bias, stride=2, padding=(0, 1))
+        return y[:, :, 3:3 + 2 * h].contiguous(
+            memory_format=torch.channels_last)
 
 
 class _Stage(nn.Module):

@@ -10,6 +10,17 @@ The public :meth:`UNet.forward` takes NHWC images, like the reference's
 ``apply``, and returns NHWC f32. Inside, activations are NCHW tensors in
 ``torch.channels_last`` memory, so the GroupNorm kernel reads each one as
 a contiguous NHWC view.
+
+Spatial parallelism (:meth:`UNet.set_row_group`): the rows of each
+activation are split over the ranks of a spatial group
+(``parallel/spatial.py``) by the reference's rule
+(``_shard_activation``): after ``initial_conv``, after every down stage,
+after ``mid_res2`` and after every up stage an activation of at least 8
+rows is split and a smaller one whole; a stage whose input is split runs
+on row blocks inside (halo convs, K1's split form, attention over the
+gathered rows), a whole input whose stage output has at least 8 rows is
+sliced after the stage, and the down conv that leaves fewer than 8 rows
+gathers its input. The call still takes and returns whole images.
 """
 
 from __future__ import annotations
@@ -24,10 +35,12 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts,
                                     noop_context_fn)
 
+from ..parallel import spatial
 from .layers import (AttentionDownBlock, AttentionUpBlock, ConvDownBlock,
                      ConvUpBlock, GroupNormSiLU, ResidualBlock,
                      SelfAttentionBlock, SigmaEmbedding, SplitConv,
                      TimeEmbedding)
+from .layers.resnet import conv_same
 
 # flax's truncated-normal variance scaling divides the std by the std of a
 # unit normal truncated to [-2, 2].
@@ -103,6 +116,12 @@ class UNet(nn.Module):
         self.up4 = ConvUpBlock(c, c, temb, skip_channels=c, **kw)
         self.out_norm = GroupNormSiLU(c, 32)
         self.output_conv = nn.Conv2d(c, out_channels, 3, padding=1)
+        self.row_group = None
+
+    def set_row_group(self, group) -> None:
+        """Split each activation's rows over the ranks of ``group`` (a
+        ``parallel/spatial.py::RowGroup``; None: whole), forward only."""
+        self.row_group = group
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -128,6 +147,9 @@ class UNet(nn.Module):
 
         h = x.permute(0, 3, 1, 2).to(dtype).contiguous(
             memory_format=torch.channels_last)
+        group = self.row_group
+        if group is not None:
+            return self._forward_rows(h, t_emb, group)
         h = self.initial_conv(h)
         stage = self._stage
         skips = []
@@ -144,6 +166,43 @@ class UNet(nn.Module):
             h = stage(5 + i, block, h, t_emb, skip)
         h = self.output_conv(self.out_norm(h))
         return h.permute(0, 2, 3, 1).float()
+
+    def _forward_rows(self, h: torch.Tensor, t_emb: torch.Tensor,
+                      group) -> torch.Tensor:
+        """:meth:`forward` from the NCHW input ``h`` with activations of at
+        least ``MIN_ROWS`` rows split over ``group``'s ranks."""
+        spatial.check_heights(h.shape[2], group.size)
+        rows = h.shape[2]     # whole rows of the current activation
+
+        def run(fn, h, *args, out_rows):
+            """``fn`` on ``h`` (split when ``h`` has ≥ MIN_ROWS rows);
+            the output of ``out_rows`` rows split by the same rule."""
+            if rows >= spatial.MIN_ROWS:
+                with spatial.split(group):
+                    return fn(h, *args)
+            out = fn(h, *args)
+            return group.slice(out) if out_rows >= spatial.MIN_ROWS else out
+
+        with spatial.split(group):
+            h = conv_same(group.slice(h), self.initial_conv.weight,
+                          self.initial_conv.bias)
+        skips = []
+        for block in (self.down0, self.down1, self.down2, self.down3,
+                      self.down4):
+            h = run(block, h, t_emb, out_rows=rows // 2)
+            rows //= 2
+            skips.append(h)
+        for block in (self.mid_res1, self.mid_attn, self.mid_res2):
+            h = run(block, h, *(() if block is self.mid_attn else (t_emb,)),
+                    out_rows=rows)
+        for block, skip in zip((self.up0, self.up1, self.up2, self.up3,
+                                self.up4), reversed(skips)):
+            h = run(block, h, t_emb, skip, out_rows=2 * rows)
+            rows *= 2
+        with spatial.split(group):
+            h = conv_same(self.out_norm(h), self.output_conv.weight,
+                          self.output_conv.bias)
+        return group.gather(h).permute(0, 2, 3, 1).float()
 
     def _stage(self, index: int, block: nn.Module, *args) -> torch.Tensor:
         if self.remat and torch.is_grad_enabled():

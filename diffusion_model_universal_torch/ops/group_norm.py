@@ -17,6 +17,12 @@ direction:
   computed in f32. The CPU path and the numerics oracle of K2.
 * kernel K2 (same source), which replaces ``_gn_bwd_kernel`` in one
   launch.
+* K1's split form, for an image whose rows are split over the ranks of
+  a spatial group (``parallel/spatial.py``): (a) the per-channel sums of
+  the rank's rows (:func:`gn_partial_sums_plain`, ``GN_SUMS_KERNEL``),
+  summed over the group, then (b) the apply from the summed sums
+  (:func:`gn_apply_sums_plain`, ``GN_APPLY_KERNEL``);
+  :func:`group_norm_silu_split` runs the three steps.
 
 :func:`gn_launch_plan` decides how both kernels cut a call into blocks:
 vector width, threads, blocks per sample along its rows (a thread block
@@ -67,6 +73,22 @@ GN_BWD_KERNEL = Kernel("group_norm", "dmu_group_norm_silu_bwd", [
     _INT, _INT, _INT, _INT,                 # B, S, C, G
     ctypes.c_float, _INT, _INT,             # eps, apply_silu, is_bf16
     *_PLAN_ARGS, _INT, _VOID,               # the plan, its team, stream
+])
+
+#: K1's split form (spatial parallelism), (a): the per-channel sums of a
+#: rank's rows; ``GN_SUMS_KERNEL.launches`` counts its launches.
+GN_SUMS_KERNEL = Kernel("group_norm", "dmu_group_norm_partial_sums", [
+    _VOID, _VOID, _VOID,                    # x, tb, sums
+    _INT, _INT, _INT, _INT, _VOID,          # B, S, C, is_bf16, stream
+])
+
+#: K1's split form, (b): the apply from a group's summed sums;
+#: ``GN_APPLY_KERNEL.launches`` counts its launches.
+GN_APPLY_KERNEL = Kernel("group_norm", "dmu_group_norm_apply_sums", [
+    _VOID, _VOID, _VOID, _VOID, _VOID, _VOID,   # x, sums, tb, gamma, beta, out
+    _INT, _INT, _INT, _INT,                     # B, S, C, G
+    ctypes.c_float, ctypes.c_float, _INT, _INT,  # n, eps, apply_silu, is_bf16
+    _VOID,                                      # stream
 ])
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
@@ -318,18 +340,15 @@ def _acc_dtype(x: torch.Tensor) -> torch.dtype:
     return torch.promote_types(x.dtype, torch.float32)
 
 
-def group_affine(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                 num_groups: int, time_bias: Optional[torch.Tensor] = None,
-                 eps: float = 1e-5):
-    """The per-sample channel affine ``(a, b)``, [B, C] in f32 (f64 for
-    f64 input), with which GroupNorm(+time bias) of NHWC ``x`` is
-    ``x·a + b``: per-channel sums Σx and Σx² with the time bias folded in,
-    group statistics from them (variance clamped at 0), as
-    ``group_norm_silu_xla`` and ``_block_stats`` take them."""
+def gn_partial_sums_plain(x: torch.Tensor,
+                          time_bias: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Per-channel sums Σv and Σv² of v = x + time bias over the rows of
+    NHWC ``x``, [B, 2, C] in f32 (f64 for f64 input): the first half of
+    :func:`group_affine`, and the plain twin of K1's split form (a). The
+    time bias is folded in at ``x``'s own row count, so the sums of the
+    row blocks of an image add up to the whole image's."""
     b, h, w, c = x.shape
-    g = num_groups
-    cg = c // g
-    n = float(h * w * cg)
     acc = _acc_dtype(x)
     xf = x.to(acc)
     colsum = xf.sum(dim=(1, 2))                            # [B, C]
@@ -339,8 +358,25 @@ def group_affine(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         hw = float(h * w)
         colsumsq = colsumsq + 2.0 * tb * colsum + hw * tb * tb
         colsum = colsum + hw * tb
-    gsum = colsum.reshape(b, g, cg).sum(-1)                # [B, G]
-    gsumsq = colsumsq.reshape(b, g, cg).sum(-1)
+    return torch.stack([colsum, colsumsq], dim=1)
+
+
+def affine_from_sums(sums: torch.Tensor, scale: torch.Tensor,
+                     bias: torch.Tensor, num_groups: int, count: int,
+                     time_bias: Optional[torch.Tensor] = None,
+                     eps: float = 1e-5):
+    """The per-sample channel affine ``(a, b)``, [B, C], of GroupNorm(+time
+    bias) from the [B, 2, C] sums of :func:`gn_partial_sums_plain` over
+    ``count`` positions (rows × W) of each image: group statistics from
+    the sums (variance clamped at 0), as ``group_norm_silu_xla`` and
+    ``_block_stats`` take them."""
+    b, _, c = sums.shape
+    g = num_groups
+    cg = c // g
+    n = float(count * cg)
+    acc = sums.dtype
+    gsum = sums[:, 0].reshape(b, g, cg).sum(-1)            # [B, G]
+    gsumsq = sums[:, 1].reshape(b, g, cg).sum(-1)
     mean = gsum / n
     var = torch.clamp(gsumsq / n - mean * mean, min=0.0)
     rstd = torch.rsqrt(var + eps)
@@ -351,6 +387,42 @@ def group_affine(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     if time_bias is not None:
         b_ = b_ + time_bias.to(acc) * a
     return a, b_
+
+
+def group_affine(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                 num_groups: int, time_bias: Optional[torch.Tensor] = None,
+                 eps: float = 1e-5):
+    """The per-sample channel affine ``(a, b)``, [B, C] in f32 (f64 for
+    f64 input), with which GroupNorm(+time bias) of NHWC ``x`` is
+    ``x·a + b``: per-channel sums Σx and Σx² with the time bias folded in
+    (:func:`gn_partial_sums_plain`), group statistics from them
+    (:func:`affine_from_sums`)."""
+    b, h, w, c = x.shape
+    return affine_from_sums(gn_partial_sums_plain(x, time_bias), scale,
+                            bias, num_groups, h * w, time_bias, eps)
+
+
+def _apply_affine(x, a, b_, apply_silu):
+    out = (x * a[:, None, None, :].to(x.dtype)
+           + b_[:, None, None, :].to(x.dtype))
+    if apply_silu:
+        out = out * torch.sigmoid(out)
+    return out.to(x.dtype)
+
+
+def gn_apply_sums_plain(x: torch.Tensor, sums: torch.Tensor,
+                        scale: torch.Tensor, bias: torch.Tensor,
+                        num_groups: int, count: int,
+                        time_bias: Optional[torch.Tensor] = None,
+                        eps: float = 1e-5,
+                        apply_silu: bool = True) -> torch.Tensor:
+    """``x·a + b`` (+SiLU) of NHWC ``x`` with ``(a, b)`` from the summed
+    [B, 2, C] ``sums`` of a whole image of ``count`` positions: the second
+    half of :func:`group_norm_silu_plain`, and the plain twin of K1's
+    split form (b)."""
+    a, b_ = affine_from_sums(sums, scale, bias, num_groups, count,
+                             time_bias, eps)
+    return _apply_affine(x, a, b_, apply_silu)
 
 
 def group_norm_silu_plain(x: torch.Tensor, scale: torch.Tensor,
@@ -368,11 +440,7 @@ def group_norm_silu_plain(x: torch.Tensor, scale: torch.Tensor,
             before normalizing.
     """
     a, b_ = group_affine(x, scale, bias, num_groups, time_bias, eps)
-    out = (x * a[:, None, None, :].to(x.dtype)
-           + b_[:, None, None, :].to(x.dtype))
-    if apply_silu:
-        out = out * torch.sigmoid(out)
-    return out.to(x.dtype)
+    return _apply_affine(x, a, b_, apply_silu)
 
 
 def group_norm_silu_bwd_plain(x: torch.Tensor, scale: torch.Tensor,
@@ -514,6 +582,105 @@ def group_norm_silu_bwd_cuda(x: torch.Tensor, scale: torch.Tensor,
                   int(x.dtype == torch.bfloat16), *plan.launch_args(),
                   plan.team, stream)
     return dx, dscale, dbias, dtb
+
+
+def gn_partial_sums_cuda(x: torch.Tensor,
+                         time_bias: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """Launch K1's split form (a) on a contiguous NHWC CUDA tensor: the
+    [B, 2, C] f32 sums of :func:`gn_partial_sums_plain`."""
+    tb = _check_split_inputs(x, time_bias, "gn_partial_sums_cuda")
+    b, h, w, c = x.shape
+    sums = torch.empty((b, 2, c), dtype=torch.float32, device=x.device)
+    GN_SUMS_KERNEL(x.data_ptr(), tb.data_ptr() if tb is not None else None,
+                   sums.data_ptr(), b, h * w, c,
+                   int(x.dtype == torch.bfloat16),
+                   torch.cuda.current_stream(x.device).cuda_stream)
+    return sums
+
+
+def gn_apply_sums_cuda(x: torch.Tensor, sums: torch.Tensor,
+                       scale: torch.Tensor, bias: torch.Tensor,
+                       num_groups: int, count: int,
+                       time_bias: Optional[torch.Tensor] = None,
+                       eps: float = 1e-5,
+                       apply_silu: bool = True) -> torch.Tensor:
+    """Launch K1's split form (b) on a contiguous NHWC CUDA tensor, with
+    the group's summed f32 [B, 2, C] ``sums`` over ``count`` positions a
+    whole image: :func:`gn_apply_sums_plain`'s result, applied in f32."""
+    tb = _check_kernel_inputs(x, scale, bias, num_groups, time_bias,
+                              "gn_apply_sums_cuda")
+    b, h, w, c = x.shape
+    if (sums.device != x.device or sums.dtype != torch.float32
+            or tuple(sums.shape) != (b, 2, c) or not sums.is_contiguous()):
+        raise ValueError(f"sums must be a contiguous float32 [{b}, 2, {c}] "
+                         f"tensor on {x.device}, got {tuple(sums.shape)} "
+                         f"{sums.dtype} on {sums.device}")
+    out = torch.empty_like(x)
+    GN_APPLY_KERNEL(x.data_ptr(), sums.data_ptr(),
+                    tb.data_ptr() if tb is not None else None,
+                    scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                    b, h * w, c, num_groups,
+                    float(count * (c // num_groups)), float(eps),
+                    int(apply_silu), int(x.dtype == torch.bfloat16),
+                    torch.cuda.current_stream(x.device).cuda_stream)
+    return out
+
+
+def _check_split_inputs(x, time_bias, what):
+    if x.device.type != "cuda":
+        raise ValueError(f"{what} needs a CUDA tensor, got {x.device}")
+    if x.dtype not in _KERNEL_DTYPES:
+        raise ValueError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if x.dim() != 4 or not x.is_contiguous() or x.numel() == 0:
+        raise ValueError("x must be a contiguous, non-empty NHWC "
+                         "[B, H, W, C] tensor")
+    if time_bias is None:
+        return None
+    b, c = x.shape[0], x.shape[3]
+    if time_bias.device != x.device or tuple(time_bias.shape) != (b, c):
+        raise ValueError(f"time_bias must be [{b}, {c}] on {x.device}, "
+                         f"got {tuple(time_bias.shape)} on "
+                         f"{time_bias.device}")
+    return time_bias.float().contiguous()
+
+
+def gn_partial_sums(x: torch.Tensor,
+                    time_bias: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """K1's split form (a) for ``x``'s device: the plain twin on the CPU,
+    the kernel on CUDA."""
+    if x.device.type == "cpu":
+        return gn_partial_sums_plain(x, time_bias)
+    return gn_partial_sums_cuda(x, time_bias)
+
+
+def gn_apply_sums(x, sums, scale, bias, num_groups, count, time_bias=None,
+                  eps=1e-5, apply_silu=True):
+    """K1's split form (b) for ``x``'s device: the plain twin on the CPU,
+    the kernel on CUDA."""
+    if x.device.type == "cpu":
+        return gn_apply_sums_plain(x, sums, scale, bias, num_groups, count,
+                                   time_bias, eps, apply_silu)
+    return gn_apply_sums_cuda(x, sums, scale, bias, num_groups, count,
+                              time_bias, eps, apply_silu)
+
+
+def group_norm_silu_split(x: torch.Tensor, scale: torch.Tensor,
+                          bias: torch.Tensor, num_groups: int, group,
+                          time_bias: Optional[torch.Tensor] = None,
+                          eps: float = 1e-5,
+                          apply_silu: bool = True) -> torch.Tensor:
+    """GroupNorm(+time bias)(+SiLU) of NHWC ``x``, this rank's rows of
+    images whose rows are split over the ranks of ``group`` (a
+    ``parallel/spatial.py::RowGroup``): the partial sums of its rows (a),
+    their sum over the group, and the apply (b) with the whole image's
+    statistics. Forward only (no graph is recorded)."""
+    sums = gn_partial_sums(x, time_bias)
+    group.sum_(sums)
+    count = x.shape[1] * group.size * x.shape[2]
+    return gn_apply_sums(x, sums, scale, bias, num_groups, count, time_bias,
+                         eps, apply_silu)
 
 
 def _gn_fwd(x, scale, bias, num_groups, time_bias, eps, apply_silu):

@@ -7,7 +7,11 @@ port runs one process per device, as the original PyTorch reference did
 
 * :func:`make_layout` reads the config's ``distributed`` section with
   ``make_mesh``'s check (data × spatial × model must equal the device
-  count); ``spatial_parallel`` > 1 is refused.
+  count), in the reference mesh's rank order: rank = d·S·M + s·M + m
+  (:func:`data_index`, :func:`spatial_index`); ``spatial_parallel`` S > 1
+  with ``model_parallel`` M > 1 is refused. The S ranks of a spatial
+  group hold the same samples and split each image's rows
+  (``parallel/spatial.py``).
 * :func:`init_process_group` joins a group: NCCL on ``cuda`` (the rank's
   device made current), gloo on the CPU, with a timeout, so that a lost
   rank fails the run instead of hanging it, and a gloo group for host
@@ -23,7 +27,8 @@ port runs one process per device, as the original PyTorch reference did
   and a gather of host arrays to it (:class:`Scope`).
 * Sampling over ranks (:func:`sampling_scope`, :func:`split_rows`): each
   rank draws the global batch's noise and keeps its rows, so N ranks
-  give one process's images.
+  give one process's images. Under spatial parallelism a batch splits
+  over the D data groups, not over all ranks.
 * ``model_parallel`` M (:func:`shard_plan`, :class:`Sharding`): the
   reference's ``param_sharding`` rule shards every parameter of at least
   2¹⁶ elements along its largest dimension that M divides, over groups
@@ -54,6 +59,7 @@ import torch
 import torch.distributed as dist
 
 from .. import NOT_PORTED
+from .spatial import NEXT_SLICE
 
 DATA_AXIS = "data"
 SPATIAL_AXIS = "spatial"
@@ -76,17 +82,31 @@ def make_layout(num_devices: int, data_parallel: Optional[int] = None,
     """The (data, spatial, model) layout of ``num_devices`` devices:
     by default every device on the data axis. Raises as the reference's
     ``make_mesh`` does when the layout does not cover the devices, and
-    for the axes the port does not run yet."""
+    for spatial parallelism together with model parallelism, which the
+    port does not run yet."""
     if data_parallel is None:
         data_parallel = num_devices // (model_parallel * spatial_parallel)
     if data_parallel * model_parallel * spatial_parallel != num_devices:
         raise ValueError(
             f"mesh {data_parallel}x{spatial_parallel}x{model_parallel} "
             f"!= {num_devices} devices")
-    if spatial_parallel > 1:
-        raise ValueError(f"distributed.spatial_parallel > 1 is {NOT_PORTED}")
+    if spatial_parallel > 1 and model_parallel > 1:
+        raise ValueError(
+            f"distributed.spatial_parallel {spatial_parallel} with "
+            f"model_parallel {model_parallel} is {NOT_PORTED}: spatial "
+            f"parallelism with model parallelism comes after {NEXT_SLICE}")
     return {DATA_AXIS: data_parallel, SPATIAL_AXIS: spatial_parallel,
             MODEL_AXIS: model_parallel}
+
+
+def data_index(rank_: int, layout: Dict[str, int]) -> int:
+    """The data group d of ``rank_`` (rank = d·S·M + s·M + m)."""
+    return rank_ // (layout[SPATIAL_AXIS] * layout[MODEL_AXIS])
+
+
+def spatial_index(rank_: int, layout: Dict[str, int]) -> int:
+    """The index s of ``rank_`` in its spatial group."""
+    return rank_ // layout[MODEL_AXIS] % layout[SPATIAL_AXIS]
 
 
 def local_devices(limit: Optional[int] = None,
@@ -244,35 +264,43 @@ class Scope(NamedTuple):
     rank: int
     world: int
     group: Any = None
+    #: Ranks of a spatial group (consecutive ranks), which hold the same
+    #: samples: each group samples its data group's rows.
+    spatial: int = 1
 
     def rows(self, n: int):
-        """This rank's ``(lo, hi, n)`` of a batch of ``n``."""
-        return split_rows(n, self.rank, self.world)
+        """This rank's ``(lo, hi, n)`` of a batch of ``n``: its data
+        group's rows."""
+        return split_rows(n, self.rank // self.spatial,
+                          self.world // self.spatial)
 
     def gather(self, obj: Any) -> Optional[List[Any]]:
-        """Every rank's ``obj`` (host arrays), in rank order, on rank 0;
-        None on the others."""
+        """Every data group's ``obj`` (host arrays) once, from the first
+        rank of each spatial group, in rank order, on rank 0; None on the
+        others."""
         if self.world == 1:
             return [obj]
         out = [None] * self.world if self.rank == 0 else None
         dist.gather_object(obj, out, dst=0,
                            group=(self.group if self.group is not None
                                   else _HOST_GROUP))
-        return out
+        return out[::self.spatial] if out is not None else None
 
 
-def sampling_scope(local_world: Optional[int] = None) -> Optional[Scope]:
+def sampling_scope(local_world: Optional[int] = None,
+                   spatial: int = 1) -> Optional[Scope]:
     """The ranks that split a sampling batch: every rank of the group, or,
     with ``local_world``, ranks 0 … ``local_world``−1 (rank 0's host under
     ``--multihost``, as the reference samples on its process-local mesh);
-    None on a rank outside them. Every rank must call this, in the same
-    order (it may make a group)."""
+    None on a rank outside them. ``spatial``: the ranks form spatial
+    groups of that many, each group sampling its data group's rows.
+    Every rank must call this, in the same order (it may make a group)."""
     world = world_size()
     if local_world is None or local_world >= world:
-        return Scope(rank(), world)
+        return Scope(rank(), world, spatial=spatial)
     group = dist.new_group(ranks=list(range(local_world)), backend="gloo")
-    return Scope(rank(), local_world, group) if rank() < local_world \
-        else None
+    return Scope(rank(), local_world, group, spatial) \
+        if rank() < local_world else None
 
 
 # -- model parallelism -----------------------------------------------------

@@ -9,6 +9,9 @@ and writes ``<data_dir>/celeba_{size}.npz`` with ``images`` (uint8 NHWC)
 and ``splits`` (0/1/2 from the partition file), which
 ``datasets/sources.py::load_celeba`` takes before the JPEGs. Decoding
 needs PIL; the cache does not, so a machine without PIL trains from it.
+The JPEGs are cropped and resized as the reference's default path does
+(its C++ loader's bilinear: ``datasets/sources.py::
+decode_jpegs_crop_resize``), so the cache holds the reference's bytes.
 A larger cache already there is shrunk instead of decoding again.
 """
 

@@ -63,9 +63,13 @@ shard (``--multihost``). NCCL joins the ranks on the card, gloo on the
 CPU. The config's ``distributed`` section gives the layout:
 ``model_parallel`` M > 1 shards the parameters, the EMA and Adam's
 moments over groups of M ranks (``trainers/trainer.py``), the batch's
-rows still split over all of them; ``spatial_parallel`` > 1 is not
-ported and exits (``backend`` and ``find_unused_parameters`` are
-accepted and unused).
+rows still split over all of them; ``spatial_parallel`` S > 1 runs
+with ``--eval_only`` (the test loss and ``--benchmark``): the ranks form
+spatial groups of S consecutive ranks that hold the same samples, each
+batch split over the D = N/S groups (B % D must be 0), and split each
+image's rows in the UNet (``parallel/spatial.py``); training under S,
+and S with M > 1, exit before any rank starts (``backend`` and
+``find_unused_parameters`` are accepted and unused).
 
 On the card the run ends by printing each kernel's launches in the run
 (``Kernel launches``, ``Kernel launches (rank r of N)`` under data
@@ -85,8 +89,10 @@ import os
 import sys
 from pathlib import Path
 
+from .. import NOT_PORTED
 from ..ops._build import launch_counts
 from ..parallel import mesh
+from ..parallel.spatial import NEXT_SLICE, check_heights
 from .generate import MODEL_TYPES
 
 
@@ -170,17 +176,38 @@ def run_benchmark(trainer, config, test_loader, eval_only: bool,
     return results
 
 
-def check_layout(config, num_devices: int) -> dict:
+def check_layout(config, num_devices: int, eval_only: bool = False) -> dict:
     """The config's ``distributed`` layout over ``num_devices`` devices
-    (``parallel/mesh.py::make_layout``); exits on a refusal."""
+    (``parallel/mesh.py::make_layout``); exits on a refusal, for
+    training under ``spatial_parallel`` > 1 (only ``--eval_only`` runs
+    it), and for a sharded height that ``spatial_parallel`` does not
+    divide."""
     dist_cfg = config.get("distributed", {}) or {}
     try:
-        return mesh.make_layout(
+        layout = mesh.make_layout(
             num_devices,
             model_parallel=int(dist_cfg.get("model_parallel", 1)),
             spatial_parallel=int(dist_cfg.get("spatial_parallel", 1)))
     except ValueError as e:
         raise SystemExit(f"distributed: {e}") from None
+    s = layout[mesh.SPATIAL_AXIS]
+    if s > 1 and not eval_only:
+        raise SystemExit(
+            f"distributed: training under spatial_parallel {s} is "
+            f"{NOT_PORTED}: {NEXT_SLICE}; run it with --eval_only")
+    if s > 1:
+        try:
+            check_heights(int((config.get("model_config") or {}).get(
+                "image_size", 32)), s)
+        except ValueError as e:
+            raise SystemExit(f"distributed: {e}") from None
+    return layout
+
+
+def spatial_size(config) -> int:
+    """S: the ranks of a spatial group, which hold the same samples."""
+    return int((config.get("distributed", {}) or {}).get(
+        "spatial_parallel", 1))
 
 
 def main(argv=None) -> int:
@@ -196,19 +223,21 @@ def main(argv=None) -> int:
                                  track_histograms=False)
         device = mesh.init_from_env(device.type)
         try:
-            check_layout(config, mesh.world_size())
+            check_layout(config, mesh.world_size(), args.eval_only)
             return run(args, config, device)
         finally:
             mesh.shutdown()
     n = len(mesh.local_devices(args.num_devices, device.type))
-    layout = check_layout(config, n)
+    layout = check_layout(config, n, args.eval_only)
     if n == 1:
         return run(args, config, device)
     batch = int(config.get("training", {}).get("batch_size", 128))
-    if batch % n:
+    groups = n // layout[mesh.SPATIAL_AXIS]
+    if batch % groups:
         raise SystemExit(
-            f"training.batch_size {batch} is not a multiple of "
-            f"--num_devices {n} (data {layout[mesh.DATA_AXIS]} × model "
+            f"training.batch_size {batch} is not a multiple of D·M = "
+            f"{groups} (--num_devices {n}: data {layout[mesh.DATA_AXIS]} × "
+            f"spatial {layout[mesh.SPATIAL_AXIS]} × model "
             f"{layout[mesh.MODEL_AXIS]}): each rank takes B/(D·M) rows")
     if device.type == "cuda":
         from ..ops._build import build_all
@@ -220,7 +249,9 @@ def main(argv=None) -> int:
 
 
 def _run_rank(device, args, config) -> int:
-    return run(args, config, device, split=(mesh.rank(), mesh.world_size()))
+    s = spatial_size(config)
+    return run(args, config, device,
+               split=(mesh.rank() // s, mesh.world_size() // s))
 
 
 def run(args, config, device, split=None) -> int:
@@ -235,6 +266,7 @@ def run(args, config, device, split=None) -> int:
 
     main_rank = mesh.is_main_process()
     world = mesh.world_size()
+    spatial_parallel = spatial_size(config)
     if main_rank:
         print_config("Main Configuration", config)
     model = MODEL_REGISTRY[args.model_type](
@@ -243,16 +275,21 @@ def run(args, config, device, split=None) -> int:
     if split is not None:
         loaders = get_dataset(config, device=model.device, split=split)
     else:
-        loaders = get_dataset(config, world, mesh.rank(), device=model.device)
+        loaders = get_dataset(config, world // spatial_parallel,
+                              mesh.rank() // spatial_parallel,
+                              device=model.device)
     train_loader, val_loader, test_loader = loaders
     trainer = TRAINER_REGISTRY[args.model_type](
         model, train_loader, val_loader, test_loader, config,
         seed=args.seed)
     if trainer.data_parallel and main_rank:
         batch = int(config.get("training", {}).get("batch_size", 128))
-        local = batch // world if split is not None else batch
+        groups = world // spatial_parallel
+        local = batch // groups if split is not None else batch
         print(f"Data parallel: {world} ranks over {mesh.backend()}, global "
-              f"batch {local * world} ({local} a rank)", flush=True)
+              f"batch {local * groups} ({local} a rank"
+              + (f", rows split over spatial groups of {spatial_parallel}"
+                 if spatial_parallel > 1 else "") + ")", flush=True)
 
     start_epoch = 0
     if args.resume:
@@ -293,7 +330,7 @@ def run(args, config, device, split=None) -> int:
         if args.benchmark:
             local = (int(os.environ.get("LOCAL_WORLD_SIZE", world))
                      if args.multihost else None)
-            scope = mesh.sampling_scope(local)
+            scope = mesh.sampling_scope(local, spatial_parallel)
             if split is not None and main_rank:   # the whole test set
                 test_loader = get_dataset(config, device=model.device)[2]
             run_benchmark(trainer, config, test_loader, args.eval_only,

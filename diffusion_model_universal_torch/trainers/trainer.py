@@ -80,6 +80,17 @@ once a chunk, the ragged tail of an epoch runs as single updates, the
 chunk returns only its per-step losses, and K > 1 excludes
 ``grad_accum_steps`` > 1. On CUDA it is refused over gloo and with
 ``model_parallel`` > 1 (:func:`scan.scan_refusal`).
+
+Spatial parallelism (``distributed.spatial_parallel`` S > 1), forward
+only: the ranks form spatial groups of S consecutive ranks (the
+reference mesh's order, rank = d·S + s); the S ranks of data group d
+hold the same rows of every batch (the loaders split a batch over the D
+groups), draw alike (the default generator is seeded by d, so dropout
+masks match), and split each image's rows in the UNet
+(``parallel/spatial.py``, ``UNet.set_row_group``). Evaluation, the
+sample grids and the sampling harness run so, and (Σ loss, count) takes
+each data group's samples once, from s = 0. A training update is
+refused: its backward is the next slice.
 """
 
 from __future__ import annotations
@@ -92,7 +103,7 @@ from typing import Any, Dict, Iterable, Iterator, List, Optional
 import numpy as np
 import torch
 
-from ..parallel import mesh
+from ..parallel import mesh, spatial
 from ..utils.checkpoint import CheckpointManager
 from ..utils.images import frames_to_grid, save_image
 from ..utils.logging_utils import MetricLogger
@@ -160,14 +171,31 @@ class DiffusionTrainer:
         self.rank = mesh.rank()
         self.world_size = mesh.world_size()
         self.is_main = self.rank == 0
-        torch.manual_seed(seed + _SEED_STRIDE * self.rank)  # dropout masks
+        dist_cfg = self.config.get("distributed") or {}
+        model_parallel = int(dist_cfg.get("model_parallel", 1))
+        self.spatial_parallel = int(dist_cfg.get("spatial_parallel", 1))
+        self.row_group = None
+        # (index, count) of the row blocks that split every batch: the
+        # rank's among all ranks, or its data group's under spatial
+        # parallelism.
+        self._row_split = (self.rank, self.world_size)
+        if self.spatial_parallel > 1:
+            layout = mesh.make_layout(self.world_size,
+                                      model_parallel=model_parallel,
+                                      spatial_parallel=self.spatial_parallel)
+            self.row_group = spatial.make_row_groups(
+                self.spatial_parallel, self.rank, self.world_size)
+            self._row_split = (mesh.data_index(self.rank, layout),
+                               layout[mesh.DATA_AXIS])
+            if hasattr(model.net, "set_row_group"):   # not the EnergyNet
+                model.net.set_row_group(self.row_group)
+        # Dropout masks: the S ranks of a spatial group draw alike.
+        torch.manual_seed(seed + _SEED_STRIDE * self._row_split[0])
         named = list(model.net.named_parameters())
         self.param_names: List[str] = [n for n, _ in named]
         self.params: List[torch.Tensor] = [p for _, p in named]
         param_count = sum(p.numel() for p in self.params)
         mesh.broadcast_(self.params)
-        model_parallel = int((self.config.get("distributed") or {}).get(
-            "model_parallel", 1))
         refusal = scan_refusal(self.scan_steps, self.device.type,
                                mesh.backend(), model_parallel)
         if refusal:
@@ -236,7 +264,11 @@ class DiffusionTrainer:
 
     @staticmethod
     def _batch_count(batches) -> int:
-        return sum(DiffusionTrainer._split_batch(b)[0].shape[0]
+        """The samples of ``batches``: each global batch's n where a batch
+        holds ``rows`` of one (``train --num_devices``), else its own rows
+        (one process, and each process's batch under ``--multihost``)."""
+        return sum(b["rows"][2] if isinstance(b, dict) and "rows" in b
+                   else DiffusionTrainer._split_batch(b)[0].shape[0]
                    for b in batches)
 
     def _rows(self, batch, b: int):
@@ -246,7 +278,15 @@ class DiffusionTrainer:
             return tuple(batch["rows"])
         if not self.data_parallel:
             return None
-        return (self.rank * b, (self.rank + 1) * b, self.world_size * b)
+        i, n = self._row_split
+        return (i * b, (i + 1) * b, n * b)
+
+    def _refuse_spatial_training(self) -> None:
+        if self.spatial_parallel > 1:
+            raise NotImplementedError(
+                f"a training update under distributed.spatial_parallel "
+                f"{self.spatial_parallel}: {spatial.NEXT_SLICE}; run train "
+                f"--eval_only (evaluation, sample grids, --benchmark)")
 
     def _loss_and_grads(self, micro_batches: List[Any], step: int,
                         draws: Optional[List[Dict[str, Any]]] = None,
@@ -258,6 +298,7 @@ class DiffusionTrainer:
         under data parallelism; ``drawn``: all of it, and no generator is
         touched). Under data parallelism, each micro-batch's are weighted
         by the rank's share of its rows and summed over the ranks."""
+        self._refuse_spatial_training()
         loss_sum, grads_sum = None, None
         for i, batch in enumerate(micro_batches):
             x, y = self._split_batch(batch)
@@ -590,6 +631,7 @@ class DiffusionTrainer:
     def train(self, num_epochs: Optional[int] = None) -> Dict[str, float]:
         """Run the training loop for ``num_epochs`` epochs from
         ``start_epoch``; returns the last epoch's mean loss."""
+        self._refuse_spatial_training()
         num_epochs = num_epochs if num_epochs is not None else self.num_epochs
         history: Dict[str, float] = {}
         self.preempted = False
@@ -741,6 +783,7 @@ class DiffusionTrainer:
         batch (a ragged one split unevenly, no sample dropped or counted
         twice) and the (Σ loss, count) pair is summed over the ranks."""
         sums = torch.zeros(2, dtype=torch.float64, device=self.device)
+        counts = self.row_group is None or self.row_group.index == 0
         offset = 0
         with self.whole_params():
             for batch in loader:
@@ -750,8 +793,9 @@ class DiffusionTrainer:
                     losses = self.model.loss_function(
                         x, generator=self._generator(offset, salt), y=y,
                         per_sample=True, rows=rows)
-                    sums[0] += losses.double().sum()
-                    sums[1] += x.shape[0]
+                    if counts:
+                        sums[0] += losses.double().sum()
+                        sums[1] += x.shape[0]
                 offset += rows[2] if rows else x.shape[0]
         mesh.all_reduce_sum_([sums])
         total, count = sums.tolist()
@@ -792,8 +836,10 @@ class DiffusionTrainer:
     def generate_samples(self, epoch: int, num_samples: int = 4,
                          use_ema: bool = False) -> str:
         """A grid of the sampler's intermediates, one row per sample,
-        saved as ``samples/epoch_{epoch}.png`` (under model parallelism,
-        inside :meth:`whole_params`, or with ``use_ema`` on every rank)."""
+        saved as ``samples/epoch_{epoch}.png`` by rank 0 (under model
+        parallelism, inside :meth:`whole_params`, or with ``use_ema`` on
+        every rank; under spatial parallelism on every rank of rank 0's
+        spatial group, which split each image's rows)."""
         gen = torch.Generator(device=self.device).manual_seed(
             (self.seed + 99) * _SEED_STRIDE + epoch)
         with self.ema_weights() if use_ema else contextlib.nullcontext():
@@ -801,6 +847,8 @@ class DiffusionTrainer:
                 num_samples, gen)
         grid = frames_to_grid([f.cpu().numpy() for f in frames])
         path = self.output_dir / "samples" / f"epoch_{epoch}.png"
+        if not self.is_main:
+            return str(path)
         out = save_image(grid.astype(np.float32) / 127.5 - 1.0, str(path))
         self.logger.log_image("samples", grid, self.step_count)
         return out

@@ -114,11 +114,13 @@ def _write_celeba_jpegs(root, n=10):
 
 
 def test_celeba_jpeg_path_matches_jax(tmp_path, monkeypatch):
-    """The JPEG path: the same paths and partition as JAX, and the decoded
-    178-crop at 64² within 1 LSB of JAX's jax.image path (its C++ crop
-    and resize hidden; that one does not antialias its shrink). The odd
-    150×200 image, which JAX crops and shrinks with PIL's BILINEAR, within
-    2 LSB. CelebADataset splits by the partition file as JAX's does."""
+    """The JPEG path: the same paths and partition as JAX, and the
+    port's antialiased path (``antialias=True``) at 64² within 1 LSB of
+    JAX's fallback, the jax.image path its C++ crop and resize leaves
+    when the loader cannot load (hidden here). The odd 150×200 image,
+    which both crop and shrink with PIL's BILINEAR, within 2 LSB.
+    CelebADataset splits by the partition file as JAX's does, and the
+    cache builder writes the port's default path."""
     pytest.importorskip("PIL")
     _write_celeba_jpegs(tmp_path)
     (paths, ids), (jpaths, jids) = (tsrc.load_celeba(str(tmp_path)),
@@ -126,7 +128,8 @@ def test_celeba_jpeg_path_matches_jax(tmp_path, monkeypatch):
     assert paths == jpaths
     np.testing.assert_array_equal(ids, jids)
     monkeypatch.setattr(jnative, "_load", lambda: None)
-    got = tsrc.decode_jpegs_crop_resize(paths, 178, 64, num_threads=2)
+    got = tsrc.decode_jpegs_crop_resize(paths, 178, 64, num_threads=2,
+                                        antialias=True)
     want = jsrc.decode_jpegs_crop_resize(paths, 178, 64, num_threads=2)
     d = np.abs(got.astype(int) - want.astype(int))
     assert np.delete(d, 3, axis=0).max() <= 1 and d[3].max() <= 2
@@ -140,7 +143,9 @@ def test_celeba_jpeg_path_matches_jax(tmp_path, monkeypatch):
     cache = build_celeba_cache.main([str(tmp_path), "--size", "64",
                                      "--threads", "2"])
     with np.load(cache) as z:
-        np.testing.assert_array_equal(z["images"], got)
+        np.testing.assert_array_equal(
+            z["images"], tsrc.decode_jpegs_crop_resize(paths, 178, 64,
+                                                       num_threads=2))
         np.testing.assert_array_equal(z["splits"], ids)
 
 

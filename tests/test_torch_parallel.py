@@ -424,7 +424,8 @@ def test_multihost_shard_matches_jax(world):
 
 @pytest.mark.parametrize("devices,model,spatial,refusal", [
     pytest.param(2, 2, 1, "training.batch_size 3 is not a multiple of "
-                          "--num_devices 2 (data 1 × model 2)",
+                          "D·M = 2 (--num_devices 2: data 1 × spatial 1 × "
+                          "model 2)",
                  id="2-2-1-model_parallel"),
     (2, 1, 2, "spatial_parallel"),
     (2, 3, 1, "mesh 0x1x3 != 2 devices"),
@@ -433,7 +434,8 @@ def test_distributed_layout_refusals(tmp_path, devices, model, spatial,
                                      refusal):
     """The config's ``distributed`` section, once ignored: a layout that
     does not cover the devices raises as JAX's ``make_mesh`` does (its
-    message); spatial parallelism is refused as not ported; model
+    message); spatial parallelism lays the ranks out as JAX's mesh and
+    its training (the backward half, not ported) is refused; model
     parallelism runs, in JAX's layout, and the CLI refuses a batch that
     the D·M ranks cannot split (JAX needs only D to divide it: its model
     axis shards channels, the port's ranks split rows), all before any
@@ -452,14 +454,13 @@ def test_distributed_layout_refusals(tmp_path, devices, model, spatial,
         jmesh = make_mesh(jax.devices()[:devices], model_parallel=model,
                           spatial_parallel=spatial)
         assert jmesh.size == devices
+        assert mesh.make_layout(devices, model_parallel=model,
+                                spatial_parallel=spatial) == dict(
+                                    jmesh.shape)
         if spatial > 1:
-            refusal = f"{refusal} > 1 is {NOT_PORTED}"
-            with pytest.raises(ValueError, match=refusal):
-                mesh.make_layout(devices, model_parallel=model,
-                                 spatial_parallel=spatial)
+            refusal = (f"distributed: training under {refusal} {spatial} "
+                       f"is {NOT_PORTED}")
         else:
-            assert mesh.make_layout(devices, model_parallel=model) == dict(
-                jmesh.shape)
             cfg["training"]["batch_size"] = 3
     path = tmp_path / "cfg.yaml"
     path.write_text(yaml.safe_dump(cfg))

@@ -150,10 +150,11 @@ def test_make_server_refuses_unported_options(files, extra):
     """The name is from when ``--num_devices > 1`` was refused. ``main``
     now reads it and spawns the ranks (``tests/test_torch_parallel.py``
     serves over two); ``make_server`` serves on the ranks this process
-    has joined, here none: one rank, all rows of the serve batch."""
+    has joined, here none: one rank (a spatial group of one), all rows
+    of the serve batch."""
     srv = make_server(_args(files, *extra))
     try:
-        assert srv.service.scope == (0, 1, None)
+        assert srv.service.scope == (0, 1, None, 1)
         assert srv.service.scope.rows(4) == (0, 4, 4)
     finally:
         srv.server_close()

@@ -312,8 +312,9 @@ def test_train_cli_refuses_unported_flags(tmp_path, extra, fragment, capsys,
         return
     if extra[0] == "--num_gpus":
         with pytest.raises(SystemExit, match=re.escape(
-                "batch_size 4 is not a multiple of --num_devices 3 (data 3 "
-                "× model 1): each rank takes B/(D·M) rows")) as err:
+                "batch_size 4 is not a multiple of D·M = 3 (--num_devices "
+                "3: data 3 × spatial 1 × model 1): each rank takes B/(D·M) "
+                "rows")) as err:
             train_cli.main(args + extra)
         assert fragment not in str(err.value)
         return
