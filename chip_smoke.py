@@ -287,8 +287,33 @@ ranks of a spatial group), at the full width of ``ddpm_config.yaml``:
        32²) beside their plain twins, ``F.group_norm`` on the whole
        tensor (for (b)) and their bounds.
 
+Then spatial parallelism's backward half (training under
+``spatial_parallel: 2``), on the same ranks, in the same spawn:
+
+19. holds K2's split form, (c) the per-channel sums Σdz and Σdz·x̂ of a
+    rank's rows and (d) dx, dtb and the rank's dγ, dβ from the group's
+    summed sums, against their plain twins at every sharded shape of
+    the updates (B=4, 32 and 128), in f32 and bf16; then
+    a. one f32 update (B=4, remat, dropout 0.1) on the ranks against one
+       process: loss rtol 1e-5, per-layer gradient norms 1e-4, Adam's μ
+       1e-3, and on every rank exactly the launches of K1 whole, (a),
+       (b), K2 whole, (c), (d) and K3 an update that the remat rule
+       predicts (``sp_update_launches``);
+    b. the config's bf16 update at B=128 against one process: the loss,
+       the gradient norm and the gradients' projections
+       (``SP_TRAIN_RTOL``), each planted backward fault
+       (``SP_BWD_FAULTS``) reading above the projections' limit;
+    c. ``train``'s rank body (``SP_CLI_BATCH``) for an epoch with its
+       checkpoint, then resumed for a second;
+    d. ms an update at B=128 on the ranks beside one process (sharing
+       the card, not scaling);
+    e. times (c) and (d) at the B=128 update's sharded shapes beside
+       their plain twins, the autograd backward of ``F.group_norm`` +
+       ``F.silu`` of the whole tensor (for (d)) and their bounds.
+
 The last three lines of standard output are the ``kernels`` JSON line
-(all seven kernels and K1's split form (a) and (b); K1–K3 with their 64²
+(all seven kernels, K1's split form (a) and (b) and K2's (c) and (d);
+K1–K3 with their 64²
 training rows and the launches of each path, phase 15's per rank),
 the card's name and power limit from ``nvidia-smi``, and the result
 line ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
@@ -297,6 +322,7 @@ before the result line. Needs a CUDA card; exits non-zero without one.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import io
 import json
@@ -5462,7 +5488,9 @@ SP_SCORE_RTOL = 1e-3
 SP_KERNELS = {"sums": "dmu_group_norm_partial_sums",
               "apply": "dmu_group_norm_apply_sums",
               "gn": "dmu_group_norm_silu_fwd", "mha": "dmu_mha_fwd",
-              "gn_bwd": "dmu_group_norm_silu_bwd"}
+              "gn_bwd": "dmu_group_norm_silu_bwd",
+              "bwd_sums": "dmu_group_norm_bwd_partial_sums",
+              "bwd_apply": "dmu_group_norm_bwd_apply_sums"}
 
 
 def sp_model(size: int, device, cfg):
@@ -5634,10 +5662,11 @@ def host_seconds(fn, tr):
     return time.perf_counter() - t0, out
 
 
-def sp_rank(device, out_dir: str, eval_cfg) -> int:
-    """Phase 18 on one rank of a spatial group of ``SP_RANKS``: the f32
-    UNet forward at each of ``SP_SIZES`` with its rows split (18a), with
-    its launches, then 18b; writes ``out_dir/rank{r}.pt``."""
+def sp_rank(device, out_dir: str, eval_cfg, train_cfgs) -> int:
+    """Phases 18 and 19 on one rank of a spatial group of ``SP_RANKS``:
+    the f32 UNet forward at each of ``SP_SIZES`` with its rows split
+    (18a), with its launches, then 18b, then 19's updates (``sp_train``)
+    and ``train`` (``sp_cli``); writes ``out_dir/rank{r}.pt``."""
     import torch
     from diffusion_model_universal_torch.parallel import mesh, spatial
     torch.backends.cudnn.allow_tf32 = False
@@ -5654,6 +5683,8 @@ def sp_rank(device, out_dir: str, eval_cfg) -> int:
         out["launches"][size] = counts
         del model
     out["eval"] = sp_eval(eval_cfg, device)
+    out["train"] = sp_train(device, train_cfgs)
+    out["train"]["cli"] = sp_cli(device, train_cfgs["cli"])
     torch.save(out, os.path.join(out_dir, f"rank{mesh.rank()}.pt"))
     return 0
 
@@ -5799,8 +5830,9 @@ def time_split_kernels(split_calls, dtype_name="bfloat16"):
 
 
 def spatial_forward():
-    """Phase 18: spatial parallelism's forward path on ``SP_RANKS`` gloo
-    ranks sharing the card (a measure of sharing, not of scaling)."""
+    """Phases 18 and 19: spatial parallelism's forward path and its
+    training update on ``SP_RANKS`` gloo ranks sharing the card (a
+    measure of sharing, not of scaling)."""
     import torch
     from diffusion_model_universal_torch.parallel import mesh
     from diffusion_model_universal_torch.utils.inception import (
@@ -5827,6 +5859,11 @@ def spatial_forward():
             if size == 32:
                 bench_split, bench_whole = sp_split(sp_gn_calls(
                     model, 32, SERVE_BATCH))
+                # 19: the sharded GroupNorms of an update at each batch.
+                train_split = {b: sp_split(sp_gn_calls(model, 32, b))[0]
+                               for b in (SP_F32_BATCH, SP_CLI_BATCH,
+                                         TRAIN_BATCH)}
+                predicted = sp_update_launches(sum(split.values()), whole)
             del model
         log("[spatial] 18a: K1's split form against its plain twins at "
             "every sharded shape of the f32 forwards at 32² and 64² and "
@@ -5838,10 +5875,29 @@ def spatial_forward():
         log("[spatial] 18b: train --eval_only --benchmark in one process "
             "(bf16, the reference of the ranks)")
         one = sp_eval(cfgs[1], torch.device(DEVICE))
+        log("[spatial] 19: K2's split form against its plain twins at "
+            "every sharded shape of the updates (B="
+            f"{SP_F32_BATCH}, {SP_CLI_BATCH}, {TRAIN_BATCH}, 32²):")
+        bwd_calls = {}
+        for calls in train_split.values():
+            bwd_calls.update(calls)
+        bwd_errs = hold_split_bwd_kernels(bwd_calls)
+        log("[spatial] 19a, 19b, 19d in one process (the reference of the "
+            "ranks)")
+        train_cfgs = {s: sp_train_configs(str(tmp), s)
+                      for s in (1, SP_RANKS)}
+        one_train = sp_train(torch.device(DEVICE), train_cfgs[1])
+        whole_step = {**{k: 0 for k in SP_KERNELS}, **LAUNCHES_PER_STEP}
+        for what in ("f32", "bf16"):
+            check(DEVICE != "cuda"
+                  or one_train[what]["launches"] == whole_step,
+                  f"19 {what} update launches in one process: "
+                  f"{one_train[what]['launches']} != {whole_step}")
         t1 = time.perf_counter()
         log(f"[spatial] {SP_RANKS} gloo ranks sharing the card, one "
             f"spatial group ({t1 - t0:.1f} s of references and holds)")
-        rc = mesh.spawn(sp_rank, SP_RANKS, args=(str(tmp), cfgs[SP_RANKS]),
+        rc = mesh.spawn(sp_rank, SP_RANKS, args=(
+            str(tmp), cfgs[SP_RANKS], train_cfgs[SP_RANKS]),
             device_type=DEVICE, backend="gloo", rendezvous_dir=str(tmp))
         t2 = time.perf_counter()
         check(rc == 0, f"the launcher returned {rc}")
@@ -5853,7 +5909,8 @@ def spatial_forward():
             split = per_forward[size]["split"]
             want = {"sums": sum(split.values()),
                     "apply": sum(split.values()),
-                    "gn": per_forward[size]["whole"], "mha": 5, "gn_bwd": 0}
+                    "gn": per_forward[size]["whole"], "mha": 5, "gn_bwd": 0,
+                    "bwd_sums": 0, "bwd_apply": 0}
             for r, res in enumerate(ranks):
                 fwd_errs[size, r] = hold(
                     f"UNet f32 {size}² B={SP_BATCH}, rank {r} of "
@@ -5870,7 +5927,7 @@ def spatial_forward():
         n_split = sum(bench_split.values())
         want_eval = {"sums": forwards * n_split, "apply": forwards * n_split,
                      "gn": forwards * bench_whole, "mha": forwards * 5,
-                     "gn_bwd": 0}
+                     "gn_bwd": 0, "bwd_sums": 0, "bwd_apply": 0}
         for r, res in enumerate(ranks):
             check(DEVICE != "cuda" or res["eval"]["launches"] == want_eval,
                   f"18b launches on rank {r}: {res['eval']['launches']} != "
@@ -5899,10 +5956,17 @@ def spatial_forward():
         log(f"  a harness batch ({SERVE_BATCH} samples, DPM++-20): "
             f"{ev['batch_seconds']:.3f} s on {SP_RANKS} ranks sharing the "
             f"card, {one['batch_seconds']:.3f} s in one process")
+        log("[spatial] 19: the training update at "
+            f"spatial_parallel {SP_RANKS}")
+        training = sp_check_training(ranks, one_train, predicted, tmp)
         t3 = time.perf_counter()
         log("[spatial] 18c: K1's split form timed at the harness's sharded "
             "shapes (bf16, B=16, 32²)")
         rows = time_split_kernels(bench_split)
+        log(f"[spatial] 19e: K2's split form timed at an update's sharded "
+            f"shapes (bf16, B={TRAIN_BATCH}, 32²)")
+        rows.update(time_split_bwd_kernels(train_split[TRAIN_BATCH]))
+        errs.update(bwd_errs)
         return {
             "forward_max_abs_err": {f"{s}² rank {r}": v
                                     for (s, r), v in fwd_errs.items()},
@@ -5915,8 +5979,13 @@ def spatial_forward():
                          "loss", "results", "batch_seconds", "launches")},
                      "loss_rel_err": loss_err, "score_rel_err": score_errs,
                      "controls_rel_err": controls},
+            "training": training,
             "kernel_errs": errs, "kernel_rows": rows,
-            "main_path_launches": ev["launches"],
+            "main_path_launches": {**ev["launches"], **{
+                k: ranks[0]["train"]["bf16"]["launches"][k]
+                for k in ("bwd_sums", "bwd_apply")}},
+            "update_launches_per_rank": ranks[0]["train"]["bf16"][
+                "launches"],
             "seconds": {"references_and_holds": t1 - t0, "ranks": t2 - t1,
                         "checks": t3 - t2,
                         "timing": time.perf_counter() - t3}}
@@ -5954,21 +6023,494 @@ def sp_check_controls(ev, one):
 
 
 def sp_entries(sp):
-    """The ``kernels`` line's entries of K1's split form (a) and (b)."""
+    """The ``kernels`` line's entries of K1's split form (a) and (b) and
+    K2's (c) and (d)."""
     work = (f"one rank's share of a UNet forward at B={SERVE_BATCH}, 32², "
             f"bf16, rows split over {SP_RANKS} ranks: every sharded shape "
             "times its calls per forward")
+    train_work = (f"one rank's share of a training update's backward at "
+                  f"B={TRAIN_BATCH}, 32², bf16, rows split over {SP_RANKS} "
+                  "ranks: every sharded shape times its calls per update")
     return [kernel_entry(
         name, "diffusion_model_universal_torch/csrc/group_norm.cu",
-        GN_REPLACES, sp["kernel_rows"][kind],
-        sp["main_path_launches"][kind], sp["kernel_errs"][kind], work,
+        GN_REPLACES if kind in ("sums", "apply") else GN_BWD_REPLACES,
+        sp["kernel_rows"][kind], sp["main_path_launches"][kind],
+        sp["kernel_errs"][kind],
+        work if kind in ("sums", "apply") else train_work,
         symbol=SP_KERNELS[kind], tol=tol, launches_per_forward_per_rank={
             size: v[kind] for size, v in
-            sp["forward_launches_per_rank"].items()})
+            sp["forward_launches_per_rank"].items()},
+        launches_per_update_per_rank=sp["update_launches_per_rank"][kind])
         for kind, name, tol in (
             ("sums", "group_norm_partial_sums",
              "1e-5·(rows·W) abs + 1e-5 rel (f32 sums in another order)"),
-            ("apply", "group_norm_apply_sums", TOL))]
+            ("apply", "group_norm_apply_sums", TOL),
+            ("bwd_sums", "group_norm_bwd_partial_sums",
+             "red_tol(rows·W) abs + 1e-4 rel (f32 sums in another order)"),
+            ("bwd_apply", "group_norm_bwd_apply_sums",
+             f"dx {TOL}; dγ, dβ red_tol(B), dtb red_tol(rows·W) abs + "
+             "1e-4 rel"))]
+
+
+# -- phase 19: spatial parallelism's backward half ------------------------
+
+SP_F32_BATCH = 4            # 19a's f32 update
+SP_TIME_UPDATES = 2         # 19d: timed bf16 updates at B=128
+SP_CLI_BATCH = 16           # 19c: train's batch, 2 updates an epoch
+SP_CLI_SAMPLES = 40         # 19c's synthetic set: 32 train, 4 val, 4 test
+#: The GroupNorms outside the checkpointed down and up stages, which the
+#: remat recompute does not run again: ``out_norm`` (32 rows: split) and
+#: the mid blocks' five (1 row: whole).
+SP_UNSTAGED = {"split": 1, "whole": 5}
+#: 19a's f32 update against one process: ``tests/test_torch_train.py::
+#: test_training_step_matches_jax_trainer``'s tolerances (the gradient
+#: norms + 1e-8 abs, Adam's μ + 1e-7 abs).
+SP_F32_RTOL = {"loss": 1e-5, "grad_norm": 1e-4, "mu": 1e-3}
+#: 19b's bf16 update at B=128 against one process, relative: the loss
+#: (the forward's rounding: 18b's bf16 limit), the gradient norm, and the
+#: gradients' projections (``sp_project``: their direction, which a
+#: gradient norm does not see), whose limit sits between their rounding
+#: reading and the nearest of ``SP_BWD_FAULTS``; each fault must read
+#: above it every run.
+SP_TRAIN_RTOL = {"loss": 1e-4, "grad_norm": 1e-3, "projections": 1e-2}
+#: Directions on which 19b projects the gradients (``sp_project``).
+SP_PROJECTIONS = 4
+SP_BWD_FAULTS = ("halo gradients not sent back",
+                 "(c)'s sums not summed over the group",
+                 "weight gradients not summed over S",
+                 "a fresh dropout mask in the remat recompute")
+
+
+def sp_train_configs(out_dir: str, spatial_parallel: int):
+    """Phase 19's configs: ddpm_config.yaml at full width (remat on,
+    dropout 0.1) on the synthetic set, one epoch, no validation, grids or
+    periodic checkpoints: ``f32`` at B=``SP_F32_BATCH``, ``bf16`` (the
+    config's autocast) at its batch of 128, and ``cli`` for 19c's
+    ``train`` at B=``SP_CLI_BATCH`` with a checkpoint an epoch; over
+    spatial groups of ``spatial_parallel``."""
+    out = {}
+    for name, batch in (("f32", SP_F32_BATCH), ("bf16", TRAIN_BATCH),
+                        ("cli", SP_CLI_BATCH)):
+        cfg = dp_config(str(Path(out_dir) / f"train{spatial_parallel}"
+                            / name))
+        cfg["training"] = dict(cfg["training"], batch_size=batch,
+                               checkpoint_interval=int(name == "cli"))
+        if name == "f32":
+            cfg["model_config"] = dict(cfg["model_config"],
+                                       compute_dtype="float32")
+        if name == "cli":
+            cfg["data"]["num_samples"] = SP_CLI_SAMPLES
+        cfg["distributed"] = {"spatial_parallel": spatial_parallel}
+        out[name] = cfg
+    return out
+
+
+def sp_bwd_faults():
+    """``SP_BWD_FAULTS``, each as a patch of this process (the
+    repository's code is unchanged): the halo's transpose keeps each
+    rank's own rows' gradients and drops those its neighbours computed
+    for them; K2's split form (d) takes the rank's own (c) sums for the
+    group's; the update's all-reduce sums the loss alone, so each rank
+    applies its own share of the gradients; the remat recompute draws
+    its dropout masks past the forward's (on CUDA its ``RematRNG``
+    generator is moved to where the forward's ended; on the CPU the RNG
+    state is not saved), so the forward keeps its masks and the
+    backward runs on other ones."""
+    import torch
+    from unittest import mock
+    from torch.utils.checkpoint import checkpoint
+    from diffusion_model_universal_torch.models import unet
+    from diffusion_model_universal_torch.ops import group_norm as gn_ops
+    from diffusion_model_universal_torch.parallel import mesh, spatial
+    apply, reduce = gn_ops.gn_bwd_apply_sums, mesh.all_reduce_sum_
+    bind = unet.RematRNG.bind
+
+    def own_rows(self, g, k):
+        return g[:, :, k:g.shape[2] - k].clone(
+            memory_format=torch.channels_last)
+
+    def fresh_recompute(self, index, block, device):
+        run, calls = bind(self, index, block, device), [0]
+        fwd, rec = self._pairs[index]
+
+        def wrapped(*args):
+            if calls[0] == 1:
+                rec.set_state(fwd.get_state())
+            calls[0] += 1
+            return run(*args)
+        return wrapped
+
+    return dict(zip(SP_BWD_FAULTS, (
+        mock.patch.object(spatial.RowGroup, "halo_grad", own_rows),
+        mock.patch.object(gn_ops, "gn_bwd_apply_sums",
+                          lambda x, dy, sums, local, summed, *a, **k:
+                          apply(x, dy, sums, local, local, *a, **k)),
+        mock.patch.object(mesh, "all_reduce_sum_",
+                          lambda tensors: reduce(tensors[:1])),
+        sp_patches(mock.patch.object(unet.RematRNG, "bind",
+                                     fresh_recompute),
+                   mock.patch.object(unet, "checkpoint",
+                                     lambda fn, *a, **k: checkpoint(
+                                         fn, *a, **dict(
+                                             k, preserve_rng_state=False)))
+                   ))))
+
+
+@contextlib.contextmanager
+def sp_patches(*patches):
+    """All of ``patches`` at once."""
+    with contextlib.ExitStack() as stack:
+        for p in patches:
+            stack.enter_context(p)
+        yield
+
+
+def sp_project(grads):
+    """The gradients' projections on ``SP_PROJECTIONS`` directions of
+    standard normal elements made from ``SEED`` (the same on every rank
+    and process): a reading of the gradients' direction, which a
+    gradient of the right norm and the wrong direction moves."""
+    import torch
+    out = []
+    for i in range(SP_PROJECTIONS):
+        gen = torch.Generator(device=grads[0].device).manual_seed(
+            SEED + 100 + i)
+        out.append(torch.stack([
+            (g.float() * torch.randn(g.shape, generator=gen,
+                                     device=g.device)).sum()
+            for g in grads]).sum())
+    return torch.stack(out).cpu()
+
+
+def sp_restore_rng(tr, state) -> None:
+    """The trainer's dropout RNG state back to ``state``
+    (``DiffusionTrainer._rng_state``)."""
+    import torch
+    cpu, card, net = state
+    torch.set_rng_state(cpu)
+    if card is not None:
+        torch.cuda.set_rng_state(card, tr.device)
+    tr._set_net_rng(net)
+
+
+def sp_train(device, cfgs) -> dict:
+    """Phase 19 on a rank of a spatial group (``cfgs`` with S > 1) or on
+    one process (S = 1), the zero leaves filled: 19a one f32 update at
+    B=``SP_F32_BATCH``; 19b the bf16 update at B=128 with its launches,
+    after (on a group) the same update's loss and gradient norm taken
+    without the optimizer step from the same draws and dropout RNG
+    state, as is and under each of ``SP_BWD_FAULTS``; 19d
+    ``SP_TIME_UPDATES`` timed updates."""
+    import contextlib
+    import torch
+    from diffusion_model_universal_torch.parallel import mesh
+    s = cfgs["f32"]["distributed"]["spatial_parallel"]
+    split = (mesh.rank() // s, mesh.world_size() // s)
+    cuda = torch.device(device).type == "cuda"
+    out = {}
+    tr = dp_trainer(cfgs["f32"], device, split, fill_zero=True)
+    chunk = next(tr._updates(tr.train_loader))
+    m, launches = sp_counts(device, lambda: tr.accum_step(chunk))
+    out["f32"] = {
+        "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+        "layer_grad_norms": [float(v) for v in
+                             m["layer_grad_norms"].values()],
+        "mu": ([v.cpu() for v in tr.optimizer.mu] if mesh.rank() == 0
+               else None),
+        "names": list(tr.param_names), "launches": launches}
+    tr.cleanup()
+    del tr, m
+    if cuda:
+        torch.cuda.empty_cache()
+
+    tr = dp_trainer(cfgs["bf16"], device, split, fill_zero=True)
+    chunk = next(tr._updates(tr.train_loader))
+    start = tr._rng_state()
+    readings = {}
+    for name, patch in {"none": contextlib.nullcontext(),
+                        **(sp_bwd_faults() if s > 1 else {})}.items():
+        sp_restore_rng(tr, start)
+        with patch:
+            loss, grads = tr._loss_and_grads(chunk, tr.step_count)
+        readings[name] = {"loss": float(loss), "grad_norm": float(
+            torch.linalg.vector_norm(torch.stack(torch._foreach_norm(
+                grads)))), "projections": sp_project(grads)}
+        del grads
+    sp_restore_rng(tr, start)
+    m, launches = sp_counts(device, lambda: tr.accum_step(chunk))
+    out["bf16"] = {"loss": float(m["loss"]), "grad_norm": float(
+        m["grad_norm"]), "launches": launches, "readings": readings}
+    mesh.barrier()
+    out["ms_per_update"] = timed_updates(tr, iter(lambda: chunk, None),
+                                         SP_TIME_UPDATES)
+    tr.cleanup()
+    del tr, m
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def sp_cli(device, cfg) -> dict:
+    """19c on a rank: ``train``'s rank body (``scripts/train.py::
+    _run_rank``, what ``train --num_devices`` runs on each rank) for an
+    epoch with its checkpoint, then resumed from it (``--resume
+    latest``) for a second; the exit codes and the kernels' launches."""
+    import torch
+    from diffusion_model_universal_torch.scripts import train as train_cli
+    argv = ["--config", "unused", "--model_type", "ddpm", "--device",
+            torch.device(device).type]
+    rcs = []
+
+    def run():
+        for epochs, extra in ((1, []), (2, ["--resume", "latest"])):
+            args = train_cli.build_argparser().parse_args([*argv, *extra])
+            rcs.append(train_cli._run_rank(device, args, dict(
+                cfg, training=dict(cfg["training"], num_epochs=epochs))))
+    _, launches = sp_counts(device, run)
+    return {"rcs": rcs, "launches": launches}
+
+
+def sp_update_launches(ns: int, nw: int):
+    """The kernels' launches of one update on a rank (remat on): each
+    GroupNorm of ``ns`` split and ``nw`` whole ones a forward runs K1
+    (its split form (a) and (b) if split) in the forward and, inside a
+    checkpointed stage, once more in the recompute, and K2 (its split
+    form (c) and (d) if split) once; K3 runs in the 5 attention blocks'
+    forward and in the recompute of the 4 inside stages."""
+    ks, kw = ns - SP_UNSTAGED["split"], nw - SP_UNSTAGED["whole"]
+    return {"sums": ns + ks, "apply": ns + ks, "gn": nw + kw,
+            "gn_bwd": nw, "bwd_sums": ns, "bwd_apply": ns, "mha": 9}
+
+
+def hold_split_bwd_kernels(split_calls):
+    """K2's split form (c) and (d) against their plain twins at every
+    sharded shape of ``split_calls`` in f32 and bf16, with the forward's
+    sums and the group's (c) sums of two ranks holding the same rows
+    (twice the rank's): (c)'s sums (rows·W terms) within
+    ``red_tol(rows·W)`` abs + the f32 TOL rel, as K2's dtb; (d)'s dx
+    within ``TOL`` of the dtype; dγ and dβ (B terms) within
+    ``red_tol(B)``; dtb (rows·W terms) within ``red_tol(rows·W)``."""
+    import torch
+    from diffusion_model_universal_torch.ops import group_norm as gn_ops
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 20)
+    errs = {"bwd_sums": {}, "bwd_apply": {}}
+    rel = TOL["float32"]
+    for key in sorted(split_calls):
+        b, h, w, c, g, tb, silu = key
+        for dname in ("float32", "bfloat16"):
+            x, t, scale, bias = sp_split_inputs(key, getattr(torch, dname),
+                                                gen)
+            dy = torch.randn(x.shape, generator=gen, device=DEVICE).to(
+                x.dtype)
+            sums = 2 * gn_ops.gn_partial_sums_plain(x, t)
+            args = (scale, bias, g, 2 * h * w, t)
+            label = f"K2 split {dname} {sp_label(key)}"
+            got = gn_ops.gn_bwd_partial_sums_cuda(x, dy, sums, *args,
+                                                  apply_silu=silu)
+            want = gn_ops.gn_bwd_partial_sums_plain(x, dy, sums, *args,
+                                                    apply_silu=silu)
+            errs["bwd_sums"][sp_label(key), dname] = hold(
+                f"{label} (c)", got, want, red_tol(h * w), rel)
+            got = gn_ops.gn_bwd_apply_sums_cuda(x, dy, sums, want, 2 * want,
+                                                *args, apply_silu=silu)
+            ref = gn_ops.gn_bwd_apply_sums_plain(x, dy, sums, want,
+                                                 2 * want, *args,
+                                                 apply_silu=silu)
+            tols = {"dx": (TOL[dname], TOL[dname]), "dscale": (red_tol(b),
+                                                               rel),
+                    "dbias": (red_tol(b), rel), "dtb": (red_tol(h * w), rel)}
+            worst = 0.0
+            for (name, (atol, rtol)), a, r in zip(tols.items(), got, ref):
+                if r is None:
+                    check(a is None, f"{label} (d): {name} should be None")
+                    continue
+                check(a.dtype == r.dtype and a.shape == r.shape,
+                      f"{label} (d): {name} is {a.dtype} {tuple(a.shape)}, "
+                      f"plain {r.dtype} {tuple(r.shape)}")
+                worst = max(worst, hold(f"{label} (d) {name}", a, r, atol,
+                                        rtol))
+            errs["bwd_apply"][sp_label(key), dname] = worst
+    return errs
+
+
+def time_split_bwd_kernels(split_calls, dtype_name="bfloat16"):
+    """Per-shape ms of K2's split form (c) and (d) at ``split_calls`` (a
+    rank's calls an update), beside their plain twins, the library call
+    (for (d): the autograd backward of ``F.group_norm`` + ``F.silu`` of
+    the whole tensor of two ranks' rows, one process's work) and their
+    bounds (bytes: (c) reads x and dy, (d) also writes dx)."""
+    import torch
+    import torch.nn.functional as F
+    from diffusion_model_universal_torch.ops import group_norm as gn_ops
+    dtype = getattr(torch, dtype_name)
+    isz = torch.tensor([], dtype=dtype).element_size()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 21)
+    rows = {"bwd_sums": [], "bwd_apply": []}
+    for key in sorted(split_calls):
+        b, h, w, c, g, tb, silu = key
+        x, t, scale, bias = sp_split_inputs(key, dtype, gen)
+        dy = torch.randn(x.shape, generator=gen, device=DEVICE).to(dtype)
+        sums = 2 * gn_ops.gn_partial_sums_plain(x, t)
+        args = (scale, bias, g, 2 * h * w, t)
+        local = gn_ops.gn_bwd_partial_sums_plain(x, dy, sums, *args,
+                                                 apply_silu=silu)
+        summed = 2 * local
+        whole = torch.cat([x, x], dim=1).permute(0, 3, 1, 2).requires_grad_()
+        dyw = torch.cat([dy, dy], dim=1).permute(0, 3, 1, 2)
+        sl = scale.to(dtype).requires_grad_()
+        bl = bias.to(dtype).requires_grad_()
+        tb4 = (t[:, :, None, None].to(dtype).requires_grad_() if tb
+               else None)
+        y = F.group_norm(whole + tb4 if tb else whole, g, sl, bl, 1e-5)
+        y = F.silu(y) if silu else y
+        inputs = [whole, sl, bl] + ([tb4] if tb else [])
+
+        def library():
+            return torch.autograd.grad(y, inputs, dyw, retain_graph=True)
+
+        n = b * h * w * c
+        small = 4 * (2 * b * 2 * c + (b * c if tb else 0) + 2 * c)
+        for kind, kern, plain, lib, nbytes, ops in (
+                ("bwd_sums", lambda: gn_ops.gn_bwd_partial_sums_cuda(
+                    x, dy, sums, *args, apply_silu=silu),
+                 lambda: gn_ops.gn_bwd_partial_sums_plain(
+                    x, dy, sums, *args, apply_silu=silu), None,
+                 2 * n * isz + small, n * (6 + (10 if silu else 0))),
+                ("bwd_apply", lambda: gn_ops.gn_bwd_apply_sums_cuda(
+                    x, dy, sums, local, summed, *args, apply_silu=silu),
+                 lambda: gn_ops.gn_bwd_apply_sums_plain(
+                    x, dy, sums, local, summed, *args, apply_silu=silu),
+                 library, 3 * n * isz + small + 4 * (2 * c + b * c),
+                 n * (9 + (10 if silu else 0)))):
+            bms, by = bound(nbytes, ops, dtype_name)
+            rows[kind].append({
+                "shape": sp_label(key), "per_forward": split_calls[key],
+                "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain),
+                "library_ms": cuda_ms(lib) if lib else None,
+                "bound_ms": bms, "bound_by": by})
+        del y, inputs
+    for kind, rs in rows.items():
+        for r in rs:
+            lib = (f"{r['library_ms'] * 1e3:.2f} us" if r["library_ms"]
+                   is not None else "none")
+            log(f"[time] K2 split ({kind}) {dtype_name} {r['shape']} "
+                f"×{r['per_forward']}: kernel {r['ms'] * 1e3:.2f} us, plain "
+                f"{r['plain_ms'] * 1e3:.2f} us, library {lib}, bound "
+                f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})")
+    return rows
+
+
+def sp_check_training(ranks, one, predicted, tmp: Path):
+    """Phase 19's checks of the ranks' results against one process's
+    (``sp_train``) and the prediction of each update's launches; the
+    summary."""
+    import torch
+    out = {}
+    for r, res in enumerate(ranks):
+        for what in ("f32", "bf16"):
+            got = res["train"][what]["launches"]
+            log(f"  19{'a' if what == 'f32' else 'b'} launches on rank {r}: "
+                f"{got} (predicted {predicted})")
+            check(DEVICE != "cuda" or got == predicted,
+                  f"19 {what} update launches on rank {r}: {got} != "
+                  f"{predicted}")
+    f32, want = ranks[0]["train"]["f32"], one["f32"]
+    errs = {}
+    for k in ("loss", "grad_norm"):
+        errs[k] = abs(f32[k] - want[k]) / abs(want[k])
+        check(errs[k] <= SP_F32_RTOL[k], f"19a f32 {k} {f32[k]!r} vs one "
+              f"process {want[k]!r}: rel {errs[k]:.3e}")
+    for r, res in enumerate(ranks):
+        got = res["train"]["f32"]
+        check(got["loss"] == f32["loss"] and got["grad_norm"] ==
+              f32["grad_norm"], f"19a: rank {r}'s update differs from "
+              f"rank 0's")
+    worst_norm = 0.0    # the largest gap as a share of its tolerance
+    for n, a, b in zip(want["names"], f32["layer_grad_norms"],
+                       want["layer_grad_norms"]):
+        tol = 1e-8 + SP_F32_RTOL["grad_norm"] * abs(b)
+        worst_norm = max(worst_norm, abs(a - b) / tol)
+        check(abs(a - b) <= tol,
+              f"19a f32 gradient norm of {n}: {a!r} vs {b!r}")
+    worst_mu = 0.0
+    for n, a, b in zip(want["names"], f32["mu"], want["mu"]):
+        d = (a - b).abs()
+        worst_mu = max(worst_mu, float(d.max()))
+        check(bool((d <= 1e-7 + SP_F32_RTOL["mu"] * b.abs()).all()),
+              f"19a f32 Adam μ of {n}: max abs err {float(d.max()):.3e}")
+    errs.update(layer_grad_norm_share_of_tol=worst_norm, mu_max_abs=worst_mu)
+    log(f"  19a f32 update (B={SP_F32_BATCH}) on {SP_RANKS} ranks vs one "
+        f"process: loss rel {errs['loss']:.3e}, grad norm rel "
+        f"{errs['grad_norm']:.3e}, per-layer norms within "
+        f"{worst_norm:.2f} of their tolerance, "
+        f"μ max abs {worst_mu:.3e} ok")
+    out["f32"] = errs
+
+    bf, want = ranks[0]["train"]["bf16"], one["bf16"]
+    gaps = {}
+    for r, res in enumerate(ranks):
+        got = res["train"]["bf16"]
+        check(got["loss"] == bf["loss"], "19b: the ranks' losses differ")
+        check(got["readings"]["none"]["grad_norm"] == got["grad_norm"]
+              and got["readings"]["none"]["loss"] == got["loss"],
+              f"19b: rank {r}'s update differs from its reading from the "
+              f"same draws")
+    ref = one["bf16"]["readings"]["none"]
+    check(ref["loss"] == want["loss"] and ref["grad_norm"] ==
+          want["grad_norm"], "19b: one process's update differs from its "
+          "reading from the same draws")
+    for name, reading in bf["readings"].items():
+        gaps[name] = {k: abs(reading[k] - want[k]) / abs(want[k])
+                      for k in ("loss", "grad_norm")}
+        gaps[name]["projections"] = float(
+            (reading["projections"] - ref["projections"]).norm()
+            / ref["projections"].norm())
+    for name, gap in gaps.items():
+        fault = name in SP_BWD_FAULTS
+        tol = SP_TRAIN_RTOL["projections"]
+        log(f"  19b bf16 B={TRAIN_BATCH}, "
+            f"{'planted fault ' + name if fault else 'as is'}: loss rel "
+            f"{gap['loss']:.3e}, grad norm rel {gap['grad_norm']:.3e}, "
+            f"projections rel {gap['projections']:.3e} "
+            f"({'above' if fault else 'within'} the limit {tol:g})")
+    for name, gap in gaps.items():
+        if name in SP_BWD_FAULTS:
+            check(gap["projections"] > SP_TRAIN_RTOL["projections"],
+                  f"19b: the planted fault {name} reads "
+                  f"{gap['projections']:.3e}, within the limit")
+        else:
+            for k, tol in SP_TRAIN_RTOL.items():
+                check(gap[k] <= tol, f"19b bf16 {k} vs one process: rel "
+                      f"{gap[k]:.3e} > {tol:g}")
+    out["bf16"] = {"loss": bf["loss"], "grad_norm": bf["grad_norm"],
+                   "one_process": {k: want[k] for k in ("loss",
+                                                        "grad_norm")},
+                   "rel": gaps}
+
+    ckpt = torch.load(tmp / "train2" / "cli" / "out" / "checkpoints" /
+                      "final_model" / "state.pt", weights_only=False,
+                      map_location="cpu")
+    updates = 2 * (SP_CLI_SAMPLES * 8 // 10 // SP_CLI_BATCH)
+    for r, res in enumerate(ranks):
+        check(res["train"]["cli"]["rcs"] == [0, 0],
+              f"19c: rank {r}'s train runs returned "
+              f"{res['train']['cli']['rcs']}")
+    check(ckpt["step"] == updates and ckpt["epoch"] == 1,
+          f"19c: the final checkpoint is at step {ckpt['step']}, epoch "
+          f"{ckpt['epoch']} (expected {updates}, 1)")
+    check(all(bool(v.isfinite().all()) for v in ckpt["params"].values()),
+          "19c: the final parameters are not finite")
+    log(f"  19c train at S={SP_RANKS}: an epoch and a resumed one, "
+        f"{updates} updates, final checkpoint finite; launches on rank 0 "
+        f"{ranks[0]['train']['cli']['launches']}")
+    out["cli"] = {"launches": ranks[0]["train"]["cli"]["launches"],
+                  "step": ckpt["step"]}
+    ms = [res["train"]["ms_per_update"] for res in ranks]
+    log(f"  19d ms an update at B={TRAIN_BATCH} (bf16, remat): {ms} on "
+        f"{SP_RANKS} ranks sharing the card, {one['ms_per_update']:.1f} in "
+        f"one process")
+    out["ms_per_update"] = {"ranks": ms, "one_process": one["ms_per_update"]}
+    return out
 
 
 def main() -> int:
@@ -6080,7 +6622,7 @@ def main() -> int:
     scan_summary = scan_steps_phase()
     mark("phase 17")
     spatial_summary = spatial_forward()
-    mark("phase 18")
+    mark("phases 18 and 19")
 
     symbols = {"gn": "dmu_group_norm_silu_fwd",
                "gn_bwd": "dmu_group_norm_silu_bwd", "mha": "dmu_mha_fwd"}

@@ -1,5 +1,7 @@
 // Fused GroupNorm(+per-sample time bias)(+SiLU) for Hopper: the forward
-// (kernel K1) and its backward (kernel K2).
+// (kernel K1) and its backward (kernel K2), and at the end of the file
+// their split forms for images whose rows are split over the ranks of a
+// spatial group: K1's (a) and (b), K2's (c) and (d).
 //
 // K1 replaces the TPU kernel `_gn_fwd_kernel`
 // (diffusion_model_universal_tpu/ops/group_norm.py:167, launched by
@@ -1092,6 +1094,144 @@ __global__ void __launch_bounds__(kApplyThreads)
   }
 }
 
+
+// ---- K2's split form (spatial parallelism) -------------------------------
+// The backward of K1's split form. A rank holds S of each image's rows, so
+// K2's per-(sample, group) sums s1 = sum gamma*dz and s2 = sum gamma*dz*xhat
+// run over rows of every rank. Entry (c) sums, per (sample, channel), dz and
+// dz*xhat over the rank's rows (f32 [B, 2, C]), with mean and rstd formed
+// from the group's summed forward sums as (b) forms them, so xhat is the
+// forward's. The group all-reduces (c)'s sums between the two launches.
+// Entry (d) folds the summed sums into s1 and s2 per group (times gamma),
+// and writes
+//   dx  = rstd * (gamma*dz - (s1 + xhat*s2) / n)   (x's dtype)
+//   dtb = sum over the rank's rows of dx           (f32 [B, C], if tb)
+//   dgamma, dbeta = sum over the batch of (c)'s unsummed sums of dz*xhat
+//                   and dz                          (f32 [C]: this rank's)
+// Bound: memory. (c) reads x and dy; (d) reads x and dy and writes dx.
+// Design: as (a): a block takes 32 channels of one sample with 16 thread
+// rows walking its rows, and the 16 partials of a channel are summed in a
+// fixed order; (d)'s extra row of blocks (blockIdx.y == B) sums dgamma and
+// dbeta over the batch in order. No atomics: two calls agree bit for bit.
+
+// mean and rstd of channel c's group in sample b from the forward's summed
+// sums (f32 [B, 2, C]), folded and formed as gn_apply_sums_kernel does.
+__device__ __forceinline__ void split_stats(const float* sums, int b, int c,
+                                            int C, int cg, float n,
+                                            float eps, float& mean,
+                                            float& rstd) {
+  const float* sb = sums + (long long)b * 2 * C;
+  const int g0 = c / cg * cg;
+  float gs = 0.f, gq = 0.f;
+  for (int j = 0; j < cg; ++j) {
+    gs += sb[g0 + j];
+    gq += sb[C + g0 + j];
+  }
+  mean = __fdiv_rn(gs, n);
+  const float var =
+      fmaxf(__fsub_rn(__fdiv_rn(gq, n), __fmul_rn(mean, mean)), 0.f);
+  rstd = rsqrtf(__fadd_rn(var, eps));
+}
+
+template <bool BF>
+__global__ void __launch_bounds__(kSumCols* kSumRows)
+    gn_bwd_partial_sums_kernel(const void* x, const void* dy,
+                               const float* sums, const float* tb,
+                               const float* gamma, const float* beta,
+                               float* gsums, int S, int C, int G, float n,
+                               float eps, int use_silu) {
+  __shared__ float red[2][kSumRows][kSumCols];
+  const int tx = threadIdx.x % kSumCols, ty = threadIdx.x / kSumCols;
+  const int c = blockIdx.x * kSumCols + tx;
+  const int b = blockIdx.y;
+  float s1 = 0.f, s2 = 0.f;
+  if (c < C) {
+    float mean, rstd;
+    split_stats(sums, b, c, C, C / G, n, eps, mean, rstd);
+    const float t = tb ? tb[(long long)b * C + c] : 0.f;
+    const float gam = gamma[c], bet = beta[c];
+    const long long base = (long long)b * S * C + c;
+    for (int s = ty; s < S; s += kSumRows) {
+      const long long i = base + (long long)s * C;
+      const float xh = (load_elem<BF>(x, i) + t - mean) * rstd;
+      const float dz = grad_z(use_silu != 0, xh, load_elem<BF>(dy, i), gam,
+                              bet);
+      s1 += dz;
+      s2 = fmaf(dz, xh, s2);
+    }
+  }
+  red[0][ty][tx] = s1;
+  red[1][ty][tx] = s2;
+  __syncthreads();
+  if (ty != 0 || c >= C) return;
+  float t1 = 0.f, t2 = 0.f;
+  for (int r = 0; r < kSumRows; ++r) {
+    t1 += red[0][r][tx];
+    t2 += red[1][r][tx];
+  }
+  gsums[(long long)b * 2 * C + c] = t1;
+  gsums[((long long)b * 2 + 1) * C + c] = t2;
+}
+
+template <bool BF>
+__global__ void __launch_bounds__(kSumCols* kSumRows)
+    gn_bwd_apply_sums_kernel(const void* x, const void* dy, const float* sums,
+                             const float* tb, const float* gamma,
+                             const float* beta, const float* local,
+                             const float* gsums, void* dx, float* dgamma,
+                             float* dbeta, float* dtb, int B, int S, int C,
+                             int G, float n, float eps, int use_silu) {
+  __shared__ float red[kSumRows][kSumCols];
+  const int tx = threadIdx.x % kSumCols, ty = threadIdx.x / kSumCols;
+  const int c = blockIdx.x * kSumCols + tx;
+  const int b = blockIdx.y;
+  if (b == B) {  // this rank's dgamma, dbeta: the batch sum of (c)'s sums
+    if (ty != 0 || c >= C) return;
+    float pg = 0.f, pb = 0.f;
+    for (int k = 0; k < B; ++k) {
+      pb += local[(long long)k * 2 * C + c];
+      pg += local[((long long)k * 2 + 1) * C + c];
+    }
+    dgamma[c] = pg;
+    dbeta[c] = pb;
+    return;
+  }
+  float acc = 0.f;
+  if (c < C) {
+    const int cg = C / G;
+    float mean, rstd;
+    split_stats(sums, b, c, C, cg, n, eps, mean, rstd);
+    const float* gb = gsums + (long long)b * 2 * C;
+    const int g0 = c / cg * cg;
+    float s1 = 0.f, s2 = 0.f;
+    for (int j = 0; j < cg; ++j) {
+      s1 = fmaf(gamma[g0 + j], gb[g0 + j], s1);
+      s2 = fmaf(gamma[g0 + j], gb[C + g0 + j], s2);
+    }
+    s1 = __fdiv_rn(s1, n);
+    s2 = __fdiv_rn(s2, n);
+    const float t = tb ? tb[(long long)b * C + c] : 0.f;
+    const float gam = gamma[c], bet = beta[c];
+    const long long base = (long long)b * S * C + c;
+    for (int s = ty; s < S; s += kSumRows) {
+      const long long i = base + (long long)s * C;
+      const float xh = (load_elem<BF>(x, i) + t - mean) * rstd;
+      const float dz = grad_z(use_silu != 0, xh, load_elem<BF>(dy, i), gam,
+                              bet);
+      const float d = rstd * (dz * gam - fmaf(xh, s2, s1));
+      store_elem<BF>(dx, i, d);
+      acc += d;
+    }
+  }
+  if (!dtb) return;
+  red[ty][tx] = acc;
+  __syncthreads();
+  if (ty != 0 || c >= C) return;
+  float t1 = 0.f;
+  for (int r = 0; r < kSumRows; ++r) t1 += red[r][tx];
+  dtb[(long long)b * C + c] = t1;
+}
+
 }  // namespace
 
 // K1. The eight arguments before the stream are gn_launch_plan's: bytes per
@@ -1207,6 +1347,52 @@ extern "C" int dmu_group_norm_apply_sums(const void* x, const float* sums,
   else
     gn_apply_sums_kernel<false><<<grid, kApplyThreads, smem, st>>>(
         x, sums, tb, gamma, beta, out, S, C, G, n, eps, apply_silu, rows);
+  return (int)cudaGetLastError();
+}
+
+// K2's split form, (c): gsums (f32 [B, 2, C]: sum dz, sum dz*xhat per
+// channel) of x and dy [B, S, C] (f32 or bf16) over their S rows, with the
+// statistics from the group's summed forward sums (f32 [B, 2, C]) over n
+// elements a group, gamma and beta (f32 [C]) and tb (f32 [B, C] or null).
+extern "C" int dmu_group_norm_bwd_partial_sums(
+    const void* x, const void* dy, const float* sums, const float* tb,
+    const float* gamma, const float* beta, float* gsums, int B, int S, int C,
+    int G, float n, float eps, int apply_silu, int is_bf16, void* stream) {
+  if (B <= 0 || S <= 0 || C <= 0 || G <= 0 || C % G != 0 || n <= 0.f)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((C + kSumCols - 1) / kSumCols, B);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    gn_bwd_partial_sums_kernel<true><<<grid, kSumCols * kSumRows, 0, st>>>(
+        x, dy, sums, tb, gamma, beta, gsums, S, C, G, n, eps, apply_silu);
+  else
+    gn_bwd_partial_sums_kernel<false><<<grid, kSumCols * kSumRows, 0, st>>>(
+        x, dy, sums, tb, gamma, beta, gsums, S, C, G, n, eps, apply_silu);
+  return (int)cudaGetLastError();
+}
+
+// K2's split form, (d): dx (x's dtype), this rank's dgamma and dbeta (f32
+// [C]) and, when dtb is not null, dtb (f32 [B, C]) from x and dy, the
+// forward's summed sums, (c)'s sums of this rank (local) and summed over
+// the group (gsums), all f32 [B, 2, C].
+extern "C" int dmu_group_norm_bwd_apply_sums(
+    const void* x, const void* dy, const float* sums, const float* tb,
+    const float* gamma, const float* beta, const float* local,
+    const float* gsums, void* dx, float* dgamma, float* dbeta, float* dtb,
+    int B, int S, int C, int G, float n, float eps, int apply_silu,
+    int is_bf16, void* stream) {
+  if (B <= 0 || S <= 0 || C <= 0 || G <= 0 || C % G != 0 || n <= 0.f)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((C + kSumCols - 1) / kSumCols, B + 1);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    gn_bwd_apply_sums_kernel<true><<<grid, kSumCols * kSumRows, 0, st>>>(
+        x, dy, sums, tb, gamma, beta, local, gsums, dx, dgamma, dbeta, dtb, B,
+        S, C, G, n, eps, apply_silu);
+  else
+    gn_bwd_apply_sums_kernel<false><<<grid, kSumCols * kSumRows, 0, st>>>(
+        x, dy, sums, tb, gamma, beta, local, gsums, dx, dgamma, dbeta, dtb, B,
+        S, C, G, n, eps, apply_silu);
   return (int)cudaGetLastError();
 }
 

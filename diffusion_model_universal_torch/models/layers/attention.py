@@ -8,7 +8,10 @@ gathers its input's rows, computes Q, K, V and the attention over the
 whole sequence on every rank of the group (K3 as one process runs it),
 keeps the rank's rows of the attention's output, and applies the output
 Linear, the residual and the post-residual GroupNorm (K1's split form)
-to those rows."""
+to those rows. In the backward, the gradient reaching the gathered
+input on a rank comes from its own output rows only; the gather's
+gradient sums it over the group before keeping the rank's rows
+(``RowGroup.gather``)."""
 
 from __future__ import annotations
 
@@ -46,7 +49,6 @@ class SelfAttentionBlock(nn.Module):
             memory_format=torch.channels_last).permute(0, 2, 3, 1)
         whole = x_nhwc
         if group is not None:
-            spatial.refuse_grad(x, self.query.weight)
             whole = group.gather(x).permute(0, 2, 3, 1)
         b, h, w, c = whole.shape
         s, n = h * w, self.num_heads

@@ -8,15 +8,18 @@ parameter tree (``norm1``, ``conv1``, ``time_proj``, ...), which keeps the
 weight bridge in :mod:`..convert` mechanical.
 
 Inside ``parallel.spatial.split(group)`` each layer takes this rank's
-rows of images whose rows are split over ``group`` (forward only): a
+rows of images whose rows are split over ``group``: a
 3×3 conv reads one halo row of each neighbour (the height's padding is
 the halo, only the width is padded in cuDNN), the 4×4 stride-2 down conv
 one row each side, the 4×4 transposed up conv one row each side with its
 output cropped to the rank's 2·h rows, the 1×1 shortcut none; GroupNorm
-sums its partial statistics over the group (K1's split form); dropout
-draws the whole activation's mask and keeps the rank's rows; a down conv
-whose output would have fewer than ``MIN_ROWS`` rows gathers its input
-and runs whole.
+sums its partial statistics over the group (K1's split form, and K2's
+in the backward); dropout draws the whole activation's mask and keeps
+the rank's rows (and the product keeps them for the backward); a down
+conv whose output would have fewer than ``MIN_ROWS`` rows gathers its
+input and runs whole. The exchanges are differentiable
+(``parallel/spatial.py``), so each rank's backward gives its share of
+the weights' gradients.
 """
 
 from __future__ import annotations
@@ -52,7 +55,6 @@ def conv_same(x: torch.Tensor, weight: torch.Tensor,
     group = spatial.active()
     if group is None or pad == 0:
         return F.conv2d(x, weight, bias, padding=pad)
-    spatial.refuse_grad(x, weight)
     return F.conv2d(group.halo(x, pad), weight, bias, padding=(0, pad))
 
 
@@ -95,7 +97,6 @@ class GroupNormSiLU(nn.Module):
     def _norm(self, x, weight, bias, groups, time_bias):
         group = spatial.active()
         if group is not None:
-            spatial.refuse_grad(x, weight, bias, time_bias)
             return to_nchw(gn_ops.group_norm_silu_split(
                 to_nhwc(x), weight, bias, groups, group,
                 time_bias=time_bias, apply_silu=self.apply_silu))
@@ -211,7 +212,6 @@ class Downsample(nn.Module):
         group = spatial.active()
         if group is None:
             return self.conv(x)
-        spatial.refuse_grad(x, self.conv.weight)
         if x.shape[2] * group.size // 2 < spatial.MIN_ROWS:
             return self.conv(group.gather(x))
         return F.conv2d(group.halo(x, 1), self.conv.weight, self.conv.bias,
@@ -235,7 +235,6 @@ class Upsample(nn.Module):
         # Output row o = 2i − 1 + k of input row i and tap k, so rows
         # [2·lo, 2·hi) read input rows lo−1 … hi: one halo row each side.
         # Unpadded in height, the 2h+6 rows start at global row 2·lo − 3.
-        spatial.refuse_grad(x, self.conv.weight)
         h = x.shape[2]
         y = F.conv_transpose2d(group.halo(x, 1), self.conv.weight,
                                self.conv.bias, stride=2, padding=(0, 1))

@@ -21,6 +21,11 @@ on row blocks inside (halo convs, K1's split form, attention over the
 gathered rows), a whole input whose stage output has at least 8 rows is
 sliced after the stage, and the down conv that leaves fewer than 8 rows
 gathers its input. The call still takes and returns whole images.
+Under grad the down and up stages are checkpointed as on the whole
+path, each rank's backward computes its output rows' share of the
+gradients (``parallel/spatial.py``), and dropout's recompute draws the
+forward's whole masks (from the saved CPU RNG state, or on CUDA from the
+stage's ``RematRNG`` pair, which every rank of a group seeds alike).
 """
 
 from __future__ import annotations
@@ -120,7 +125,9 @@ class UNet(nn.Module):
 
     def set_row_group(self, group) -> None:
         """Split each activation's rows over the ranks of ``group`` (a
-        ``parallel/spatial.py::RowGroup``; None: whole), forward only."""
+        ``parallel/spatial.py::RowGroup``; None: whole). Under grad each
+        rank's backward gives its share of the gradients, which the
+        trainer sums over the group."""
         self.row_group = group
 
     @property
@@ -174,35 +181,45 @@ class UNet(nn.Module):
         spatial.check_heights(h.shape[2], group.size)
         rows = h.shape[2]     # whole rows of the current activation
 
-        def run(fn, h, *args, out_rows):
-            """``fn`` on ``h`` (split when ``h`` has ≥ MIN_ROWS rows);
-            the output of ``out_rows`` rows split by the same rule."""
-            if rows >= spatial.MIN_ROWS:
-                with spatial.split(group):
-                    return fn(h, *args)
-            out = fn(h, *args)
-            return group.slice(out) if out_rows >= spatial.MIN_ROWS else out
+        def run(index, fn, h, *args, out_rows):
+            """``fn`` on ``h`` (split when ``h`` has ≥ MIN_ROWS rows),
+            through ``_stage`` (remat) for a down or up stage ``index``;
+            the output of ``out_rows`` rows split by the same rule. The
+            split is entered inside the checkpointed function, so the
+            remat recompute runs split too."""
+            split = rows >= spatial.MIN_ROWS
+
+            def body(*a):
+                with spatial.split(group if split else None):
+                    return fn(*a)
+            out = (body(h, *args) if index is None
+                   else self._stage(index, body, h, *args))
+            if not split and out_rows >= spatial.MIN_ROWS:
+                out = group.slice(out)
+            return out
 
         with spatial.split(group):
             h = conv_same(group.slice(h), self.initial_conv.weight,
                           self.initial_conv.bias)
         skips = []
-        for block in (self.down0, self.down1, self.down2, self.down3,
-                      self.down4):
-            h = run(block, h, t_emb, out_rows=rows // 2)
+        for i, block in enumerate((self.down0, self.down1, self.down2,
+                                   self.down3, self.down4)):
+            h = run(i, block, h, t_emb, out_rows=rows // 2)
             rows //= 2
             skips.append(h)
         for block in (self.mid_res1, self.mid_attn, self.mid_res2):
-            h = run(block, h, *(() if block is self.mid_attn else (t_emb,)),
+            h = run(None, block, h,
+                    *(() if block is self.mid_attn else (t_emb,)),
                     out_rows=rows)
-        for block, skip in zip((self.up0, self.up1, self.up2, self.up3,
-                                self.up4), reversed(skips)):
-            h = run(block, h, t_emb, skip, out_rows=2 * rows)
+        for i, (block, skip) in enumerate(zip(
+                (self.up0, self.up1, self.up2, self.up3, self.up4),
+                reversed(skips))):
+            h = run(5 + i, block, h, t_emb, skip, out_rows=2 * rows)
             rows *= 2
         with spatial.split(group):
             h = conv_same(self.out_norm(h), self.output_conv.weight,
                           self.output_conv.bias)
-        return group.gather(h).permute(0, 2, 3, 1).float()
+        return group.gather_output(h).permute(0, 2, 3, 1).float()
 
     def _stage(self, index: int, block: nn.Module, *args) -> torch.Tensor:
         if self.remat and torch.is_grad_enabled():

@@ -23,6 +23,12 @@ direction:
   summed over the group, then (b) the apply from the summed sums
   (:func:`gn_apply_sums_plain`, ``GN_APPLY_KERNEL``);
   :func:`group_norm_silu_split` runs the three steps.
+* K2's split form, its backward: (c) the per-channel sums Σdz and Σdz·x̂
+  of the rank's rows (:func:`gn_bwd_partial_sums_plain`,
+  ``GN_BWD_SUMS_KERNEL``), summed over the group, then (d) dx, dtb and
+  the rank's dγ, dβ from the summed sums (:func:`gn_bwd_apply_sums_plain`,
+  ``GN_BWD_APPLY_KERNEL``). :class:`GroupNormSiLUSplitFunction` pairs the
+  two split forms as :class:`GroupNormSiLUFunction` pairs K1 and K2.
 
 :func:`gn_launch_plan` decides how both kernels cut a call into blocks:
 vector width, threads, blocks per sample along its rows (a thread block
@@ -86,6 +92,28 @@ GN_SUMS_KERNEL = Kernel("group_norm", "dmu_group_norm_partial_sums", [
 #: ``GN_APPLY_KERNEL.launches`` counts its launches.
 GN_APPLY_KERNEL = Kernel("group_norm", "dmu_group_norm_apply_sums", [
     _VOID, _VOID, _VOID, _VOID, _VOID, _VOID,   # x, sums, tb, gamma, beta, out
+    _INT, _INT, _INT, _INT,                     # B, S, C, G
+    ctypes.c_float, ctypes.c_float, _INT, _INT,  # n, eps, apply_silu, is_bf16
+    _VOID,                                      # stream
+])
+
+#: K2's split form (spatial parallelism), (c): the per-channel sums Σdz
+#: and Σdz·x̂ of a rank's rows; ``GN_BWD_SUMS_KERNEL.launches`` counts its
+#: launches.
+GN_BWD_SUMS_KERNEL = Kernel("group_norm", "dmu_group_norm_bwd_partial_sums", [
+    _VOID, _VOID, _VOID, _VOID,                 # x, dy, sums, tb
+    _VOID, _VOID, _VOID,                        # gamma, beta, grad sums
+    _INT, _INT, _INT, _INT,                     # B, S, C, G
+    ctypes.c_float, ctypes.c_float, _INT, _INT,  # n, eps, apply_silu, is_bf16
+    _VOID,                                      # stream
+])
+
+#: K2's split form, (d): dx, dtb and the rank's dγ, dβ from the group's
+#: summed (c) sums; ``GN_BWD_APPLY_KERNEL.launches`` counts its launches.
+GN_BWD_APPLY_KERNEL = Kernel("group_norm", "dmu_group_norm_bwd_apply_sums", [
+    _VOID, _VOID, _VOID, _VOID,                 # x, dy, sums, tb
+    _VOID, _VOID, _VOID, _VOID,                 # gamma, beta, local, summed
+    _VOID, _VOID, _VOID, _VOID,                 # dx, dgamma, dbeta, dtb
     _INT, _INT, _INT, _INT,                     # B, S, C, G
     ctypes.c_float, ctypes.c_float, _INT, _INT,  # n, eps, apply_silu, is_bf16
     _VOID,                                      # stream
@@ -361,6 +389,21 @@ def gn_partial_sums_plain(x: torch.Tensor,
     return torch.stack([colsum, colsumsq], dim=1)
 
 
+def _group_stats(sums: torch.Tensor, num_groups: int, count: int,
+                 eps: float):
+    """(mean, rstd), [B, G], of each group from the [B, 2, C] sums of
+    :func:`gn_partial_sums_plain` over ``count`` positions of each image
+    (variance clamped at 0)."""
+    b, _, c = sums.shape
+    cg = c // num_groups
+    n = float(count * cg)
+    gsum = sums[:, 0].reshape(b, num_groups, cg).sum(-1)   # [B, G]
+    gsumsq = sums[:, 1].reshape(b, num_groups, cg).sum(-1)
+    mean = gsum / n
+    var = torch.clamp(gsumsq / n - mean * mean, min=0.0)
+    return mean, torch.rsqrt(var + eps)
+
+
 def affine_from_sums(sums: torch.Tensor, scale: torch.Tensor,
                      bias: torch.Tensor, num_groups: int, count: int,
                      time_bias: Optional[torch.Tensor] = None,
@@ -370,16 +413,9 @@ def affine_from_sums(sums: torch.Tensor, scale: torch.Tensor,
     ``count`` positions (rows × W) of each image: group statistics from
     the sums (variance clamped at 0), as ``group_norm_silu_xla`` and
     ``_block_stats`` take them."""
-    b, _, c = sums.shape
-    g = num_groups
-    cg = c // g
-    n = float(count * cg)
+    cg = sums.shape[2] // num_groups
     acc = sums.dtype
-    gsum = sums[:, 0].reshape(b, g, cg).sum(-1)            # [B, G]
-    gsumsq = sums[:, 1].reshape(b, g, cg).sum(-1)
-    mean = gsum / n
-    var = torch.clamp(gsumsq / n - mean * mean, min=0.0)
-    rstd = torch.rsqrt(var + eps)
+    mean, rstd = _group_stats(sums, num_groups, count, eps)
     mean_c = mean.repeat_interleave(cg, dim=-1)            # [B, C]
     rstd_c = rstd.repeat_interleave(cg, dim=-1)
     a = rstd_c * scale.to(acc)
@@ -423,6 +459,79 @@ def gn_apply_sums_plain(x: torch.Tensor, sums: torch.Tensor,
     a, b_ = affine_from_sums(sums, scale, bias, num_groups, count,
                              time_bias, eps)
     return _apply_affine(x, a, b_, apply_silu)
+
+
+def _split_bwd_terms(x, dy, sums, scale, bias, num_groups, count,
+                     time_bias, eps, apply_silu):
+    """(x̂, dz, rstd) of K2's split form: x̂ and dz [B, S, G, C/G] and rstd
+    [B, 1, G, 1] in the sums' dtype, the statistics from the group's summed
+    forward ``sums`` over ``count`` positions."""
+    b, h, w, c = x.shape
+    g = num_groups
+    cg = c // g
+    acc = sums.dtype
+    mean, rstd = _group_stats(sums, g, count, eps)
+    rstd = rstd[:, None, :, None]
+    v = x.to(acc)
+    if time_bias is not None:
+        v = v + time_bias.to(acc)[:, None, None, :]
+    xhat = (v.reshape(b, h * w, g, cg) - mean[:, None, :, None]) * rstd
+    dyg = dy.to(acc).reshape(b, h * w, g, cg)
+    if not apply_silu:
+        return xhat, dyg, rstd
+    z = xhat * scale.to(acc).reshape(g, cg) + bias.to(acc).reshape(g, cg)
+    sig = torch.sigmoid(z)
+    return xhat, dyg * (sig * (1.0 + z * (1.0 - sig))), rstd
+
+
+def gn_bwd_partial_sums_plain(x: torch.Tensor, dy: torch.Tensor,
+                              sums: torch.Tensor, scale: torch.Tensor,
+                              bias: torch.Tensor, num_groups: int,
+                              count: int,
+                              time_bias: Optional[torch.Tensor] = None,
+                              eps: float = 1e-5,
+                              apply_silu: bool = True) -> torch.Tensor:
+    """Per-channel sums Σdz and Σdz·x̂ over the rows of NHWC ``x`` and
+    ``dy``, [B, 2, C] in ``sums``' dtype, x̂ from the group's summed
+    forward ``sums`` over ``count`` positions a whole image: the plain twin
+    of K2's split form (c). Summed over the group, γ times them folds into
+    K2's s1 = Σγ·dz and s2 = Σγ·dz·x̂ of each group; summed over the batch
+    before that, they are the rank's dβ and dγ."""
+    xhat, dz, _ = _split_bwd_terms(x, dy, sums, scale, bias, num_groups,
+                                   count, time_bias, eps, apply_silu)
+    b, c = x.shape[0], x.shape[3]
+    return torch.stack([dz.sum(dim=1).reshape(b, c),
+                        (dz * xhat).sum(dim=1).reshape(b, c)], dim=1)
+
+
+def gn_bwd_apply_sums_plain(x: torch.Tensor, dy: torch.Tensor,
+                            sums: torch.Tensor, grad_sums: torch.Tensor,
+                            group_grad_sums: torch.Tensor,
+                            scale: torch.Tensor, bias: torch.Tensor,
+                            num_groups: int, count: int,
+                            time_bias: Optional[torch.Tensor] = None,
+                            eps: float = 1e-5, apply_silu: bool = True):
+    """The plain twin of K2's split form (d): ``(dx, dscale, dbias, dtb)``
+    of this rank's rows, as :func:`group_norm_silu_bwd_plain` returns them,
+    from the forward's summed ``sums``, this rank's (c) sums
+    ``grad_sums`` and their sum over the group ``group_grad_sums``:
+    dx = rstd·(γ·dz − (s1 + x̂·s2)/n) with s1, s2 the whole image's, dtb
+    = Σ_rows dx, and dscale, dbias this rank's share (the batch sums of
+    ``grad_sums``), which the ranks' gradients sum."""
+    xhat, dz, rstd = _split_bwd_terms(x, dy, sums, scale, bias, num_groups,
+                                      count, time_bias, eps, apply_silu)
+    b, h, w, c = x.shape
+    g = num_groups
+    cg = c // g
+    n = float(count * cg)
+    gamma = scale.to(sums.dtype).reshape(g, cg)
+    folded = (group_grad_sums.reshape(b, 2, g, cg) * gamma).sum(-1)
+    s1 = folded[:, 0, None, :, None]                       # [B, 1, G, 1]
+    s2 = folded[:, 1, None, :, None]
+    dx = rstd * (dz * gamma - (s1 + xhat * s2) / n)
+    dtb = dx.sum(dim=1).reshape(b, c) if time_bias is not None else None
+    return (dx.reshape(b, h, w, c).to(x.dtype), grad_sums[:, 1].sum(0),
+            grad_sums[:, 0].sum(0), dtb)
 
 
 def group_norm_silu_plain(x: torch.Tensor, scale: torch.Tensor,
@@ -611,11 +720,7 @@ def gn_apply_sums_cuda(x: torch.Tensor, sums: torch.Tensor,
     tb = _check_kernel_inputs(x, scale, bias, num_groups, time_bias,
                               "gn_apply_sums_cuda")
     b, h, w, c = x.shape
-    if (sums.device != x.device or sums.dtype != torch.float32
-            or tuple(sums.shape) != (b, 2, c) or not sums.is_contiguous()):
-        raise ValueError(f"sums must be a contiguous float32 [{b}, 2, {c}] "
-                         f"tensor on {x.device}, got {tuple(sums.shape)} "
-                         f"{sums.dtype} on {sums.device}")
+    _check_sums("sums", sums, x)
     out = torch.empty_like(x)
     GN_APPLY_KERNEL(x.data_ptr(), sums.data_ptr(),
                     tb.data_ptr() if tb is not None else None,
@@ -625,6 +730,86 @@ def gn_apply_sums_cuda(x: torch.Tensor, sums: torch.Tensor,
                     int(apply_silu), int(x.dtype == torch.bfloat16),
                     torch.cuda.current_stream(x.device).cuda_stream)
     return out
+
+
+def gn_bwd_partial_sums_cuda(x: torch.Tensor, dy: torch.Tensor,
+                             sums: torch.Tensor, scale: torch.Tensor,
+                             bias: torch.Tensor, num_groups: int, count: int,
+                             time_bias: Optional[torch.Tensor] = None,
+                             eps: float = 1e-5,
+                             apply_silu: bool = True) -> torch.Tensor:
+    """Launch K2's split form (c) on contiguous NHWC CUDA tensors ``x`` and
+    ``dy`` (a non-contiguous ``dy`` is copied first), with the group's
+    summed f32 [B, 2, C] forward ``sums`` over ``count`` positions a whole
+    image: the [B, 2, C] f32 sums of :func:`gn_bwd_partial_sums_plain`."""
+    tb, dy = _check_split_bwd_inputs(x, dy, sums, scale, bias, num_groups,
+                                     time_bias, "gn_bwd_partial_sums_cuda")
+    b, h, w, c = x.shape
+    out = torch.empty((b, 2, c), dtype=torch.float32, device=x.device)
+    GN_BWD_SUMS_KERNEL(x.data_ptr(), dy.data_ptr(), sums.data_ptr(),
+                       tb.data_ptr() if tb is not None else None,
+                       scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                       b, h * w, c, num_groups,
+                       float(count * (c // num_groups)), float(eps),
+                       int(apply_silu), int(x.dtype == torch.bfloat16),
+                       torch.cuda.current_stream(x.device).cuda_stream)
+    return out
+
+
+def gn_bwd_apply_sums_cuda(x: torch.Tensor, dy: torch.Tensor,
+                           sums: torch.Tensor, grad_sums: torch.Tensor,
+                           group_grad_sums: torch.Tensor,
+                           scale: torch.Tensor, bias: torch.Tensor,
+                           num_groups: int, count: int,
+                           time_bias: Optional[torch.Tensor] = None,
+                           eps: float = 1e-5, apply_silu: bool = True):
+    """Launch K2's split form (d): ``(dx, dscale, dbias, dtb)`` as
+    :func:`gn_bwd_apply_sums_plain` returns them (dtb None without a time
+    bias), dx in x's dtype and the rest f32."""
+    tb, dy = _check_split_bwd_inputs(x, dy, sums, scale, bias, num_groups,
+                                     time_bias, "gn_bwd_apply_sums_cuda")
+    _check_sums("grad_sums", grad_sums, x)
+    _check_sums("group_grad_sums", group_grad_sums, x)
+    b, h, w, c = x.shape
+    dx = torch.empty_like(x)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dscale = torch.empty(c, **f32)
+    dbias = torch.empty(c, **f32)
+    dtb = torch.empty((b, c), **f32) if tb is not None else None
+    GN_BWD_APPLY_KERNEL(x.data_ptr(), dy.data_ptr(), sums.data_ptr(),
+                        tb.data_ptr() if tb is not None else None,
+                        scale.data_ptr(), bias.data_ptr(),
+                        grad_sums.data_ptr(), group_grad_sums.data_ptr(),
+                        dx.data_ptr(), dscale.data_ptr(), dbias.data_ptr(),
+                        dtb.data_ptr() if dtb is not None else None,
+                        b, h * w, c, num_groups,
+                        float(count * (c // num_groups)), float(eps),
+                        int(apply_silu), int(x.dtype == torch.bfloat16),
+                        torch.cuda.current_stream(x.device).cuda_stream)
+    return dx, dscale, dbias, dtb
+
+
+def _check_sums(name, sums, x):
+    b, c = x.shape[0], x.shape[3]
+    if (sums.device != x.device or sums.dtype != torch.float32
+            or tuple(sums.shape) != (b, 2, c) or not sums.is_contiguous()):
+        raise ValueError(f"{name} must be a contiguous float32 [{b}, 2, {c}] "
+                         f"tensor on {x.device}, got {tuple(sums.shape)} "
+                         f"{sums.dtype} on {sums.device}")
+
+
+def _check_split_bwd_inputs(x, dy, sums, scale, bias, num_groups, time_bias,
+                            what):
+    """The checks of (c) and (d): those of (a) and of K1's, dy like x (made
+    contiguous) and the forward's sums; returns the f32 time bias (or
+    None) and dy."""
+    _check_split_inputs(x, time_bias, what)
+    tb = _check_kernel_inputs(x, scale, bias, num_groups, time_bias, what)
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"dy must match x: {tuple(dy.shape)} {dy.dtype} "
+                         f"{dy.device} vs {tuple(x.shape)} {x.dtype}")
+    _check_sums("sums", sums, x)
+    return tb, dy.contiguous()
 
 
 def _check_split_inputs(x, time_bias, what):
@@ -666,6 +851,78 @@ def gn_apply_sums(x, sums, scale, bias, num_groups, count, time_bias=None,
                               time_bias, eps, apply_silu)
 
 
+def gn_bwd_partial_sums(x, dy, sums, scale, bias, num_groups, count,
+                        time_bias=None, eps=1e-5, apply_silu=True):
+    """K2's split form (c) for ``x``'s device: the plain twin on the CPU,
+    the kernel on CUDA."""
+    if x.device.type == "cpu":
+        return gn_bwd_partial_sums_plain(x, dy, sums, scale, bias,
+                                         num_groups, count, time_bias, eps,
+                                         apply_silu)
+    return gn_bwd_partial_sums_cuda(x, dy, sums, scale, bias, num_groups,
+                                    count, time_bias, eps, apply_silu)
+
+
+def gn_bwd_apply_sums(x, dy, sums, grad_sums, group_grad_sums, scale, bias,
+                      num_groups, count, time_bias=None, eps=1e-5,
+                      apply_silu=True):
+    """K2's split form (d) for ``x``'s device: the plain twin on the CPU,
+    the kernel on CUDA."""
+    if x.device.type == "cpu":
+        return gn_bwd_apply_sums_plain(x, dy, sums, grad_sums,
+                                       group_grad_sums, scale, bias,
+                                       num_groups, count, time_bias, eps,
+                                       apply_silu)
+    return gn_bwd_apply_sums_cuda(x, dy, sums, grad_sums, group_grad_sums,
+                                  scale, bias, num_groups, count, time_bias,
+                                  eps, apply_silu)
+
+
+class GroupNormSiLUSplitFunction(torch.autograd.Function):
+    """GroupNorm(+time bias)(+SiLU) of this rank's rows of images whose
+    rows are split over the ranks of a ``parallel/spatial.py::RowGroup``,
+    differentiable. Forward: K1's split form (a), the sums summed over the
+    group, (b). Backward: K2's split form (c), its sums summed over the
+    group, (d); the forward's summed sums are saved, so the backward needs
+    no second forward sum (a group's sums are the same on every rank, so
+    this equals recomputing them). dx is this rank's rows' whole gradient;
+    dγ, dβ and dtb are this rank's share, which the ranks' gradients sum.
+    No second derivative: the group's sums are taken outside autograd."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, time_bias, group, num_groups, eps,
+                apply_silu):
+        sums = gn_partial_sums(x, time_bias)
+        group.sum_(sums)
+        count = x.shape[1] * group.size * x.shape[2]
+        ctx.save_for_backward(x, scale, bias, time_bias, sums)
+        ctx.args = (group, num_groups, count, eps, apply_silu)
+        return gn_apply_sums(x, sums, scale, bias, num_groups, count,
+                             time_bias, eps, apply_silu)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale, bias, time_bias, sums = ctx.saved_tensors
+        group, num_groups, count, eps, apply_silu = ctx.args
+        if torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad
+                for t in (x, scale, bias, time_bias, dy)):
+            raise RuntimeError(
+                "group_norm_silu_split has no second derivative: its "
+                "backward sums over the ranks of a group outside autograd "
+                "(create_graph=True)")
+        args = (scale, bias, num_groups, count, time_bias, eps, apply_silu)
+        dy = dy.contiguous()
+        grad_sums = gn_bwd_partial_sums(x, dy, sums, *args)
+        summed = group.sum_(grad_sums.clone())
+        dx, dscale, dbias, dtb = gn_bwd_apply_sums(x, dy, sums, grad_sums,
+                                                   summed, *args)
+        if dtb is not None:
+            dtb = dtb.to(time_bias.dtype)
+        return (dx, dscale.to(scale.dtype), dbias.to(bias.dtype), dtb,
+                None, None, None, None)
+
+
 def group_norm_silu_split(x: torch.Tensor, scale: torch.Tensor,
                           bias: torch.Tensor, num_groups: int, group,
                           time_bias: Optional[torch.Tensor] = None,
@@ -675,12 +932,10 @@ def group_norm_silu_split(x: torch.Tensor, scale: torch.Tensor,
     images whose rows are split over the ranks of ``group`` (a
     ``parallel/spatial.py::RowGroup``): the partial sums of its rows (a),
     their sum over the group, and the apply (b) with the whole image's
-    statistics. Forward only (no graph is recorded)."""
-    sums = gn_partial_sums(x, time_bias)
-    group.sum_(sums)
-    count = x.shape[1] * group.size * x.shape[2]
-    return gn_apply_sums(x, sums, scale, bias, num_groups, count, time_bias,
-                         eps, apply_silu)
+    statistics; differentiable through K2's split form
+    (:class:`GroupNormSiLUSplitFunction`)."""
+    return GroupNormSiLUSplitFunction.apply(x, scale, bias, time_bias, group,
+                                            num_groups, eps, apply_silu)
 
 
 def _gn_fwd(x, scale, bias, num_groups, time_bias, eps, apply_silu):

@@ -93,8 +93,8 @@ def make_layout(num_devices: int, data_parallel: Optional[int] = None,
     if spatial_parallel > 1 and model_parallel > 1:
         raise ValueError(
             f"distributed.spatial_parallel {spatial_parallel} with "
-            f"model_parallel {model_parallel} is {NOT_PORTED}: spatial "
-            f"parallelism with model parallelism comes after {NEXT_SLICE}")
+            f"model_parallel {model_parallel} is {NOT_PORTED}: "
+            f"{NEXT_SLICE}")
     return {DATA_AXIS: data_parallel, SPATIAL_AXIS: spatial_parallel,
             MODEL_AXIS: model_parallel}
 

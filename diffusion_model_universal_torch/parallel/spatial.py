@@ -11,6 +11,7 @@ collectives are what the split layers need:
 * :meth:`RowGroup.halo`: k rows from the neighbours above and below,
   zero rows at the image's top and bottom;
 * :meth:`RowGroup.gather`: the group's whole activation;
+* :meth:`RowGroup.gather_output`: the same, for the network's output;
 * :meth:`RowGroup.slice`: this rank's rows of a whole activation;
 * :meth:`RowGroup.sum_`: partial statistics summed over the group.
 
@@ -18,6 +19,20 @@ Each exchange is one all-reduce of a zero-filled buffer with one slot a
 rank (x + 0 is x, so the sum moves rows bit for bit): gloo runs only
 broadcast and all-reduce on CUDA tensors, and the same code then runs
 on NCCL.
+
+Training: each rank's graph computes its own output rows' share of the
+loss, so the gradients of the weights (and of every activation held
+whole on each rank) are partial, and the trainer sums them over the
+group. The exchanges are differentiable to that rule: ``halo``'s
+gradient sends the halo rows' gradients back to the neighbour that owns
+them (one exchange), ``slice``'s fills the other ranks' rows with zeros,
+and ``gather``'s sums the whole activation's partial gradient over the
+group and keeps this rank's rows. The network's output is gathered by
+``gather_output``, whose gradient keeps this rank's rows without a sum:
+every rank takes the same loss of the same whole output, so the gradient
+reaching it is already whole (summing it would count it S times).
+Every rank runs the same graph, so the backward issues the same
+collectives in the same order on every rank.
 
 :func:`split` marks the layers' inputs as row blocks of a group while a
 split stage runs (:func:`active` reads it); outside it every layer runs
@@ -35,10 +50,11 @@ import torch.distributed as dist
 #: The reference shards height only from this many rows up ("at 4²/2²/1²
 #: feature maps a spatial shard is all halo and no work").
 MIN_ROWS = 8
-#: What still refuses spatial parallelism: its backward.
-NEXT_SLICE = ("the backward half of spatial parallelism (split GroupNorm "
-              "gradients summed over the group, halo gradients, weight "
-              "gradients summed over S) is the next slice of the port")
+#: What spatial parallelism still refuses: its layout with model
+#: parallelism.
+NEXT_SLICE = ("spatial parallelism together with model parallelism (row-split "
+              "activations on ranks that hold shards of the parameters) is "
+              "the next slice of the port")
 
 _ACTIVE: Optional["RowGroup"] = None
 
@@ -70,25 +86,43 @@ class RowGroup:
         return t
 
     def gather(self, x: torch.Tensor) -> torch.Tensor:
-        """The whole NCHW activation of which ``x`` is this rank's rows."""
+        """The whole NCHW activation of which ``x`` is this rank's rows;
+        its gradient is summed over the group and cut to this rank's
+        rows."""
+        return _Gather.apply(x, self, True)
+
+    def gather_output(self, x: torch.Tensor) -> torch.Tensor:
+        """:meth:`gather` for the network's output, whose gradient every
+        rank computes whole: cut to this rank's rows, not summed."""
+        return _Gather.apply(x, self, False)
+
+    def slice(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of the whole NCHW activation ``x``; its
+        gradient is zero on the other ranks' rows."""
+        return _Slice.apply(x, self)
+
+    def halo(self, x: torch.Tensor, k: int) -> torch.Tensor:
+        """This rank's rows of an NCHW activation with ``k`` rows of each
+        neighbour above and below them: zero rows at the image's top and
+        bottom. Its gradient sends the halo rows' gradients back to their
+        owners (:meth:`halo_grad`)."""
+        if x.shape[2] < k:
+            raise ValueError(f"a halo of {k} rows needs at least {k} rows a "
+                             f"rank, got {x.shape[2]}")
+        return _Halo.apply(x, self, k)
+
+    def _gather(self, x: torch.Tensor) -> torch.Tensor:
         buf = self._exchange(x)                       # [S, B, C, h, W]
         s, b, c, h, w = buf.shape
         return buf.permute(1, 2, 0, 3, 4).reshape(b, c, s * h, w).contiguous(
             memory_format=torch.channels_last)
 
-    def slice(self, x: torch.Tensor) -> torch.Tensor:
-        """This rank's rows of the whole NCHW activation ``x``."""
+    def _slice(self, x: torch.Tensor) -> torch.Tensor:
         lo, hi = self.rows(x.shape[2])
         return x[:, :, lo:hi].contiguous(memory_format=torch.channels_last)
 
-    def halo(self, x: torch.Tensor, k: int) -> torch.Tensor:
-        """This rank's rows of an NCHW activation with ``k`` rows of each
-        neighbour above and below them: zero rows at the image's top and
-        bottom."""
+    def _halo(self, x: torch.Tensor, k: int) -> torch.Tensor:
         h = x.shape[2]
-        if h < k:
-            raise ValueError(f"a halo of {k} rows needs at least {k} rows a "
-                             f"rank, got {h}")
         buf = self._exchange(torch.stack([x[:, :, :k], x[:, :, h - k:]]))
         zero = x.new_zeros(x[:, :, :k].shape)
         above = buf[self.index - 1, 1] if self.index > 0 else zero
@@ -96,6 +130,61 @@ class RowGroup:
             else zero
         return torch.cat([above, x, below], dim=2).contiguous(
             memory_format=torch.channels_last)
+
+    def halo_grad(self, g: torch.Tensor, k: int) -> torch.Tensor:
+        """The transpose of :meth:`halo`: from the gradient of this rank's
+        rows with their halos, [B, C, h + 2k, W], the gradient of its h
+        rows: their own, plus the gradients the neighbours computed for
+        them as halo rows (one exchange). The image's zero rows take
+        none."""
+        h = g.shape[2] - 2 * k
+        buf = self._exchange(torch.stack([g[:, :, :k], g[:, :, h + k:]]))
+        dx = g[:, :, k:h + k].clone(memory_format=torch.channels_last)
+        if self.index > 0:
+            dx[:, :, :k] += buf[self.index - 1, 1]
+        if self.index < self.size - 1:
+            dx[:, :, h - k:] += buf[self.index + 1, 0]
+        return dx
+
+
+class _Halo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, k):
+        ctx.group, ctx.k = group, k
+        return group._halo(x, k)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.halo_grad(g, ctx.k), None, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, summed):
+        ctx.group, ctx.summed = group, summed
+        return group._gather(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.summed:
+            g = ctx.group.sum_(g.clone(memory_format=torch.contiguous_format))
+        return ctx.group._slice(g), None, None
+
+
+class _Slice(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group, ctx.rows = group, x.shape[2]
+        return group._slice(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        lo, hi = ctx.group.rows(ctx.rows)
+        b, c, _, w = g.shape
+        whole = g.new_zeros((b, c, ctx.rows, w)).contiguous(
+            memory_format=torch.channels_last)
+        whole[:, :, lo:hi] = g
+        return whole, None
 
 
 def make_row_groups(spatial_parallel: int, rank: int, world: int
@@ -141,11 +230,3 @@ def active() -> Optional[RowGroup]:
     """The group whose row blocks the layers now take, or None."""
     return _ACTIVE
 
-
-def refuse_grad(*tensors) -> None:
-    """Raise where a split layer would record a graph: the split forward
-    has no backward yet."""
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in tensors):
-        raise NotImplementedError(f"gradients through a row-split layer: "
-                                  f"{NEXT_SLICE}")

@@ -63,12 +63,12 @@ shard (``--multihost``). NCCL joins the ranks on the card, gloo on the
 CPU. The config's ``distributed`` section gives the layout:
 ``model_parallel`` M > 1 shards the parameters, the EMA and Adam's
 moments over groups of M ranks (``trainers/trainer.py``), the batch's
-rows still split over all of them; ``spatial_parallel`` S > 1 runs
-with ``--eval_only`` (the test loss and ``--benchmark``): the ranks form
-spatial groups of S consecutive ranks that hold the same samples, each
-batch split over the D = N/S groups (B % D must be 0), and split each
-image's rows in the UNet (``parallel/spatial.py``); training under S,
-and S with M > 1, exit before any rank starts (``backend`` and
+rows still split over all of them; ``spatial_parallel`` S > 1 trains
+and evaluates with the ranks in spatial groups of S consecutive ranks
+that hold the same samples, each batch split over the D = N/S groups
+(B % D must be 0), and each image's rows split in the UNet
+(``parallel/spatial.py``; an update sums each group's S shares of the
+gradients); S with M > 1 exits before any rank starts (``backend`` and
 ``find_unused_parameters`` are accepted and unused).
 
 On the card the run ends by printing each kernel's launches in the run
@@ -89,10 +89,9 @@ import os
 import sys
 from pathlib import Path
 
-from .. import NOT_PORTED
 from ..ops._build import launch_counts
 from ..parallel import mesh
-from ..parallel.spatial import NEXT_SLICE, check_heights
+from ..parallel.spatial import check_heights
 from .generate import MODEL_TYPES
 
 
@@ -176,12 +175,10 @@ def run_benchmark(trainer, config, test_loader, eval_only: bool,
     return results
 
 
-def check_layout(config, num_devices: int, eval_only: bool = False) -> dict:
+def check_layout(config, num_devices: int) -> dict:
     """The config's ``distributed`` layout over ``num_devices`` devices
-    (``parallel/mesh.py::make_layout``); exits on a refusal, for
-    training under ``spatial_parallel`` > 1 (only ``--eval_only`` runs
-    it), and for a sharded height that ``spatial_parallel`` does not
-    divide."""
+    (``parallel/mesh.py::make_layout``); exits on a refusal, and for a
+    sharded height that ``spatial_parallel`` does not divide."""
     dist_cfg = config.get("distributed", {}) or {}
     try:
         layout = mesh.make_layout(
@@ -191,10 +188,6 @@ def check_layout(config, num_devices: int, eval_only: bool = False) -> dict:
     except ValueError as e:
         raise SystemExit(f"distributed: {e}") from None
     s = layout[mesh.SPATIAL_AXIS]
-    if s > 1 and not eval_only:
-        raise SystemExit(
-            f"distributed: training under spatial_parallel {s} is "
-            f"{NOT_PORTED}: {NEXT_SLICE}; run it with --eval_only")
     if s > 1:
         try:
             check_heights(int((config.get("model_config") or {}).get(
@@ -223,12 +216,12 @@ def main(argv=None) -> int:
                                  track_histograms=False)
         device = mesh.init_from_env(device.type)
         try:
-            check_layout(config, mesh.world_size(), args.eval_only)
+            check_layout(config, mesh.world_size())
             return run(args, config, device)
         finally:
             mesh.shutdown()
     n = len(mesh.local_devices(args.num_devices, device.type))
-    layout = check_layout(config, n, args.eval_only)
+    layout = check_layout(config, n)
     if n == 1:
         return run(args, config, device)
     batch = int(config.get("training", {}).get("batch_size", 128))

@@ -42,6 +42,8 @@ class _OwnSamplerTrainer(DiffusionTrainer):
         with self.ema_weights() if use_ema else contextlib.nullcontext():
             samples = self.model.generate_samples(num_samples, gen)
         path = self.output_dir / "samples" / f"epoch_{epoch}.png"
+        if not self.is_main:     # another rank of a spatial group
+            return str(path)
         return save_image(samples.cpu().numpy(), str(path))
 
 

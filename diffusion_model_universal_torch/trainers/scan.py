@@ -46,11 +46,15 @@ SCAN_ACCUM_EXCLUSIVE = (
 
 
 def scan_refusal(scan_steps: int, device_type: str, backend: Optional[str],
-                 model_parallel: int) -> Optional[str]:
+                 model_parallel: int,
+                 spatial_parallel: int = 1) -> Optional[str]:
     """Why ``scan_steps`` > 1 cannot run with this layout on this device,
     or None. On the card the chunk is captured, which gloo's collectives
     (host copies) and ``model_parallel``'s gathers and frees of the whole
-    parameters around each update do not allow."""
+    parameters around each update do not allow; capturing the
+    ``spatial_parallel`` exchanges of a chunk over NCCL is a later slice
+    (one card cannot drive it: NCCL takes one rank a card). On the CPU
+    the chunk runs eagerly, under any layout."""
     if scan_steps <= 1 or device_type != "cuda":
         return None
     if backend == "gloo":
@@ -63,6 +67,11 @@ def scan_refusal(scan_steps: int, device_type: str, backend: Optional[str],
                 "distributed.model_parallel > 1 on CUDA: each update "
                 "gathers the whole parameters from their shards and frees "
                 "them, which cannot be captured in a CUDA graph")
+    if spatial_parallel > 1:
+        return ("training.scan_steps > 1 with distributed.spatial_parallel "
+                "> 1 on CUDA (a captured chunk of the row split's halo, "
+                "gather and GroupNorm exchanges over NCCL) is a later slice "
+                "of the port; use scan_steps: 1")
     return None
 
 

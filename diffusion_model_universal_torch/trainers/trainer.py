@@ -78,19 +78,27 @@ validation fire at the chunk that crosses their interval, the
 throughput is taken between log events, the preemption agreement runs
 once a chunk, the ragged tail of an epoch runs as single updates, the
 chunk returns only its per-step losses, and K > 1 excludes
-``grad_accum_steps`` > 1. On CUDA it is refused over gloo and with
-``model_parallel`` > 1 (:func:`scan.scan_refusal`).
+``grad_accum_steps`` > 1. On CUDA it is refused over gloo, with
+``model_parallel`` > 1 and with ``spatial_parallel`` > 1
+(:func:`scan.scan_refusal`).
 
-Spatial parallelism (``distributed.spatial_parallel`` S > 1), forward
-only: the ranks form spatial groups of S consecutive ranks (the
-reference mesh's order, rank = d·S + s); the S ranks of data group d
-hold the same rows of every batch (the loaders split a batch over the D
-groups), draw alike (the default generator is seeded by d, so dropout
-masks match), and split each image's rows in the UNet
-(``parallel/spatial.py``, ``UNet.set_row_group``). Evaluation, the
-sample grids and the sampling harness run so, and (Σ loss, count) takes
-each data group's samples once, from s = 0. A training update is
-refused: its backward is the next slice.
+Spatial parallelism (``distributed.spatial_parallel`` S > 1): the
+ranks form spatial groups of S consecutive ranks (the reference mesh's
+order, rank = d·S + s); the S ranks of data group d hold the same rows
+of every batch (the loaders split a batch over the D groups), draw alike
+(the default generator is seeded by d, so dropout masks match), and
+split each image's rows in the UNet (``parallel/spatial.py``,
+``UNet.set_row_group``). Evaluation, the sample grids and the sampling
+harness run so, and (Σ loss, count) takes each data group's samples
+once, from s = 0. In a training update every rank of a group computes
+the same loss of the same whole output, and its backward gives the
+share of the gradients that comes from its own rows of each image
+(``RowGroup.gather_output``), so the flat all-reduce over all D·S ranks
+sums the S shares of each data group and the D groups, each weighted by
+its data group's share of the batch; the loss is counted once per data
+group, from s = 0. A network without a row split (the EnergyNet)
+computes the whole gradient on each of the S ranks, so it too is
+counted from s = 0 alone.
 """
 
 from __future__ import annotations
@@ -189,6 +197,11 @@ class DiffusionTrainer:
                                layout[mesh.DATA_AXIS])
             if hasattr(model.net, "set_row_group"):   # not the EnergyNet
                 model.net.set_row_group(self.row_group)
+        #: Whether this rank draws the sample grids: rank 0, and under
+        #: spatial parallelism every rank of rank 0's group, which split
+        #: each image's rows (the others wait for none of them).
+        self.draws_grids = self.is_main or (
+            self.row_group is not None and self._row_split[0] == 0)
         # Dropout masks: the S ranks of a spatial group draw alike.
         torch.manual_seed(seed + _SEED_STRIDE * self._row_split[0])
         named = list(model.net.named_parameters())
@@ -197,7 +210,8 @@ class DiffusionTrainer:
         param_count = sum(p.numel() for p in self.params)
         mesh.broadcast_(self.params)
         refusal = scan_refusal(self.scan_steps, self.device.type,
-                               mesh.backend(), model_parallel)
+                               mesh.backend(), model_parallel,
+                               self.spatial_parallel)
         if refusal:
             raise ValueError(refusal)
         self.sharding = None
@@ -281,13 +295,6 @@ class DiffusionTrainer:
         i, n = self._row_split
         return (i * b, (i + 1) * b, n * b)
 
-    def _refuse_spatial_training(self) -> None:
-        if self.spatial_parallel > 1:
-            raise NotImplementedError(
-                f"a training update under distributed.spatial_parallel "
-                f"{self.spatial_parallel}: {spatial.NEXT_SLICE}; run train "
-                f"--eval_only (evaluation, sample grids, --benchmark)")
-
     def _loss_and_grads(self, micro_batches: List[Any], step: int,
                         draws: Optional[List[Dict[str, Any]]] = None,
                         drawn: bool = False):
@@ -297,8 +304,11 @@ class DiffusionTrainer:
         micro=i)`` what ``draws[i]`` does not give (the global batch's,
         under data parallelism; ``drawn``: all of it, and no generator is
         touched). Under data parallelism, each micro-batch's are weighted
-        by the rank's share of its rows and summed over the ranks."""
-        self._refuse_spatial_training()
+        by the rank's share of its rows and summed over the ranks; under
+        spatial parallelism the ranks s > 0 of a group add no loss (and,
+        for a network without a row split, no gradients): the group's
+        ranks hold one loss, and the split network's gradients in S
+        shares."""
         loss_sum, grads_sum = None, None
         for i, batch in enumerate(micro_batches):
             x, y = self._split_batch(batch)
@@ -325,6 +335,10 @@ class DiffusionTrainer:
             inv = 1.0 / len(micro_batches)
             loss_sum = loss_sum * inv
             torch._foreach_mul_(grads_sum, inv)
+        if self.row_group is not None and self.row_group.index > 0:
+            loss_sum = torch.zeros_like(loss_sum)
+            if not hasattr(self.model.net, "set_row_group"):
+                torch._foreach_zero_(grads_sum)
         if self.data_parallel:
             loss_sum = loss_sum.clone()
             mesh.all_reduce_sum_([loss_sum, *grads_sum])
@@ -631,7 +645,6 @@ class DiffusionTrainer:
     def train(self, num_epochs: Optional[int] = None) -> Dict[str, float]:
         """Run the training loop for ``num_epochs`` epochs from
         ``start_epoch``; returns the last epoch's mean loss."""
-        self._refuse_spatial_training()
         num_epochs = num_epochs if num_epochs is not None else self.num_epochs
         history: Dict[str, float] = {}
         self.preempted = False
@@ -680,7 +693,7 @@ class DiffusionTrainer:
                 if self.sample_interval and \
                         (epoch + 1) % self.sample_interval == 0:
                     with self.whole_params():
-                        if self.is_main:
+                        if self.draws_grids:
                             self.generate_samples(epoch)
                 if self.checkpoint_interval and \
                         (epoch + 1) % self.checkpoint_interval == 0:

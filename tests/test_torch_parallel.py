@@ -434,8 +434,9 @@ def test_distributed_layout_refusals(tmp_path, devices, model, spatial,
                                      refusal):
     """The config's ``distributed`` section, once ignored: a layout that
     does not cover the devices raises as JAX's ``make_mesh`` does (its
-    message); spatial parallelism lays the ranks out as JAX's mesh and
-    its training (the backward half, not ported) is refused; model
+    message); spatial parallelism lays the ranks out as JAX's mesh, and
+    the CLI refuses a sharded height that S does not divide (36² halves
+    to 9 rows, and training under S otherwise runs); model
     parallelism runs, in JAX's layout, and the CLI refuses a batch that
     the D·M ranks cannot split (JAX needs only D to divide it: its model
     axis shards channels, the port's ranks split rows), all before any
@@ -458,8 +459,9 @@ def test_distributed_layout_refusals(tmp_path, devices, model, spatial,
                                 spatial_parallel=spatial) == dict(
                                     jmesh.shape)
         if spatial > 1:
-            refusal = (f"distributed: training under {refusal} {spatial} "
-                       f"is {NOT_PORTED}")
+            cfg["model_config"] = dict(MODEL_CFG, image_size=36)
+            refusal = (f"distributed: distributed.{refusal} {spatial} does "
+                       f"not divide the sharded height 9 of a 36² UNet")
         else:
             cfg["training"]["batch_size"] = 3
     path = tmp_path / "cfg.yaml"

@@ -4,7 +4,8 @@ CPU, at a small size (C=32, 32² and 64², T=8, B=2 or 4), in f32.
 In one process: K1's split form in its plain versions (partial sums of 2
 and 4 row blocks added, then the apply) and the three halo convs over 2
 and 4 row blocks, each against the JAX package on the whole input; the
-layout against JAX's ``make_mesh``, and the refusals.
+layout against JAX's ``make_mesh``, and the refusals (training under
+S runs: ``tests/test_torch_spatial_train.py``).
 
 On ranks, in one spawn (``torch_spatial_ranks.phases``): two gloo ranks
 split each image's rows (``spatial_parallel: 2``) for the UNet's forward
@@ -12,7 +13,7 @@ at 32² and 64² (attention at 8² sharded), held against the JAX UNet's
 jitted apply under its spatial mesh and against one process of the port;
 ``validate()``/``test()`` with dropout 0.1, DPM++-4 samples,
 ``train --benchmark``'s harness and the sample grid, each against one
-process of the port; the refusals of a training update; then four ranks,
+process of the port; then four ranks,
 as one spatial group (S=4, dropout 0.1) and as D=2 data groups of S=2.
 Last, the two faults repaired beside the slice: CelebA's JPEG path
 against the reference's C++ loader, and the logged throughput of a
@@ -215,14 +216,11 @@ def test_layout_matches_jax_mesh(devices, spatial_parallel):
                 m) == (d, s, 0)
 
 
-@pytest.mark.parametrize("case", ["with_model_parallel", "training",
-                                  "height"])
-def test_spatial_refusals(tmp_path, request, case):
+@pytest.mark.parametrize("case", ["with_model_parallel", "height"])
+def test_spatial_refusals(tmp_path, case):
     """Refused before any rank starts, by the CLI: S with M (its message
-    names the next slice), training under S (likewise; the eval path
-    runs; on the ranks a trainer under S=2 refuses ``step`` and
-    ``train``, naming the next slice), and a sharded height that S does
-    not divide (named)."""
+    names the next slice), and a sharded height that S does not divide
+    (named)."""
     cfg = _config(tmp_path / "run", 2)
     args, devices = ["--eval_only"], 2
     if case == "with_model_parallel":
@@ -231,16 +229,8 @@ def test_spatial_refusals(tmp_path, request, case):
         with pytest.raises(ValueError, match=re.escape(
                 spatial.NEXT_SLICE)):
             mesh.make_layout(4, model_parallel=2, spatial_parallel=2)
-        said = "distributed: distributed.spatial_parallel 2 with " \
-               "model_parallel 2"
-    elif case == "training":
-        args = []
-        said = (f"distributed: training under spatial_parallel 2 is "
-                f"{NOT_PORTED}: {spatial.NEXT_SLICE}")
-        results, _ = request.getfixturevalue("spawned")
-        for r in (0, 1):
-            for got in results[r]["refusals"].values():
-                assert got is not None and spatial.NEXT_SLICE in got
+        said = (f"distributed: distributed.spatial_parallel 2 with "
+                f"model_parallel 2 is {NOT_PORTED}: {spatial.NEXT_SLICE}")
     else:
         cfg["distributed"]["spatial_parallel"] = devices = 16
         said = ("distributed.spatial_parallel 16 does not divide the "
@@ -293,7 +283,6 @@ def spawned(tmp_path_factory):
            ("validate", "validate", (cfg2, w32)),
            ("dpm", "dpm_sample", (cfg2, w32, B, 4)),
            ("grid", "grid", (cfg2, w32)),
-           ("refusals", "refusals", (cfg2,)),
            ("throughput", "throughput", (tput, 2))]
     four = [("validate4", "validate", (cfg4, w32)),
             ("validate_d2", "validate", (cfg_d2, w32)),
